@@ -1,0 +1,33 @@
+"""Engine core as a package, split along its natural interfaces (the
+counterpart of ``paddle_tpu.inference.engine``).
+
+Layering (each module imports only what is below it):
+
+    request    Request / RequestStatus / prefix_page_keys — lifecycle types
+    metrics    _EngineMetrics — per-engine registry children (labelled)
+    compat     _LegacyDelegation — the pre-split private-attribute surface
+    pages      PagePool — paged-KV accounting: refcounts, prefix-cache
+               chain-hash index, LRU reclaim, audit
+    runner     ModelRunner — the prefill/decode forwards and the KV buffers
+               on ONE device, plus page gather/scatter for the KV tiers
+    spec       SpecConfig, the draft proposers, and the engine's
+               speculative-decode orchestration mixin
+    scheduler  Scheduler — admission, deadlines, continuous batching,
+               preemption, slot/page-table state
+    core       LLMEngine — the facade composing the above; owns step
+               policy, failure isolation, and the auto-fits
+
+``DisaggEngine`` (disaggregated prefill/decode) is not ported yet.
+``paddle_tpu_torch.inference.serving`` re-exports the public names.
+"""
+from .request import Request, RequestStatus, prefix_page_keys
+from .pages import PagePool
+from .runner import ModelRunner
+from .spec import SpecConfig
+from .scheduler import Scheduler
+from .core import LLMEngine
+
+__all__ = [
+    "LLMEngine", "Scheduler", "PagePool", "ModelRunner",
+    "Request", "RequestStatus", "SpecConfig", "prefix_page_keys",
+]

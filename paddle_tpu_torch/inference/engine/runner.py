@@ -1,0 +1,324 @@
+"""Device half of the engine core: weights, paged-KV buffers, and the prefill
+/ decode programs, all on ONE device.
+
+:class:`ModelRunner` owns everything that lives on (or dispatches to) the
+card: the model's weights, the paged KV cache, the copy-on-write page copy,
+and the page gather/scatter primitives the KV tiers are built from.  It
+holds NO scheduling state — no queues, no refcounts, no request objects.
+
+Counterpart of ``paddle_tpu/inference/engine/runner.py``, in PyTorch:
+- A PREFILL step consumes a CHUNK of prompt tokens for one slot per
+  dispatch; the chunk's rows ride the paged-attention kernel's batch dim
+  with per-row context lengths, so causal masking falls out of
+  ctx = pos + 1.  A DECODE step feeds every in-flight slot its last token
+  (token-level continuous batching); ``run_decode`` runs K such steps.
+- The layer stack is a Python loop over the layers (the reference's
+  ``lax.scan``); each layer writes its new K/V rows into the cache IN PLACE
+  (``kp[l, page_idx, within] = k``) before attention reads them.
+- Sampling is batched on the device with per-slot parameters (greedy /
+  temperature / top-k / top-p / seed), with the reference's filter order.
+- KV lives in PAGES: two tensors [L, n_pages, page, KVH, D]; page tables
+  arrive from the scheduler per dispatch.
+
+The device decides the attention path: CUDA tensors go through the
+hand-written paged-attention kernel, CPU tensors through its plain version
+(see :mod:`paddle_tpu_torch.ops.paged_attention`).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...device import resolve_device
+from ...models.llama import rms_norm as _rms
+from ...models.llama import rope as _rope
+from ...ops.paged_attention import paged_attention
+
+__all__ = ["ModelRunner"]
+
+_MAXK = 64        # cap for per-slot dynamic top-k filtering
+
+
+def _sample(logits, greedy, temp, topp, topk, seeds):
+    """Batched sampling, the reference's ``_sample_row`` filter order:
+    temperature -> top-k (cap ``_MAXK``) -> top-p over the sorted vocab.
+    logits [B, V] float32 on the device; the per-row parameters are host
+    numpy arrays [B].  Greedy rows take ``argmax`` (the first index on
+    ties); each sampled row draws from its own ``torch.Generator`` seeded
+    ``seeds[i]``, so draws are reproducible within the port (they cannot
+    match JAX's threefry draws)."""
+    amax = torch.argmax(logits, dim=-1)
+    sampled = np.flatnonzero(np.asarray(greedy) == 0)
+    if sampled.size == 0:
+        return amax.to(torch.int32)
+    dev = logits.device
+    rows = torch.as_tensor(sampled, device=dev)
+    lg = logits[rows]
+    t = torch.as_tensor(np.asarray(temp, np.float32)[sampled], device=dev)
+    tk = torch.as_tensor(np.asarray(topk, np.int64)[sampled], device=dev)
+    tp = torch.as_tensor(np.asarray(topp, np.float32)[sampled], device=dev)
+    probs = torch.softmax(lg / torch.where(t > 0, t, 1.0)[:, None], dim=-1)
+    maxk = min(_MAXK, lg.shape[-1])
+    kvals = torch.topk(probs, maxk, dim=-1).values
+    thresh = kvals.gather(1, (tk - 1).clamp(0, maxk - 1)[:, None])
+    probs = torch.where((tk > 0)[:, None] & (probs < thresh), 0.0, probs)
+    probs = probs / probs.sum(-1, keepdim=True)
+    sorted_p, sort_idx = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+    cum = torch.cumsum(sorted_p, dim=-1)
+    keep = torch.where((tp < 1.0)[:, None], (cum - sorted_p) < tp[:, None],
+                       sorted_p >= 0)
+    filtered = torch.where(keep, sorted_p, 0.0)
+    filtered = filtered / filtered.sum(-1, keepdim=True)
+    out = amax.clone()
+    for j, row in enumerate(sampled):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seeds[row]))
+        choice = torch.multinomial(filtered[j], 1, generator=gen)
+        out[row] = sort_idx[j, choice[0]]
+    return out.to(torch.int32)
+
+
+def _to_numpy(t):
+    """Owned host numpy copy of a CPU tensor; bfloat16 (which numpy lacks)
+    travels as its int16 bit pattern."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy().copy()
+
+
+def _from_host(a, like):
+    """Tensor on ``like``'s device and dtype from a host block component
+    (numpy array or tensor); int16 numpy blocks of a bfloat16 cache are
+    reinterpreted, not converted."""
+    if isinstance(a, np.ndarray):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if like.dtype == torch.bfloat16 and t.dtype == torch.int16:
+            t = t.view(torch.bfloat16)
+    else:
+        t = a
+    return t.to(device=like.device, dtype=like.dtype, non_blocking=True)
+
+
+class ModelRunner:
+    """Weights + paged KV + the prefill/decode forwards on one device."""
+
+    def __init__(self, model, max_batch=4, page_size=16, prefill_chunk=32,
+                 n_pages=None, kv_cache_dtype="auto", device="cuda"):
+        if kv_cache_dtype == "int8":
+            raise NotImplementedError(
+                "kv_cache_dtype='int8' needs the int8-page paged-attention "
+                "kernel (K6), which is not ported yet")
+        if kv_cache_dtype != "auto":
+            raise ValueError(f"unknown kv_cache_dtype {kv_cache_dtype!r}")
+        self.device = resolve_device(device)
+        cfg = model.config
+        self.cfg = cfg
+        self.max_batch = int(max_batch)
+        self.page = int(page_size)
+        self.chunk = int(prefill_chunk)
+        self.n_pages = int(n_pages)
+        self.trash_page = self.n_pages - 1
+        L = cfg.num_hidden_layers
+        nh, kvh = cfg.num_attention_heads, cfg.num_key_value_heads
+        D = cfg.hidden_size // nh
+        self.nh, self.kvh, self.D = nh, kvh, D
+        self.kv_quant = False
+
+        def w(p):
+            return p.detach().to(self.device)
+
+        lay = model.llama.layers
+        self.W = {
+            "embed": w(model.llama.embed_tokens.weight),
+            "norm": w(model.llama.norm.weight),
+            # the head runs in float32, as the reference's logits do
+            "head": w(model.head_weight()).float(),
+            "wq": [w(l.self_attn.q_proj.weight) for l in lay],
+            "wk": [w(l.self_attn.k_proj.weight) for l in lay],
+            "wv": [w(l.self_attn.v_proj.weight) for l in lay],
+            "wo": [w(l.self_attn.o_proj.weight) for l in lay],
+            "ln1": [w(l.input_layernorm.weight) for l in lay],
+            "ln2": [w(l.post_attention_layernorm.weight) for l in lay],
+            "wg": [w(l.mlp.gate_proj.weight) for l in lay],
+            "wu": [w(l.mlp.up_proj.weight) for l in lay],
+            "wd": [w(l.mlp.down_proj.weight) for l in lay],
+        }
+        dtype = self.W["wq"][0].dtype
+        kp = torch.zeros((L, self.n_pages, self.page, kvh, D), dtype=dtype,
+                         device=self.device)
+        self.cache = (kp, torch.zeros_like(kp))
+        self._decode_programs: dict = {}    # decode block sizes run so far
+        self._verify_programs: dict = {}
+
+    @property
+    def use_kernel(self):
+        """Whether attention goes through the CUDA kernel — decided by the
+        device alone, never by a switch."""
+        return self.device.type == "cuda"
+
+    @property
+    def devices(self):
+        """The device set this runner's buffers live on."""
+        return (self.device,)
+
+    # ---------------------------------------------------------------- layers
+    def _forward(self, x, pos, page_idx, within, tables, ctx):
+        """The layer stack over rows x [N, hidden]: each row sits at
+        position pos [N], writes its K/V into (page_idx, within) and attends
+        through its block-table row tables [N, S] to ctx [N] tokens.
+        Returns the final-normed hidden states [N, hidden]."""
+        W, nh, kvh, D = self.W, self.nh, self.kvh, self.D
+        eps = self.cfg.rms_norm_eps
+        theta = self.cfg.rope_theta
+        kp_all, vp_all = self.cache
+        for l in range(len(W["wq"])):
+            h = _rms(x, W["ln1"][l], eps)
+            q = _rope(F.linear(h, W["wq"][l]).view(-1, nh, D), pos, theta)
+            k = _rope(F.linear(h, W["wk"][l]).view(-1, kvh, D), pos, theta)
+            v = F.linear(h, W["wv"][l]).view(-1, kvh, D)
+            kp, vp = kp_all[l], vp_all[l]
+            kp[page_idx, within] = k
+            vp[page_idx, within] = v
+            att = paged_attention(q, kp, vp, tables, ctx)
+            x = x + F.linear(att.reshape(-1, nh * D), W["wo"][l])
+            h = _rms(x, W["ln2"][l], eps)
+            up = F.linear(h, W["wu"][l])
+            gate = F.silu(F.linear(h, W["wg"][l]).float()).to(up.dtype)
+            x = x + F.linear(gate * up, W["wd"][l])
+        return _rms(x, W["norm"], eps)
+
+    def _logits(self, h):
+        return F.linear(h.float(), self.W["head"])
+
+    def _i32(self, a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+
+    # ------------------------------------------------------------- dispatch
+    def has_decode_program(self, k):
+        return k in self._decode_programs
+
+    def has_verify_program(self, kv):
+        return kv in self._verify_programs
+
+    @torch.no_grad()
+    def run_prefill(self, tokens, start, table, n_valid,
+                    greedy, temp, topp, topk, seed):
+        """Dispatch one prefill chunk; returns the sampled next token as a
+        0-d DEVICE tensor (only the caller decides whether to sync on it — a
+        mid-prompt chunk's sample is never read)."""
+        C = self.chunk
+        tok = self._i32(tokens)
+        tab = self._i32(table)
+        x = self.W["embed"][tok.long()]                          # [C, H]
+        offs = torch.arange(C, dtype=torch.int32, device=self.device)
+        pos = int(start) + offs
+        valid = offs < int(n_valid)
+        page_idx = tab[(pos // self.page).long().clamp(max=tab.shape[0] - 1)]
+        page_idx = torch.where(valid, page_idx, self.trash_page).long()
+        within = (pos % self.page).long()
+        ctx = torch.where(valid, pos + 1, 1).to(torch.int32)
+        tables = tab[None, :].expand(C, -1).contiguous()
+        h = self._forward(x, pos, page_idx, within, tables, ctx)
+        last = h[max(int(n_valid) - 1, 0)][None]
+        nxt = _sample(self._logits(last), [greedy], [temp], [topp], [topk],
+                      [seed])
+        return nxt[0]
+
+    @torch.no_grad()
+    def run_decode(self, k, tokens, lens, tables, active,
+                   greedy, temp, topp, topk, seeds, fold):
+        """Run a K-step decode block; returns host tokens [k, B] int32 (the
+        copy to the host syncs, so the caller's wall time is a true dispatch
+        sample)."""
+        self._decode_programs[k] = True
+        act = self._i32(active) > 0
+        tok = self._i32(tokens)
+        ln = self._i32(lens)
+        tab = self._i32(tables)
+        seeds = np.asarray(seeds, np.int64)
+        fold = np.asarray(fold, np.int64)
+        S = tab.shape[1]
+        outs = []
+        for i in range(int(k)):
+            x = self.W["embed"][tok.long()]                      # [B, H]
+            pos = ln
+            slot = (pos // self.page).long().clamp(max=S - 1)
+            page_idx = tab.gather(1, slot[:, None])[:, 0]
+            # inactive slots write into the trash page, never a live one
+            page_idx = torch.where(act, page_idx, self.trash_page).long()
+            within = (pos % self.page).long()
+            ctx = torch.where(act, pos + 1, 1).to(torch.int32)
+            h = self._forward(x, pos, page_idx, within, tab, ctx)
+            nxt = _sample(self._logits(h), greedy, temp, topp, topk,
+                          seeds + i * fold)
+            tok = torch.where(act, nxt, tok)
+            ln = ln + act.to(ln.dtype)
+            outs.append(nxt)
+        return torch.stack(outs).cpu().numpy()
+
+    def run_verify(self, kv, tokens, lens, tables, n_rows,
+                   greedy, temp, topp, topk, seeds, fold):
+        raise NotImplementedError(
+            "speculative verification needs the multi-query paged-attention "
+            "kernel (K7), which is not ported yet")
+
+    # ---------------------------------------------------------- page movement
+    @torch.no_grad()
+    def copy_page(self, src, dst):
+        """Device-side copy of one physical KV page (all layers, K and V) —
+        the copy half of copy-on-write."""
+        for a in self.cache:
+            a[:, int(dst)] = a[:, int(src)]
+
+    @torch.no_grad()
+    def gather_pages(self, page_idx):
+        """``page_idx`` pages out of the cache as a dense block (tuple of
+        [L, n, page, ...] tensors) — fresh copies, never views."""
+        idx = torch.as_tensor(np.asarray(page_idx, np.int64),
+                              device=self.device)
+        return tuple(a.index_select(1, idx) for a in self.cache)
+
+    @torch.no_grad()
+    def scatter_pages(self, page_idx, block):
+        """Write a dense page block into ``page_idx`` of this runner's cache,
+        in place."""
+        idx = torch.as_tensor(np.asarray(page_idx, np.int64),
+                              device=self.device)
+        for a, b in zip(self.cache, block):
+            a.index_copy_(1, idx, _from_host(b, a))
+
+    def kv_bytes_per_page(self):
+        """Device bytes one KV page costs across all layers (both K and V) —
+        the unit of the page_pool budget."""
+        return sum(a.numel() * a.element_size()
+                   for a in self.cache) // self.n_pages
+
+    def pages_to_host(self, page_idx):
+        """Gather ``page_idx`` pages and land them in host RAM as a tuple of
+        owned numpy arrays (one [L, n, page, ...] array per cache component)
+        — the device half of a host-tier spill.  A bfloat16 cache lands as
+        int16 bit patterns (numpy has no bfloat16); :meth:`restore_pages`
+        and :meth:`scatter_pages` reinterpret them."""
+        return tuple(_to_numpy(a.cpu()) for a in self.gather_pages(page_idx))
+
+    def put_block(self, block):
+        """Start the transfer of a page block (tensors from another runner's
+        ``gather_pages``, or host numpy arrays) onto THIS runner's device;
+        the copy is non-blocking where the source allows it."""
+        return tuple(_from_host(b, a) for a, b in zip(self.cache, block))
+
+    def restore_pages(self, page_idx, host_blocks):
+        """Write host-tier page blocks back into device pages ``page_idx``
+        (one single-page block per entry, in order) — the device half of a
+        spill restore.  Page i+1's host->device transfer is issued before
+        page i's scatter."""
+        if not page_idx:
+            return
+        pending = self.put_block(host_blocks[0])
+        for i, p in enumerate(page_idx):
+            blk, pending = pending, (
+                self.put_block(host_blocks[i + 1])
+                if i + 1 < len(page_idx) else None)
+            self.scatter_pages([p], blk)

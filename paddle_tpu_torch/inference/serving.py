@@ -1,0 +1,26 @@
+"""Serving runtime: the stable import surface of the engine package (the
+counterpart of ``paddle_tpu.inference.serving``).
+
+The implementation lives in :mod:`paddle_tpu_torch.inference.engine`:
+a chunked PREFILL step and a token-level continuous-batching DECODE step
+over a paged KV cache [L, n_pages, page, KVH, D], with host-managed per-slot
+page tables, on-demand growth, youngest-slot preemption-recompute, and
+automatic prefix caching.  On the card, attention runs the hand-written
+paged-attention CUDA kernel.  ``DisaggEngine`` is not ported yet.
+"""
+from __future__ import annotations
+
+from .engine import (  # noqa: F401
+    LLMEngine,
+    ModelRunner,
+    PagePool,
+    Request,
+    RequestStatus,
+    Scheduler,
+    SpecConfig,
+    prefix_page_keys,
+)
+from .engine.spec import _NgramProposer  # noqa: F401  (test import)
+
+__all__ = ["LLMEngine", "Request", "RequestStatus", "SpecConfig",
+           "prefix_page_keys", "Scheduler", "PagePool", "ModelRunner"]

@@ -72,6 +72,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running tests excluded from the tier-1 gate (-m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card; skips with a reason where there is none")
 
 
 # ------------------------------------------------- chaos post-mortem capture

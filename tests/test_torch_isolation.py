@@ -1,0 +1,113 @@
+"""The PyTorch port stands alone: nothing under ``paddle_tpu_torch/`` or in
+``chip_smoke.py`` imports JAX or the JAX package; its entry points run on
+the card unless the caller asks for the CPU, and raise without CUDA; the
+engine options whose kernels are not ported yet are refused, not served
+some other way."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from paddle_tpu_torch.device import resolve_device
+from paddle_tpu_torch.inference.engine import ModelRunner
+from paddle_tpu_torch.inference.serving import LLMEngine, SpecConfig
+from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.ops.paged_attention import paged_attention
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _imported_roots(path):
+    """Top-level package of every absolute import in ``path``."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_files_import_no_jax_and_nothing_of_the_jax_package():
+    assert len(PORT_FILES) > 20
+    bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
+                                            & set(FORBIDDEN))
+           for p in PORT_FILES}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys\n"
+            "import paddle_tpu_torch.inference.serving\n"
+            "import paddle_tpu_torch.models.convert\n"
+            "import paddle_tpu_torch.observability\n"
+            "import paddle_tpu_torch.testing\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """This machine as a caller without a card sees it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture(scope="module")
+def model():
+    return LlamaForCausalLM(LlamaConfig.tiny(), device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+
+
+def test_entry_points_default_to_the_card_and_raise_without_it(no_cuda,
+                                                               model):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LLMEngine(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelRunner(model, n_pages=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LlamaForCausalLM(LlamaConfig.tiny())
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_paged_attention_takes_only_cpu_or_cuda_tensors():
+    q = torch.empty(1, 4, 64, device="meta")
+    kp = torch.empty(2, 8, 2, 64, device="meta")
+    bt = torch.zeros(1, 1, dtype=torch.int32, device="meta")
+    cl = torch.ones(1, dtype=torch.int32, device="meta")
+    before = paged_attention.launches
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        paged_attention(q, kp, kp, bt, cl)
+    assert paged_attention.launches == before
+
+
+@pytest.mark.parametrize("knob,value,kernel", [
+    ("kv_cache_dtype", "int8", "K6"),
+    ("spec_decode", SpecConfig(max_draft=2), "K7"),
+    ("mesh", object(), "multi-device"),
+])
+def test_unported_options_are_refused(model, knob, value, kernel):
+    with pytest.raises(NotImplementedError, match=kernel):
+        LLMEngine(model, device="cpu", **{knob: value})
+
+
+def test_unported_runner_paths_are_refused(model):
+    runner = ModelRunner(model, n_pages=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="K7"):
+        runner.run_verify(2, None, None, None, None, None, None, None, None,
+                          None, None)
+    with pytest.raises(NotImplementedError, match="K1"):
+        LlamaForCausalLM.forward(
+            model, torch.zeros(1, 2, dtype=torch.long, device="meta"))
