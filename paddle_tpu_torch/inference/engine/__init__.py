@@ -8,8 +8,9 @@ Layering (each module imports only what is below it):
     compat     _LegacyDelegation — the pre-split private-attribute surface
     pages      PagePool — paged-KV accounting: refcounts, prefix-cache
                chain-hash index, LRU reclaim, audit
-    runner     ModelRunner — the prefill/decode forwards and the KV buffers
-               on ONE device, plus page gather/scatter for the KV tiers
+    runner     ModelRunner — the prefill/decode/verify forwards and the KV
+               buffers (bf16/f32 or int8 pages) on ONE device, plus page
+               gather/scatter for the KV tiers
     spec       SpecConfig, the draft proposers, and the engine's
                speculative-decode orchestration mixin
     scheduler  Scheduler — admission, deadlines, continuous batching,

@@ -83,8 +83,9 @@ class LLMEngine(_LegacyDelegation, _SpecOrchestration):
                  device="cuda"):
         """device: where the weights, the KV cache and every dispatch live
         (default the card; raises without CUDA unless ``device="cpu"``).
-        On CUDA, attention runs the hand-written paged-attention kernel; on
-        the CPU, its plain PyTorch version.
+        On CUDA, attention runs the hand-written paged-attention kernels
+        (K5, K6 with int8 pages, K7 / K7q for speculative verification); on
+        the CPU, their plain PyTorch versions.
 
         mesh: multi-device serving is not ported yet; any mesh raises.
 
@@ -123,12 +124,13 @@ class LLMEngine(_LegacyDelegation, _SpecOrchestration):
         samples accumulate, capped at decode_block_max).
 
         kv_cache_dtype: "auto" stores pages in the weight dtype; "int8"
-        (int8 pages with f32 scales) raises NotImplementedError until its
-        kernel (K6) is ported.
+        quantizes K/V pages per-(token, kv-head) with f32 scales (reference:
+        incubate block_multihead_attention cache_*_quant_scales, dynamic
+        mode) — pages cost (D + 4)/(2*D) of bf16 bytes (~0.52 at
+        head_dim=128), so the same HBM budget holds ~2x the tokens /
+        concurrent slots.
 
-        spec_decode: must be None until the multi-query verify kernel (K7)
-        is ported; a :class:`SpecConfig` raises NotImplementedError.  In the
-        JAX package a :class:`SpecConfig` enables speculative decoding —
+        spec_decode: a :class:`SpecConfig` enables speculative decoding —
         each step a proposer drafts up to max_draft continuation tokens per
         request (self-drafting n-gram suffix match by default, or a small
         draft model) and ONE target-model forward scores the pending token
@@ -181,10 +183,6 @@ class LLMEngine(_LegacyDelegation, _SpecOrchestration):
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving (mesh=) is not ported yet")
-        if spec_decode is not None:
-            raise NotImplementedError(
-                "speculative decoding needs the multi-query paged-attention "
-                "kernel (K7), which is not ported yet")
         cfg = model.config
         self.cfg = cfg
         self.max_batch = max_batch

@@ -11,18 +11,24 @@ Counterpart of ``paddle_tpu/inference/engine/runner.py``, in PyTorch:
   dispatch; the chunk's rows ride the paged-attention kernel's batch dim
   with per-row context lengths, so causal masking falls out of
   ctx = pos + 1.  A DECODE step feeds every in-flight slot its last token
-  (token-level continuous batching); ``run_decode`` runs K such steps.
+  (token-level continuous batching); ``run_decode`` runs K such steps.  A
+  VERIFY step (``run_verify``) scores Kv consecutive positions per slot
+  for speculative decoding through the multi-query kernel.
 - The layer stack is a Python loop over the layers (the reference's
   ``lax.scan``); each layer writes its new K/V rows into the cache IN PLACE
   (``kp[l, page_idx, within] = k``) before attention reads them.
 - Sampling is batched on the device with per-slot parameters (greedy /
   temperature / top-k / top-p / seed), with the reference's filter order.
-- KV lives in PAGES: two tensors [L, n_pages, page, KVH, D]; page tables
-  arrive from the scheduler per dispatch.
+- KV lives in PAGES: two tensors [L, n_pages, page, KVH, D] in the
+  weights' dtype, or with ``kv_cache_dtype="int8"`` four: int8 values and
+  float32 per-(token, kv head) scales [L, n_pages, page, KVH], quantized as
+  each layer writes its rows; page tables arrive from the scheduler per
+  dispatch.
 
 The device decides the attention path: CUDA tensors go through the
-hand-written paged-attention kernel, CPU tensors through its plain version
-(see :mod:`paddle_tpu_torch.ops.paged_attention`).
+hand-written paged-attention kernels (K5 / K6 for prefill and decode, K7 /
+K7q for verify), CPU tensors through their plain versions (see
+:mod:`paddle_tpu_torch.ops.paged_attention`).
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ import torch.nn.functional as F
 from ...device import resolve_device
 from ...models.llama import rms_norm as _rms
 from ...models.llama import rope as _rope
-from ...ops.paged_attention import paged_attention
+from ...ops.paged_attention import (paged_attention,
+                                     paged_attention_multiquery, quantize_kv)
 
 __all__ = ["ModelRunner"]
 
@@ -82,7 +89,7 @@ def _sample(logits, greedy, temp, topp, topk, seeds):
 
 def _to_numpy(t):
     """Owned host numpy copy of a CPU tensor; bfloat16 (which numpy lacks)
-    travels as its int16 bit pattern."""
+    travels as its int16 bit pattern, int8 and float32 as themselves."""
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
     return t.numpy().copy()
@@ -106,11 +113,7 @@ class ModelRunner:
 
     def __init__(self, model, max_batch=4, page_size=16, prefill_chunk=32,
                  n_pages=None, kv_cache_dtype="auto", device="cuda"):
-        if kv_cache_dtype == "int8":
-            raise NotImplementedError(
-                "kv_cache_dtype='int8' needs the int8-page paged-attention "
-                "kernel (K6), which is not ported yet")
-        if kv_cache_dtype != "auto":
+        if kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(f"unknown kv_cache_dtype {kv_cache_dtype!r}")
         self.device = resolve_device(device)
         cfg = model.config
@@ -124,7 +127,7 @@ class ModelRunner:
         nh, kvh = cfg.num_attention_heads, cfg.num_key_value_heads
         D = cfg.hidden_size // nh
         self.nh, self.kvh, self.D = nh, kvh, D
-        self.kv_quant = False
+        self.kv_quant = kv_cache_dtype == "int8"
 
         def w(p):
             return p.detach().to(self.device)
@@ -145,10 +148,14 @@ class ModelRunner:
             "wu": [w(l.mlp.up_proj.weight) for l in lay],
             "wd": [w(l.mlp.down_proj.weight) for l in lay],
         }
-        dtype = self.W["wq"][0].dtype
+        dtype = torch.int8 if self.kv_quant else self.W["wq"][0].dtype
         kp = torch.zeros((L, self.n_pages, self.page, kvh, D), dtype=dtype,
                          device=self.device)
         self.cache = (kp, torch.zeros_like(kp))
+        if self.kv_quant:
+            ks = torch.zeros((L, self.n_pages, self.page, kvh),
+                             dtype=torch.float32, device=self.device)
+            self.cache += (ks, torch.zeros_like(ks))
         self._decode_programs: dict = {}    # decode block sizes run so far
         self._verify_programs: dict = {}
 
@@ -164,24 +171,38 @@ class ModelRunner:
         return (self.device,)
 
     # ---------------------------------------------------------------- layers
-    def _forward(self, x, pos, page_idx, within, tables, ctx):
+    def _forward(self, x, pos, page_idx, within, tables, ctx, q_len=None):
         """The layer stack over rows x [N, hidden]: each row sits at
-        position pos [N], writes its K/V into (page_idx, within) and attends
-        through its block-table row tables [N, S] to ctx [N] tokens.
-        Returns the final-normed hidden states [N, hidden]."""
+        position pos [N] and writes its K/V into (page_idx, within) before
+        attention reads the cache.  Without ``q_len`` row i attends through
+        its block-table row tables[i] to ctx[i] tokens; with it the rows are
+        B sequences x q_len consecutive positions, tables [B, S] and ctx [B]
+        (row 0's context; row j sees ctx + j), through the multi-query
+        kernel.  Returns the final-normed hidden states [N, hidden]."""
         W, nh, kvh, D = self.W, self.nh, self.kvh, self.D
         eps = self.cfg.rms_norm_eps
         theta = self.cfg.rope_theta
-        kp_all, vp_all = self.cache
         for l in range(len(W["wq"])):
             h = _rms(x, W["ln1"][l], eps)
             q = _rope(F.linear(h, W["wq"][l]).view(-1, nh, D), pos, theta)
             k = _rope(F.linear(h, W["wk"][l]).view(-1, kvh, D), pos, theta)
             v = F.linear(h, W["wv"][l]).view(-1, kvh, D)
-            kp, vp = kp_all[l], vp_all[l]
+            kp, vp = self.cache[0][l], self.cache[1][l]
+            scales = {}
+            if self.kv_quant:
+                ks, vs = self.cache[2][l], self.cache[3][l]
+                k, k_scale = quantize_kv(k)
+                v, v_scale = quantize_kv(v)
+                ks[page_idx, within] = k_scale
+                vs[page_idx, within] = v_scale
+                scales = dict(k_scales=ks, v_scales=vs)
             kp[page_idx, within] = k
             vp[page_idx, within] = v
-            att = paged_attention(q, kp, vp, tables, ctx)
+            if q_len is None:
+                att = paged_attention(q, kp, vp, tables, ctx, **scales)
+            else:
+                att = paged_attention_multiquery(
+                    q.view(-1, q_len, nh, D), kp, vp, tables, ctx, **scales)
             x = x + F.linear(att.reshape(-1, nh * D), W["wo"][l])
             h = _rms(x, W["ln2"][l], eps)
             up = F.linear(h, W["wu"][l])
@@ -258,17 +279,55 @@ class ModelRunner:
             outs.append(nxt)
         return torch.stack(outs).cpu().numpy()
 
+    @torch.no_grad()
     def run_verify(self, kv, tokens, lens, tables, n_rows,
                    greedy, temp, topp, topk, seeds, fold):
-        raise NotImplementedError(
-            "speculative verification needs the multi-query paged-attention "
-            "kernel (K7), which is not ported yet")
+        """ONE forward scoring kv consecutive positions per slot — the
+        speculative-decoding verifier; returns host tokens [B, kv] int32.
+        tokens [B, kv] (row 0 the pending token, 1.. the drafts, then
+        padding); lens [B] tokens already cached; n_rows [B] valid rows (0 =
+        inactive slot).  Row j of a slot sits at lens + j; rows past n_rows
+        write into the trash page; every row's K/V lands before attention,
+        so row j sees drafts 1..j.  Sampling row j yields the target's token
+        after draft j, with seed ``seeds + j * fold`` — the key step j of a
+        decode block would have drawn — so greedy and fixed-seed requests
+        stay token-exact against spec-off decoding.  The host rolls back
+        pages past the accepted point; attention masks by context length,
+        so stale writes beyond a slot's length are never attended."""
+        self._verify_programs[kv] = True
+        B = self.max_batch
+        tab = self._i32(tables)
+        ln = self._i32(lens)
+        nr = self._i32(n_rows)
+        S = tab.shape[1]
+        row_j = torch.arange(kv, dtype=torch.int32,
+                             device=self.device).repeat(B)      # [B*kv]
+        pos = ln.repeat_interleave(kv) + row_j
+        valid = row_j < nr.repeat_interleave(kv)
+        slot = (pos // self.page).long().clamp(max=S - 1).view(B, kv)
+        page_idx = tab.gather(1, slot).reshape(-1)
+        page_idx = torch.where(valid, page_idx, self.trash_page).long()
+        within = (pos % self.page).long()
+        # row 0 of an active slot sees lens + 1 tokens (its own write
+        # included); the multi-query kernel extends that by j for row j
+        cl = torch.where(nr > 0, ln + 1, 1).to(torch.int32)
+        x = self.W["embed"][self._i32(tokens).reshape(-1).long()]
+        h = self._forward(x, pos, page_idx, within, tab, cl, q_len=kv)
+
+        def rep(a):
+            return np.repeat(np.asarray(a), kv)
+
+        seeds_rep = (rep(seeds).astype(np.int64)
+                     + np.tile(np.arange(kv), B) * rep(fold))
+        toks = _sample(self._logits(h), rep(greedy), rep(temp), rep(topp),
+                       rep(topk), seeds_rep)
+        return toks.view(B, kv).cpu().numpy()
 
     # ---------------------------------------------------------- page movement
     @torch.no_grad()
     def copy_page(self, src, dst):
-        """Device-side copy of one physical KV page (all layers, K and V) —
-        the copy half of copy-on-write."""
+        """Device-side copy of one physical KV page (all layers, K and V,
+        int8 scales included) — the copy half of copy-on-write."""
         for a in self.cache:
             a[:, int(dst)] = a[:, int(src)]
 
@@ -290,8 +349,8 @@ class ModelRunner:
             a.index_copy_(1, idx, _from_host(b, a))
 
     def kv_bytes_per_page(self):
-        """Device bytes one KV page costs across all layers (both K and V) —
-        the unit of the page_pool budget."""
+        """Device bytes one KV page costs across all layers (both K and V,
+        including int8 scales) — the unit of the page_pool budget."""
         return sum(a.numel() * a.element_size()
                    for a in self.cache) // self.n_pages
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
 from ... import observability as _obs
 from ...testing.faults import FAULTS as _faults
@@ -90,11 +91,10 @@ class _DraftModelProposer:
         self.model = model
 
     def propose(self, tokens, k):
-        # the port's LlamaForCausalLM has no generate() yet (it waits for
-        # the flash-attention forward kernel, K1)
-        raise NotImplementedError(
-            "draft-model proposals need LlamaForCausalLM.generate, which "
-            "the PyTorch port does not have yet")
+        ids = torch.as_tensor(np.asarray([tokens], np.int64),
+                              device=self.model.device)
+        out = self.model.generate(ids, max_new_tokens=k, do_sample=False)
+        return [int(t) for t in out[0, len(tokens):].tolist()]
 
 
 class _SpecOrchestration:

@@ -3,10 +3,13 @@ counterpart of ``paddle_tpu.inference.serving``).
 
 The implementation lives in :mod:`paddle_tpu_torch.inference.engine`:
 a chunked PREFILL step and a token-level continuous-batching DECODE step
-over a paged KV cache [L, n_pages, page, KVH, D], with host-managed per-slot
-page tables, on-demand growth, youngest-slot preemption-recompute, and
-automatic prefix caching.  On the card, attention runs the hand-written
-paged-attention CUDA kernel.  ``DisaggEngine`` is not ported yet.
+over a paged KV cache [L, n_pages, page, KVH, D] (int8 pages with float32
+scales under ``kv_cache_dtype="int8"``), with host-managed per-slot page
+tables, on-demand growth, youngest-slot preemption-recompute, automatic
+prefix caching, and speculative decoding (``spec_decode=SpecConfig()``: an
+n-gram or draft-model proposer, one multi-query VERIFY step, paged-KV
+rollback).  On the card, attention runs the hand-written paged-attention
+CUDA kernels.  ``DisaggEngine`` is not ported yet.
 """
 from __future__ import annotations
 

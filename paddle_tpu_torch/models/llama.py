@@ -6,21 +6,28 @@ model's ``state_dict()`` keys (``llama.embed_tokens.weight``,
 weights cross between the packages by name (see :mod:`.convert`).  Linear
 weights are stored the torch way, ``[out, in]``.
 
-This slice carries the serving engine, which reads the weights directly;
-the model's own dense forward is :meth:`LlamaForCausalLM.forward_ref`, a
-plain PyTorch reference.  ``forward`` on a CUDA tensor waits for the
-flash-attention forward kernel (K1); ``generate``, ``KVCache``, MoE and the
-pipeline stage classes wait too.
+The serving engine reads the weights directly; the model's own dense
+forward is :meth:`LlamaForCausalLM.forward_ref`, a plain PyTorch reference.
+``forward`` without a KV cache on a CUDA tensor waits for the
+flash-attention forward kernel (K1), as do MoE and the pipeline stage
+classes.  Autoregressive decoding with a dense per-layer :class:`KVCache`
+(:meth:`LlamaForCausalLM.generate`, what the speculative decoder's draft
+model runs) attends through :func:`_cached_sdpa`, plain tensor code on any
+device, as the JAX package's ``_cached_sdpa`` is plain jnp outside any
+Pallas kernel.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.paged_attention import quantize_kv
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "rope", "rms_norm"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "KVCache", "rope", "rms_norm"]
 
 
 class LlamaConfig:
@@ -123,6 +130,78 @@ def rope(x, pos, theta):
     return (xf * torch.cos(emb) + rot * torch.sin(emb)).to(x.dtype)
 
 
+class KVCache:
+    """Per-layer dense KV cache [batch, max_len, KVH, D] for autoregressive
+    decode, with the write offset (the serving path's paged variant lives in
+    the engine's runner).  Counterpart of the JAX ``KVCache``; the port runs
+    eagerly, so the offset is a plain int and the cache is written in
+    place."""
+
+    def __init__(self, batch, max_len, num_kv_heads, head_dim,
+                 dtype=torch.float32, device="cuda"):
+        dev = resolve_device(device)
+        self.k = torch.zeros((batch, max_len, num_kv_heads, head_dim),
+                             dtype=dtype, device=dev)
+        self.v = torch.zeros_like(self.k)
+        self.offset = 0
+        self.max_len = max_len
+
+    def update(self, k_new, v_new):
+        """Write the s new steps [batch, s, KVH, D] at the offset; returns
+        the FULL cache — consumers mask the unwritten tail instead of
+        slicing it."""
+        s = k_new.shape[1]
+        if self.offset + s > self.max_len:
+            raise ValueError(f"KVCache of {self.max_len} positions is full "
+                             f"(offset {self.offset}, {s} new)")
+        self.k[:, self.offset:self.offset + s] = k_new
+        self.v[:, self.offset:self.offset + s] = v_new
+        self.offset += s
+        return self.k, self.v
+
+
+def _cached_sdpa(q, k, v, q_offset):
+    """Attention of the s query positions starting at ``q_offset`` (q
+    [b, s, h, d]) against the FULL fixed-length cache k / v [b, t, kvh, d]:
+    float32 scores, -1e30 above each row's causal horizon (which also hides
+    the not-yet-written tail), float32 softmax, output in q's dtype."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    rep = h // k.shape[2]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    sc = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(d)
+    rows = q_offset + torch.arange(s, device=q.device)[:, None]
+    cols = torch.arange(t, device=q.device)[None, :]
+    sc = torch.where(cols <= rows, sc, -1e30)
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", p, v.float())
+    return out.to(q.dtype)
+
+
+def _dense_causal(q, k, v):
+    """Dense causal GQA attention q [b, s, nh, d] over k / v [b, s, kvh, d]
+    with float32 scores and softmax; returns [b, s, nh, d] in float32."""
+    b, s, nh, d = q.shape
+    kvh = k.shape[2]
+    qf = q.float().view(b, s, kvh, nh // kvh, d)
+    sc = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) / d ** 0.5
+    causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    sc = sc.masked_fill(~causal, float("-inf"))
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", p, v.float()).reshape(b, s, nh,
+                                                                    d)
+
+
+def _int8_round_trip(x):
+    """K or V rows through the int8 KV cache's quantization and back, in
+    float32 (what the engine's int8 pages hold, dequantized as its plain
+    attention does)."""
+    xq, s = quantize_kv(x)
+    return xq.float() * s[..., None]
+
+
 class RMSNorm(nn.Module):
     def __init__(self, hidden_size, eps, device=None, dtype=None):
         super().__init__()
@@ -153,23 +232,47 @@ class LlamaAttention(nn.Module):
                               dtype)
         self.o_proj = _linear(self.num_heads * self.head_dim, h, device, dtype)
 
-    def forward_ref(self, x):
-        """Dense causal GQA attention over x [B, S, hidden], float32 softmax."""
+    def _qkv(self, x, position_ids):
         b, s, _ = x.shape
         nh, kvh, d = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.q_proj(x).view(b, s, nh, d)
         k = self.k_proj(x).view(b, s, kvh, d)
         v = self.v_proj(x).view(b, s, kvh, d)
-        pos = torch.arange(s, device=x.device)
-        q, k = rope(q, pos, self.rope_theta), rope(k, pos, self.rope_theta)
-        g = nh // kvh
-        qf = q.float().view(b, s, kvh, g, d)
-        sc = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) / d ** 0.5
-        causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
-        sc = sc.masked_fill(~causal, float("-inf"))
-        p = torch.softmax(sc, dim=-1)
-        out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
-        return self.o_proj(out.reshape(b, s, nh * d).to(x.dtype))
+        q = rope(q, position_ids, self.rope_theta)
+        return q, rope(k, position_ids, self.rope_theta), v
+
+    def forward_ref(self, x, kv_int8=False):
+        """Dense causal GQA attention over x [B, S, hidden], float32
+        softmax.  ``kv_int8``: K and V pass through the int8 KV cache's
+        quantization first (the reference an int8-page engine is held
+        against)."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x, torch.arange(s, device=x.device))
+        if kv_int8:
+            k, v = _int8_round_trip(k), _int8_round_trip(v)
+        out = _dense_causal(q, k, v)
+        return self.o_proj(out.reshape(b, s, -1).to(x.dtype))
+
+    def forward(self, x, position_ids=None, kv_cache=None):
+        """With ``kv_cache``: the s new positions (at the cache's offset
+        unless ``position_ids`` says otherwise) write their K/V into it and
+        attend through :func:`_cached_sdpa`.  Without: dense causal
+        attention, which on the card needs the flash-attention forward
+        kernel (K1) and raises."""
+        b, s, _ = x.shape
+        if position_ids is None:
+            off = kv_cache.offset if kv_cache is not None else 0
+            position_ids = (torch.arange(s, device=x.device)
+                            + off)[None].expand(b, s)
+        q, k, v = self._qkv(x, position_ids)
+        if kv_cache is not None:
+            q_offset = kv_cache.offset       # before the in-place update
+            kk, vv = kv_cache.update(k, v)
+            out = _cached_sdpa(q, kk, vv, q_offset)
+        else:
+            _refuse_off_cpu(x)
+            out = _dense_causal(q, k, v).to(x.dtype)
+        return self.o_proj(out.reshape(b, s, -1))
 
 
 class LlamaMLP(nn.Module):
@@ -196,8 +299,13 @@ class LlamaDecoderLayer(nn.Module):
                                                 device, dtype)
         self.mlp = LlamaMLP(config, device, dtype)
 
-    def forward_ref(self, x):
-        x = x + self.self_attn.forward_ref(self.input_layernorm(x))
+    def forward_ref(self, x, kv_int8=False):
+        x = x + self.self_attn.forward_ref(self.input_layernorm(x), kv_int8)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+    def forward(self, x, position_ids=None, kv_cache=None):
+        x = x + self.self_attn(self.input_layernorm(x), position_ids,
+                               kv_cache=kv_cache)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -213,10 +321,17 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device,
                             dtype)
 
-    def forward_ref(self, input_ids):
+    def forward_ref(self, input_ids, kv_int8=False):
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
-            x = layer.forward_ref(x)
+            x = layer.forward_ref(x, kv_int8)
+        return self.norm(x)
+
+    def forward(self, input_ids, position_ids=None, kv_caches=None):
+        x = self.embed_tokens(input_ids)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, position_ids,
+                      kv_cache=kv_caches[i] if kv_caches else None)
         return self.norm(x)
 
 
@@ -255,19 +370,126 @@ class LlamaForCausalLM(nn.Module):
         return (self.lm_head.weight if self.lm_head is not None
                 else self.llama.embed_tokens.weight)
 
+    @property
+    def device(self):
+        return self.llama.embed_tokens.weight.device
+
     @torch.no_grad()
-    def forward_ref(self, input_ids):
+    def forward_ref(self, input_ids, kv_int8=False):
         """Plain dense forward: logits [B, S, vocab] in float32 (the head
-        runs in float32, as the serving engine's does)."""
-        h = self.llama.forward_ref(input_ids)
+        runs in float32, as the serving engine's does).  ``kv_int8``: every
+        layer's K and V pass through the int8 KV cache's quantization and
+        back first — the reference an engine with int8 pages is held
+        against."""
+        h = self.llama.forward_ref(input_ids, kv_int8)
         return F.linear(h.float(), self.head_weight().float())
 
     def forward(self, input_ids):
         """On a CPU tensor, :meth:`forward_ref`; on the card, the model's
         forward needs the flash-attention forward kernel (K1) and raises."""
-        if input_ids.device.type != "cpu":
-            raise NotImplementedError(
-                f"LlamaForCausalLM.forward on {input_ids.device} needs the "
-                "flash-attention forward kernel (K1), which is not ported "
-                "yet; use forward_ref or the serving engine")
+        _refuse_off_cpu(input_ids)
         return self.forward_ref(input_ids)
+
+    def new_kv_caches(self, batch, max_len, dtype=torch.float32):
+        cfg = self.config
+        return [KVCache(batch, max_len, cfg.num_key_value_heads,
+                        cfg.hidden_size // cfg.num_attention_heads, dtype,
+                        self.device)
+                for _ in range(cfg.num_hidden_layers)]
+
+    def _head(self, hidden):
+        """Logits in the model's dtype, as the reference's generate takes
+        them (the serving engine's head runs in float32)."""
+        return F.linear(hidden, self.head_weight())
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, do_sample=False,
+                 top_p=1.0, top_k=0, temperature=1.0, eos_token_id=None,
+                 use_cache=True, seed=None, tokens_per_dispatch=None):
+        """Autoregressive decoding with a per-layer dense KV cache; greedy
+        when do_sample=False, nucleus / top-k sampling otherwise (a fixed
+        ``seed`` keys every draw alike, so draws are reproducible within the
+        port; they cannot match the JAX package's).  input_ids [B, prompt]
+        int64 on the model's device; returns [B, prompt + new].
+
+        The cache holds prompt + new tokens rounded up to a power of two
+        (at least 128) positions, as the reference sizes it.
+        tokens_per_dispatch: decode steps run back to back before the host
+        looks at the tokens (default 1); eos checking needs each token, so
+        it forces 1.  ``use_cache=False`` re-runs the whole sequence through
+        the dense forward every step, which on the card needs K1."""
+        b, prompt = input_ids.shape
+        K = 1 if tokens_per_dispatch is None else tokens_per_dispatch
+        K = max(1, min(int(K), max_new_tokens))
+        if eos_token_id is not None:
+            K = 1                          # host must see every token
+        if use_cache:
+            # K>1 overshoots up to K-1 tokens past max_new before the trim
+            need = prompt + -(-max_new_tokens // K) * K
+            caches = self.new_kv_caches(b, 1 << max(7, (need - 1).bit_length()))
+
+        def one(ids, caches):
+            hidden = self.llama(ids, kv_caches=caches)
+            return self._sample(self._head(hidden[:, -1]), do_sample, top_p,
+                                top_k, temperature, seed)
+
+        toks, cur, finished = [input_ids], input_ids, None
+        n_dispatch = -(-max_new_tokens // K) if use_cache else max_new_tokens
+        for _ in range(n_dispatch):
+            if use_cache:
+                blk = [one(cur, caches)]
+                for _ in range(K - 1):
+                    blk.append(one(blk[-1], caches))
+                nxt = blk[-1]
+            else:
+                nxt = one(torch.cat(toks, dim=1), None)
+            if eos_token_id is not None:
+                done_now = (nxt == eos_token_id).reshape(-1)
+                if finished is not None:
+                    nxt = torch.where(finished, eos_token_id,
+                                      nxt.reshape(-1)).reshape(-1, 1)
+                    done_now = finished | done_now
+                finished = done_now
+            nxt = nxt.to(input_ids.dtype)
+            toks.append(torch.cat(blk, dim=1).to(input_ids.dtype)
+                        if use_cache and K > 1 else nxt)
+            cur = nxt
+            if finished is not None and bool(finished.all()):
+                break
+        out = torch.cat(toks, dim=1)
+        return out[:, :prompt + max_new_tokens]     # trim the K overshoot
+
+    def _sample(self, logits, do_sample, top_p, top_k, temperature, seed):
+        """Next token [B, 1] from logits [B, vocab], in the reference's
+        order: greedy argmax (first index on ties), or temperature ->
+        softmax -> top-k -> top-p over the sorted vocab -> one draw, from a
+        ``torch.Generator`` seeded ``seed`` when one is given."""
+        if not do_sample:
+            return logits.argmax(dim=-1, keepdim=True)
+        if temperature and temperature != 1.0:
+            logits = logits / temperature
+        probs = torch.softmax(logits.float(), dim=-1)
+        if top_k:
+            thresh = probs.topk(top_k, dim=-1).values[:, -1:]
+            probs = torch.where(probs >= thresh, probs, 0.0)
+            probs = probs / probs.sum(-1, keepdim=True)
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=probs.device).manual_seed(int(seed))
+        if top_p < 1.0:
+            sp, idx = probs.sort(dim=-1, descending=True, stable=True)
+            sp = torch.where(sp.cumsum(-1) - sp < top_p, sp, 0.0)
+            choice = torch.multinomial(sp / sp.sum(-1, keepdim=True), 1,
+                                       generator=gen)
+            return idx.gather(-1, choice)
+        return torch.multinomial(probs, 1, generator=gen)
+
+
+def _refuse_off_cpu(x):
+    """The dense forward without a cache runs on the CPU only until the
+    flash-attention forward kernel (K1) is ported."""
+    if x.device.type != "cpu":
+        raise NotImplementedError(
+            f"LlamaForCausalLM.forward on {x.device} needs the "
+            "flash-attention forward kernel (K1), which is not ported "
+            "yet; use forward_ref, generate or the serving engine")

@@ -1,13 +1,15 @@
 """The PyTorch port stands alone: nothing under ``paddle_tpu_torch/`` or in
 ``chip_smoke.py`` imports JAX or the JAX package; its entry points run on
 the card unless the caller asks for the CPU, and raise without CUDA; the
-engine options whose kernels are not ported yet are refused, not served
-some other way."""
+options whose kernels are ported (int8 pages, speculative decoding) serve,
+and those whose kernels or modules are not ported yet are refused, not
+served some other way."""
 import ast
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -93,21 +95,44 @@ def test_paged_attention_takes_only_cpu_or_cuda_tensors():
     assert paged_attention.launches == before
 
 
-@pytest.mark.parametrize("knob,value,kernel", [
-    ("kv_cache_dtype", "int8", "K6"),
-    ("spec_decode", SpecConfig(max_draft=2), "K7"),
+@pytest.mark.parametrize("knob,value,what", [
     ("mesh", object(), "multi-device"),
 ])
-def test_unported_options_are_refused(model, knob, value, kernel):
-    with pytest.raises(NotImplementedError, match=kernel):
+def test_unported_options_are_refused(model, knob, value, what):
+    with pytest.raises(NotImplementedError, match=what):
         LLMEngine(model, device="cpu", **{knob: value})
 
 
 def test_unported_runner_paths_are_refused(model):
-    runner = ModelRunner(model, n_pages=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="K7"):
-        runner.run_verify(2, None, None, None, None, None, None, None, None,
-                          None, None)
     with pytest.raises(NotImplementedError, match="K1"):
         LlamaForCausalLM.forward(
             model, torch.zeros(1, 2, dtype=torch.long, device="meta"))
+
+
+@pytest.mark.parametrize("case", ["kv_cache_dtype_int8", "spec_decode",
+                                  "run_verify"])
+def test_ported_options_serve_on_the_cpu(model, case):
+    """What was refused until its kernel was ported now serves: an int8-page
+    engine (K6), a speculative engine (K7), and the runner's verify step,
+    each on the CPU through the kernels' plain versions."""
+    if case == "run_verify":
+        runner = ModelRunner(model, max_batch=2, page_size=8, n_pages=8,
+                             device="cpu")
+        tables = np.zeros((2, 4), np.int32)
+        ones = np.ones(2, np.int32)
+        toks = runner.run_verify(
+            4, np.ones((2, 4), np.int32), np.asarray([3, 0], np.int32),
+            tables, np.asarray([3, 0], np.int32), ones,
+            np.ones(2, np.float32), np.ones(2, np.float32),
+            np.zeros(2, np.int32), np.zeros(2, np.int32),
+            np.zeros(2, np.int32))
+        assert toks.shape == (2, 4) and toks.dtype == np.int32
+        assert runner.has_verify_program(4)
+        return
+    knob = ({"kv_cache_dtype": "int8"} if case == "kv_cache_dtype_int8"
+            else {"spec_decode": SpecConfig(max_draft=2)})
+    eng = LLMEngine(model, device="cpu", max_batch=2, max_len=32,
+                    page_size=8, **knob)
+    rid = eng.add_request([5, 6, 7, 5, 6, 7, 5, 6], max_new_tokens=6)
+    eng.run_until_done()
+    assert len(eng.result(rid)) == 6

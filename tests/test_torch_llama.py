@@ -111,3 +111,74 @@ def test_seeded_generator_init_is_reproducible():
     w = a.llama.layers[0].self_attn.q_proj.weight.detach()
     assert abs(float(w.std()) - cfg.initializer_range) < 0.2 * \
         cfg.initializer_range
+
+
+# ------------------------------------------------------------- generate
+_GEN_IDS = np.random.RandomState(5).randint(0, 256, (2, 7)).astype(np.int64)
+
+
+@pytest.fixture(scope="module")
+def gen_models():
+    jm, state = _jax_model(seed=3)
+    return jm, llama_from_numpy(state, LlamaConfig.tiny(), device="cpu")
+
+
+def _jax_generate(jm, **kw):
+    return np.asarray(jm.generate(pt.to_tensor(_GEN_IDS), max_new_tokens=10,
+                                  **kw).numpy())
+
+
+def _port_generate(model, **kw):
+    out = model.generate(torch.from_numpy(_GEN_IDS), max_new_tokens=10, **kw)
+    assert out.dtype == torch.int64
+    return out.numpy()
+
+
+@pytest.mark.parametrize("case", ["cached", "eos", "tokens_per_dispatch_2"])
+def test_greedy_generate_matches_jax(gen_models, case):
+    """Greedy ``generate`` through the dense per-layer KV cache gives the
+    JAX package's tokens: plain, with an eos that stops one row early (the
+    finished row pads with eos), and with two decode steps a dispatch."""
+    jm, model = gen_models
+    kw = {}
+    if case == "eos":
+        row0 = _jax_generate(jm)[0, _GEN_IDS.shape[1]:].tolist()
+        eos = next(t for i, t in enumerate(row0) if row0.index(t) == i >= 2)
+        kw = dict(eos_token_id=int(eos))
+    elif case == "tokens_per_dispatch_2":
+        kw = dict(tokens_per_dispatch=2)
+    want = _jax_generate(jm, **kw)
+    got = _port_generate(model, **kw)
+    np.testing.assert_array_equal(got, want)
+    if case == "eos":
+        # row 0 stops at eos; later positions of a finished row hold eos
+        assert (got[0, _GEN_IDS.shape[1] + row0.index(eos):] == eos).all()
+
+
+def test_generate_without_cache_equals_cached(gen_models):
+    """``use_cache=False`` re-runs the dense forward each step (CPU only
+    until K1) and picks the same greedy tokens as the cached path."""
+    _, model = gen_models
+    np.testing.assert_array_equal(_port_generate(model, use_cache=False),
+                                  _port_generate(model))
+
+
+def test_seeded_sampled_generate_is_reproducible(gen_models):
+    _, model = gen_models
+    kw = dict(do_sample=True, top_p=0.8, top_k=20, temperature=0.9)
+    first = _port_generate(model, seed=7, **kw)
+    np.testing.assert_array_equal(first, _port_generate(model, seed=7, **kw))
+    np.testing.assert_array_equal(first[:, :7], _GEN_IDS)
+    assert ((first >= 0) & (first < 256)).all()
+    assert not np.array_equal(first, _port_generate(model, seed=8, **kw))
+
+
+def test_kv_cache_refuses_to_overflow():
+    from paddle_tpu_torch.models.llama import KVCache
+    cache = KVCache(1, 4, 2, 8, device="cpu")
+    k = torch.ones(1, 3, 2, 8)
+    kk, _ = cache.update(k, k)
+    assert cache.offset == 3 and kk.shape == (1, 4, 2, 8)
+    assert torch.equal(kk[:, :3], k) and not kk[:, 3:].any()
+    with pytest.raises(ValueError, match="full"):
+        cache.update(k, k)
