@@ -1,5 +1,6 @@
 """Weight bridge: the JAX model's parameters, as numpy arrays keyed by its
-``state_dict()`` names, into the port's :class:`~.llama.LlamaForCausalLM`.
+``state_dict()`` names, into the port's :class:`~.llama.LlamaForCausalLM`
+and :class:`~.gpt2.GPT2ForCausalLM`.
 
 Paddle's ``Linear`` stores its weight ``[in, out]``; torch's stores
 ``[out, in]``, so linear weights are transposed.  Embedding and norm
@@ -10,17 +11,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .gpt2 import GPT2Config, GPT2ForCausalLM
 from .llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["llama_from_numpy"]
+__all__ = ["llama_from_numpy", "gpt2_from_numpy"]
 
 
-def llama_from_numpy(state, config: LlamaConfig, device="cuda", dtype=None):
-    """Build a :class:`LlamaForCausalLM` on ``device`` (in ``dtype``, default
-    float32) holding ``state``'s weights.  Every model parameter must be in
-    ``state`` with its JAX shape; unknown keys raise."""
-    dtype = dtype or torch.float32
-    model = LlamaForCausalLM(config, device=device, dtype=dtype)
+def _load(model, state, is_linear):
+    """Copy ``state`` into ``model``'s parameters by name, transposing the
+    Linear weights (``is_linear(name)``); every parameter must be there
+    with its JAX shape, and unknown keys raise."""
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(state))
     extra = sorted(set(state) - set(params))
@@ -30,7 +30,7 @@ def llama_from_numpy(state, config: LlamaConfig, device="cuda", dtype=None):
     with torch.no_grad():
         for name, p in params.items():
             a = np.asarray(state[name], dtype=np.float32)
-            if name.endswith("_proj.weight") or name == "lm_head.weight":
+            if is_linear(name):
                 a = a.T                                  # [in, out] -> [out, in]
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: got shape {a.shape} "
@@ -39,3 +39,25 @@ def llama_from_numpy(state, config: LlamaConfig, device="cuda", dtype=None):
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(a, order="C")))
     return model
+
+
+def llama_from_numpy(state, config: LlamaConfig, device="cuda", dtype=None):
+    """Build a :class:`LlamaForCausalLM` on ``device`` (in ``dtype``, default
+    float32) holding ``state``'s weights.  Every model parameter must be in
+    ``state`` with its JAX shape; unknown keys raise."""
+    model = LlamaForCausalLM(config, device=device,
+                             dtype=dtype or torch.float32)
+    return _load(model, state, lambda n: n.endswith("_proj.weight")
+                 or n == "lm_head.weight")
+
+
+def gpt2_from_numpy(state, config: GPT2Config, device="cuda", dtype=None):
+    """Build a :class:`GPT2ForCausalLM` on ``device`` (in ``dtype``, default
+    float32) holding ``state``'s weights: Linear weights transposed, biases,
+    LayerNorm weights and the two embeddings copied as they are.  Every
+    model parameter must be in ``state`` with its JAX shape; unknown keys
+    raise."""
+    model = GPT2ForCausalLM(config, device=device,
+                            dtype=dtype or torch.float32)
+    return _load(model, state, lambda n: n.endswith(".weight") and n not in (
+        "gpt2.wte.weight", "gpt2.wpe.weight") and ".ln" not in n)

@@ -6,11 +6,13 @@ model's ``state_dict()`` keys (``llama.embed_tokens.weight``,
 weights cross between the packages by name (see :mod:`.convert`).  Linear
 weights are stored the torch way, ``[out, in]``.
 
-The serving engine reads the weights directly; the model's own dense
-forward is :meth:`LlamaForCausalLM.forward_ref`, a plain PyTorch reference.
-``forward`` without a KV cache on a CUDA tensor waits for the
-flash-attention forward kernel (K1), as do MoE and the pipeline stage
-classes.  Autoregressive decoding with a dense per-layer :class:`KVCache`
+The serving engine reads the weights directly.  ``forward`` (the training
+path, with ``labels`` for the loss) attends through
+:func:`~paddle_tpu_torch.nn.functional.flash_attention`, so on the card it
+launches the flash kernels K1 (forward) and K2 + K3 (backward) with GQA;
+:meth:`LlamaForCausalLM.forward_ref` is the plain dense reference it is
+checked against.  MoE and the pipeline stage classes are not ported.
+Autoregressive decoding with a dense per-layer :class:`KVCache`
 (:meth:`LlamaForCausalLM.generate`, what the speculative decoder's draft
 model runs) attends through :func:`_cached_sdpa`, plain tensor code on any
 device, as the JAX package's ``_cached_sdpa`` is plain jnp outside any
@@ -25,9 +27,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..nn.functional import cross_entropy, flash_attention
+from ..nn.functional.attention import _sdpa_ref
 from ..ops.paged_attention import quantize_kv
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "KVCache", "rope", "rms_norm"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "KVCache", "rope", "rms_norm",
+           "causal_lm_loss"]
 
 
 class LlamaConfig:
@@ -180,20 +185,6 @@ def _cached_sdpa(q, k, v, q_offset):
     return out.to(q.dtype)
 
 
-def _dense_causal(q, k, v):
-    """Dense causal GQA attention q [b, s, nh, d] over k / v [b, s, kvh, d]
-    with float32 scores and softmax; returns [b, s, nh, d] in float32."""
-    b, s, nh, d = q.shape
-    kvh = k.shape[2]
-    qf = q.float().view(b, s, kvh, nh // kvh, d)
-    sc = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) / d ** 0.5
-    causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-    sc = sc.masked_fill(~causal, float("-inf"))
-    p = torch.softmax(sc, dim=-1)
-    return torch.einsum("bkgst,btkd->bskgd", p, v.float()).reshape(b, s, nh,
-                                                                    d)
-
-
 def _int8_round_trip(x):
     """K or V rows through the int8 KV cache's quantization and back, in
     float32 (what the engine's int8 pages hold, dequantized as its plain
@@ -250,15 +241,16 @@ class LlamaAttention(nn.Module):
         q, k, v = self._qkv(x, torch.arange(s, device=x.device))
         if kv_int8:
             k, v = _int8_round_trip(k), _int8_round_trip(v)
-        out = _dense_causal(q, k, v)
-        return self.o_proj(out.reshape(b, s, -1).to(x.dtype))
+        out = _sdpa_ref(q, k, v, causal=True)
+        return self.o_proj(out.reshape(b, s, -1))
 
     def forward(self, x, position_ids=None, kv_cache=None):
         """With ``kv_cache``: the s new positions (at the cache's offset
         unless ``position_ids`` says otherwise) write their K/V into it and
-        attend through :func:`_cached_sdpa`.  Without: dense causal
-        attention, which on the card needs the flash-attention forward
-        kernel (K1) and raises."""
+        attend through :func:`_cached_sdpa`.  Without: causal GQA attention
+        through ``flash_attention`` (K1 forward, K2 + K3 backward on the
+        card, where the shape allows; the reference's dense path
+        otherwise)."""
         b, s, _ = x.shape
         if position_ids is None:
             off = kv_cache.offset if kv_cache is not None else 0
@@ -270,8 +262,7 @@ class LlamaAttention(nn.Module):
             kk, vv = kv_cache.update(k, v)
             out = _cached_sdpa(q, kk, vv, q_offset)
         else:
-            _refuse_off_cpu(x)
-            out = _dense_causal(q, k, v).to(x.dtype)
+            out, _ = flash_attention(q, k, v, causal=True)
         return self.o_proj(out.reshape(b, s, -1))
 
 
@@ -384,11 +375,17 @@ class LlamaForCausalLM(nn.Module):
         h = self.llama.forward_ref(input_ids, kv_int8)
         return F.linear(h.float(), self.head_weight().float())
 
-    def forward(self, input_ids):
-        """On a CPU tensor, :meth:`forward_ref`; on the card, the model's
-        forward needs the flash-attention forward kernel (K1) and raises."""
-        _refuse_off_cpu(input_ids)
-        return self.forward_ref(input_ids)
+    def forward(self, input_ids, labels=None, position_ids=None):
+        """Logits [B, S, vocab] in the model's dtype through the flash
+        attention path; with ``labels`` (the target of each position as
+        given, -100 ignored) ``(logits, loss)`` with the loss of
+        :func:`causal_lm_loss`."""
+        hidden = self.llama(input_ids, position_ids)
+        logits = F.linear(hidden, self.head_weight())
+        if labels is not None:
+            return logits, causal_lm_loss(logits, labels,
+                                          self.config.vocab_size)
+        return logits
 
     def new_kv_caches(self, batch, max_len, dtype=torch.float32):
         cfg = self.config
@@ -417,7 +414,7 @@ class LlamaForCausalLM(nn.Module):
         tokens_per_dispatch: decode steps run back to back before the host
         looks at the tokens (default 1); eos checking needs each token, so
         it forces 1.  ``use_cache=False`` re-runs the whole sequence through
-        the dense forward every step, which on the card needs K1."""
+        the model's forward every step."""
         b, prompt = input_ids.shape
         K = 1 if tokens_per_dispatch is None else tokens_per_dispatch
         K = max(1, min(int(K), max_new_tokens))
@@ -485,11 +482,10 @@ class LlamaForCausalLM(nn.Module):
         return torch.multinomial(probs, 1, generator=gen)
 
 
-def _refuse_off_cpu(x):
-    """The dense forward without a cache runs on the CPU only until the
-    flash-attention forward kernel (K1) is ported."""
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            f"LlamaForCausalLM.forward on {x.device} needs the "
-            "flash-attention forward kernel (K1), which is not ported "
-            "yet; use forward_ref, generate or the serving engine")
+def causal_lm_loss(logits, labels, vocab_size, aux_loss=None, aux_coef=0.01):
+    """Token cross-entropy (+ an optional auxiliary loss): the reference's
+    one loss formula for the dense and pipelined models."""
+    loss = cross_entropy(logits.reshape(-1, vocab_size), labels.reshape(-1))
+    if aux_loss is not None:
+        loss = loss + aux_coef * aux_loss
+    return loss

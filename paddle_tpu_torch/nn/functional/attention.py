@@ -1,0 +1,81 @@
+"""Attention functionals: counterpart of
+``paddle_tpu/nn/functional/attention.py``.
+
+Both functionals take ``[B, S, H, D]`` tensors.  Dispatch follows the
+reference: with no mask, no dropout in training and a shape the kernels
+take (:func:`~paddle_tpu_torch.ops.flash_attention.supported`), attention
+goes through :func:`~paddle_tpu_torch.ops.flash_attention.flash_attention_bshd`
+— the flash kernels K1-K3 on the card, their plain twins on the CPU (the
+wrapper, not this module, looks at the device) — and otherwise through
+:func:`_sdpa_ref`, the reference's own dense path, which is not a kernel's
+twin.  Dropout draws from a ``torch.Generator`` (the given one, else
+torch's default), so its random bits cannot match JAX's.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...ops.flash_attention import flash_attention_bshd, supported
+
+__all__ = ["scaled_dot_product_attention", "flash_attention", "_sdpa_ref"]
+
+
+def _sdpa_ref(q, k, v, mask=None, causal=False, dropout_p=0.0, scale=None,
+              generator=None):
+    """Dense attention over [B, S, H, D] in float32: grouped-query heads
+    folded into the einsum (K / V never repeated), causal mask aligned to
+    the bottom right (tril offset Sk - Sq) and boolean masks as -inf,
+    additive masks added, softmax, optional dropout; output in q's
+    dtype."""
+    d = q.shape[-1]
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    B, sq, hq, _ = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    rep = hq // hk
+    qg = q.float().reshape(B, sq, hk, rep, d)
+    logits = torch.einsum("bskrd,btkd->bkrst", qg, k.float()) * s
+    if causal:
+        cm = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(
+            sk - sq)
+        logits = logits.masked_fill(~cm, float("-inf"))
+    if mask is not None:
+        m5 = mask.broadcast_to(B, hq, sq, sk).reshape(B, hk, rep, sq, sk)
+        if mask.dtype == torch.bool:
+            logits = logits.masked_fill(~m5, float("-inf"))
+        else:
+            logits = logits + m5.float()
+    p = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0:
+        keep = torch.rand(p.shape, generator=generator, device=p.device) \
+            >= dropout_p
+        p = torch.where(keep, p / (1.0 - dropout_p), 0.0)
+    out = torch.einsum("bkrst,btkd->bskrd", p, v.float())
+    return out.reshape(B, sq, hq, d).to(q.dtype)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None, generator=None):
+    """paddle.nn.functional.scaled_dot_product_attention ([B, S, H, D])."""
+    drop = dropout_p if training else 0.0
+    if attn_mask is None and drop == 0.0 and supported(query.shape,
+                                                        key.shape):
+        return flash_attention_bshd(query, key, value, causal=is_causal)
+    return _sdpa_ref(query, key, value, mask=attn_mask, causal=is_causal,
+                     dropout_p=drop, generator=generator)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None, generator=None):
+    """Flash attention ([B, S, H, D]); returns ``(out, None)``, as the
+    reference does (the softmax is never returned)."""
+    drop = dropout if training else 0.0
+    if drop == 0.0 and supported(query.shape, key.shape):
+        out = flash_attention_bshd(query, key, value, causal=causal)
+    else:
+        out = _sdpa_ref(query, key, value, causal=causal, dropout_p=drop,
+                        generator=generator)
+    return out, None

@@ -1,9 +1,9 @@
 """The PyTorch port stands alone: nothing under ``paddle_tpu_torch/`` or in
 ``chip_smoke.py`` imports JAX or the JAX package; its entry points run on
 the card unless the caller asks for the CPU, and raise without CUDA; the
-options whose kernels are ported (int8 pages, speculative decoding) serve,
-and those whose kernels or modules are not ported yet are refused, not
-served some other way."""
+options whose kernels are ported (int8 pages, speculative decoding, the
+training forward) run, and those whose kernels or modules are not ported
+yet are refused, not run some other way."""
 import ast
 import subprocess
 import sys
@@ -12,11 +12,14 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.inference.engine import ModelRunner
 from paddle_tpu_torch.inference.serving import LLMEngine, SpecConfig
+from paddle_tpu_torch.models.gpt2 import GPT2ForCausalLM
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.ops.flash_attention import flash_attention_bshd
 from paddle_tpu_torch.ops.paged_attention import paged_attention
 
 REPO = Path(__file__).resolve().parent.parent
@@ -48,6 +51,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import paddle_tpu_torch.inference.serving\n"
             "import paddle_tpu_torch.models.convert\n"
+            "import paddle_tpu_torch.models.gpt2\n"
+            "import paddle_tpu_torch.nn\n"
+            "import paddle_tpu_torch.optimizer\n"
             "import paddle_tpu_torch.observability\n"
             "import paddle_tpu_torch.testing\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -79,6 +85,15 @@ def test_entry_points_default_to_the_card_and_raise_without_it(no_cuda,
         ModelRunner(model, n_pages=8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LlamaForCausalLM(LlamaConfig.tiny())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GPT2ForCausalLM()
+    # a (fake) CUDA tensor without a card: the wrapper refuses to launch,
+    # and never computes its plain version instead
+    with FakeTensorMode():
+        q = torch.empty(1, 128, 2, 64, device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            flash_attention_bshd(q, q, q)
+    assert flash_attention_bshd.launches_fwd == 0
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
@@ -103,10 +118,19 @@ def test_unported_options_are_refused(model, knob, value, what):
         LLMEngine(model, device="cpu", **{knob: value})
 
 
-def test_unported_runner_paths_are_refused(model):
-    with pytest.raises(NotImplementedError, match="K1"):
-        LlamaForCausalLM.forward(
-            model, torch.zeros(1, 2, dtype=torch.long, device="meta"))
+def test_unported_runner_paths_are_refused():
+    """The training forward now goes through the flash wrapper, which takes
+    only CPU or CUDA tensors (a meta tensor is refused there, not computed
+    some other way); the MoE variant is still refused."""
+    meta = LlamaForCausalLM(LlamaConfig.tiny(
+        hidden_size=256, num_attention_heads=2, num_key_value_heads=1),
+        device="cpu").to("meta")                 # head_dim 128: the kernels'
+    before = flash_attention_bshd.launches_fwd
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        meta(torch.zeros(1, 128, dtype=torch.long, device="meta"))
+    assert flash_attention_bshd.launches_fwd == before
+    with pytest.raises(NotImplementedError, match="MoE"):
+        LlamaForCausalLM(LlamaConfig.tiny_moe(), device="cpu")
 
 
 @pytest.mark.parametrize("case", ["kv_cache_dtype_int8", "spec_decode",
