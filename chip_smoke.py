@@ -19,9 +19,14 @@ Phases (any failure raises and the script exits non-zero):
    function, and its bound.  Then the flash-attention kernels of training,
    K1 (forward), K2 (dQ) and K3 (dK / dV), against their plain versions at
    the GPT-2 bench shape (B16 S1024 H12 D64, causal, bf16), the
-   Llama-shaped one (B8 S1024 H16 KVH4 D128, GQA), a non-causal case and
-   two float32 cases (TF32 off), each then timed at the first two shapes
-   beside its plain version, SDPA's forward / backward and its bound.
+   Llama-shaped one (B8 S1024 H16 KVH4 D128, GQA), head_dim 192 and 256, a
+   non-causal case and four float32 cases (TF32 off); and K4, the
+   layout-direct bodies of the ``FLAGS_flash_layout_direct`` path, against
+   theirs at GPT-2's shape, MHA at head_dim 256, a non-causal case and two
+   float32 cases.  Each is then timed at the GPT-2 and head_dim-256 shapes
+   (K1-K3 also at the Llama one) beside its plain version, SDPA's forward /
+   backward and its bound.  head_dim 192 and 256 launch K1-K3 through
+   ``flash_attention_bshd`` on the card; 320 is refused before any launch.
 3. engine: a float32 tiny Llama bridged from seeded numpy weights serves
    greedy requests on the card, each token checked against the dense
    reference, then again with int8 KV pages, with speculative decoding,
@@ -47,8 +52,21 @@ Phases (any failure raises and the script exits non-zero):
    model with the reference's dense attention) and timed steps on one
    repeated batch, with K1 = layers x forwards and K2 = K3 = layers x
    backwards, the loss falling; step ms, tokens/s, MFU, peak memory and a
-   profiled step's device time are printed.
-5. the ``kernels`` JSON line, the card line, and last the result line.
+   profiled step's device time are printed.  Between the two, the same
+   GPT-2 from the same seed trains with ``FLAGS_flash_layout_direct`` set
+   (K4's path), its first step held to the default path's, with K4's three
+   bodies launched layers x steps times each and K1-K3 never.
+5. weight-only, K8's path: Llama-3-8B's 224 projection weights (32
+   layers, random bf16 from a seeded generator on the card) quantized to
+   int8 and int4 through ``weight_quantize``; one decode step of linear
+   layers (M = 8) through ``nn.quant.weight_only_linear``, K8 launched
+   once a GEMM, each output against ``quant_matmul_ref``; M 1 and 300, one
+   float32 case, a call needing a gradient (no launch), the memory a call
+   allocates (less than its bf16 weight); the pass timed beside its bound,
+   the dequant formulation, F.linear on dequantized bf16 weights, and the
+   library's int8 call where it runs on CUDA.
+6. the ``kernels`` JSON line (all twelve kernels, each launched on its
+   path), the card line, and last the result line.
 """
 from __future__ import annotations
 
@@ -117,30 +135,43 @@ def card_line():
     return smi.stdout.strip().splitlines()[0]
 
 
+# the launch counters of each kernel: (module, function, attribute)
+COUNTERS = {
+    "K1": ("flash_attention", "flash_attention_bshd", "launches_fwd"),
+    "K2": ("flash_attention", "flash_attention_bshd", "launches_dq"),
+    "K3": ("flash_attention", "flash_attention_bshd", "launches_dkv"),
+    "K4-fwd": ("flash_attention", "flash_attention_bshd",
+               "launches_direct_fwd"),
+    "K4-dq": ("flash_attention", "flash_attention_bshd",
+              "launches_direct_dq"),
+    "K4-dkv": ("flash_attention", "flash_attention_bshd",
+               "launches_direct_dkv"),
+    "K5": ("paged_attention", "paged_attention", "launches"),
+    "K6": ("paged_attention", "paged_attention", "launches_int8"),
+    "K7": ("paged_attention", "paged_attention_multiquery", "launches"),
+    "K7q": ("paged_attention", "paged_attention_multiquery",
+            "launches_int8"),
+    "K8": ("quant_matmul", "quant_matmul", "launches"),
+    "K8-int4": ("quant_matmul", "quant_matmul", "launches_int4"),
+}
+FLASH_COUNTERS = ("K1", "K2", "K3", "K4-fwd", "K4-dq", "K4-dkv")
+
+
+def _counter(kern):
+    import importlib
+    mod, fn, attr = COUNTERS[kern]
+    return getattr(importlib.import_module(f"paddle_tpu_torch.ops.{mod}"),
+                   fn), attr
+
+
 def launch_counts():
     """Every kernel's launch counter, by kernel name."""
-    from paddle_tpu_torch.ops.flash_attention import flash_attention_bshd
-    from paddle_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_multiquery)
-    return {"K1": flash_attention_bshd.launches_fwd,
-            "K2": flash_attention_bshd.launches_dq,
-            "K3": flash_attention_bshd.launches_dkv,
-            "K5": paged_attention.launches,
-            "K6": paged_attention.launches_int8,
-            "K7": paged_attention_multiquery.launches,
-            "K7q": paged_attention_multiquery.launches_int8}
+    return {k: getattr(*_counter(k)) for k in COUNTERS}
 
 
 def reset_launch_counts():
-    from paddle_tpu_torch.ops.flash_attention import flash_attention_bshd
-    from paddle_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_multiquery)
-    flash_attention_bshd.launches_fwd = 0
-    flash_attention_bshd.launches_dq = 0
-    flash_attention_bshd.launches_dkv = 0
-    paged_attention.launches = paged_attention.launches_int8 = 0
-    paged_attention_multiquery.launches = 0
-    paged_attention_multiquery.launches_int8 = 0
+    for k in COUNTERS:
+        setattr(*_counter(k), 0)
 
 
 # ------------------------------------------------------------------ timing
@@ -363,45 +394,84 @@ def kernel_phase(dev, timer):
             line["prefill_ms"] = timer.ms(lambda: pre.run(kern))
             line["prefill_plain_ms"] = timer.ms(lambda: pre.run(ref))
             line["prefill_bound_ms"] = pre.bound()[0]
+            pre_fn, pre_out = pre.library()
+            pre_err = (pre_out.float() - pre.run(kern).float()).abs().max()
+            check(pre_err.item() <= TOL[dtype], f"{name} prefill: library "
+                  f"yardstick disagrees by {pre_err.item()}")
+            line["prefill_library_ms"] = timer.ms(pre_fn)
             print(f"{name} ({num}) prefill bf16 B={PREFILL_ROWS} ctx="
                   f"{prefill_ctx[0]}..{prefill_ctx[-1]} (one shared table): "
                   f"kernel {line['prefill_ms']:.4f} ms, plain "
-                  f"{line['prefill_plain_ms']:.4f} ms, bound "
+                  f"{line['prefill_plain_ms']:.4f} ms, library "
+                  f"{line['prefill_library_ms']:.4f} ms, bound "
                   f"{line['prefill_bound_ms']:.4f} ms", flush=True)
         lines.append(line)
     return lines
 
 
 # ---------------------------------------------------- phase 2b: flash kernels
-# (name, kernel, TPU kernel replaced)
+_FA = "paddle_tpu/ops/pallas/flash_attention.py"
+# (name, kernel, role, layout-direct, TPU kernel replaced)
 FLASH_KERNELS = [
-    ("flash_attention_fwd", "K1", "paddle_tpu/ops/pallas/flash_attention.py:34"),
-    ("flash_attention_bwd_dq", "K2",
-     "paddle_tpu/ops/pallas/flash_attention.py:161"),
-    ("flash_attention_bwd_dkv", "K3",
-     "paddle_tpu/ops/pallas/flash_attention.py:220"),
+    ("flash_attention_fwd", "K1", "fwd", False, f"{_FA}:34"),
+    ("flash_attention_bwd_dq", "K2", "dq", False, f"{_FA}:161"),
+    ("flash_attention_bwd_dkv", "K3", "dkv", False, f"{_FA}:220"),
+    ("flash_attention_direct_fwd", "K4-fwd", "fwd", True, f"{_FA}:459"),
+    ("flash_attention_direct_dq", "K4-dq", "dq", True, f"{_FA}:565"),
+    ("flash_attention_direct_dkv", "K4-dkv", "dkv", True, f"{_FA}:624"),
 ]
-# (tag, B, S, H, KVH, D, causal, dtype): the two training shapes, one
-# non-causal case, and float32 (MHA at D 128, GQA 4:1 at D 64)
+ROLE_KERNEL = {(role, direct): kern
+               for _, kern, role, direct, _ in FLASH_KERNELS}
+# (tag, B, S, H, KVH, D, causal, dtype): K1-K3 at the two training shapes,
+# head_dim 192 and 256, one non-causal case, and float32 (TF32 off)
 FLASH_CASES = [
     ("gpt2", 16, 1024, 12, 12, 64, True, torch.bfloat16),
     ("llama", 8, 1024, 16, 4, 128, True, torch.bfloat16),
+    ("d192", 4, 1024, 8, 8, 192, True, torch.bfloat16),
+    ("d256", 4, 1024, 8, 4, 256, True, torch.bfloat16),
     ("non-causal", 4, 512, 12, 4, 64, False, torch.bfloat16),
     ("f32 mha", 1, 256, 2, 2, 128, True, torch.float32),
     ("f32 gqa", 1, 256, 4, 1, 64, True, torch.float32),
+    ("f32 d192", 1, 256, 2, 2, 192, True, torch.float32),
+    ("f32 d256", 1, 256, 4, 2, 256, True, torch.float32),
 ]
+# K4 (MHA only): GPT-2's shape, head_dim 256, non-causal, float32
+K4_CASES = [
+    ("gpt2", 16, 1024, 12, 12, 64, True, torch.bfloat16),
+    ("d256", 4, 1024, 8, 8, 256, True, torch.bfloat16),
+    ("non-causal", 4, 512, 12, 12, 64, False, torch.bfloat16),
+    ("f32 d64", 1, 256, 2, 2, 64, True, torch.float32),
+    ("f32 d256", 1, 256, 2, 2, 256, True, torch.float32),
+]
+FLASH_TIMED = {False: ("gpt2", "llama", "d256"), True: ("gpt2", "d256")}
 # forward (o and lse, absolute) and gradient tolerances, those of
 # tests/test_pallas_kernels.py: float32 absolute; bf16 gradients at 2e-2 of
 # the largest reference magnitude (they scale with the inputs)
 FLASH_TOL = {torch.float32: (2e-5, 5e-4), torch.bfloat16: (2e-2, 2e-2)}
 
 
+@contextlib.contextmanager
+def layout_direct(on):
+    """FLAGS_flash_layout_direct set to ``on`` through the port's
+    set_flags, restored afterwards."""
+    import paddle_tpu_torch as pt
+    saved = pt.get_flags("flash_layout_direct")
+    pt.set_flags({"flash_layout_direct": on})
+    try:
+        yield
+    finally:
+        pt.set_flags(saved)
+
+
 class FlashCase:
     """One attention problem: q / dO [B, S, H, D], k / v [B, S, KVH, D],
-    standard-normal from the seeded generator."""
+    standard-normal from the seeded generator; ``direct`` for K4's
+    bodies and twins (the layout-direct path) instead of K1-K3's."""
 
-    def __init__(self, tag, B, S, H, KVH_, D_, causal, dtype, gen, dev):
+    def __init__(self, tag, B, S, H, KVH_, D_, causal, dtype, gen, dev,
+                 direct=False):
         self.tag, self.causal, self.dtype = tag, causal, dtype
+        self.direct = direct
         self.shape = (B, S, H, KVH_, D_)
         self.q, self.do = (torch.randn(B, S, H, D_, generator=gen,
                                        device=dev).to(dtype) for _ in "qd")
@@ -409,19 +479,41 @@ class FlashCase:
                                       device=dev).to(dtype) for _ in "kv")
         self.scale = D_ ** -0.5
 
+    def refs(self):
+        from paddle_tpu_torch.ops import flash_attention as fa
+        return ((fa.bshd_fwd_ref, fa.bshd_bwd_ref) if self.direct else
+                (fa.flash_fwd_ref, fa.flash_bwd_ref))
+
+    def describe(self):
+        B, S, H, KVH_, D_ = self.shape
+        return (f"{self.tag} {str(self.dtype)[6:]} B={B} S={S} H={H} "
+                f"KVH={KVH_} D={D_} causal={self.causal}")
+
     def check(self):
-        """Kernels against their plain versions; returns the errors of o
-        (and the LSE), dq and dk / dv, gradients relative to the largest
-        reference magnitude in bf16."""
+        """Kernels against their plain versions, the forward's through
+        ``flash_attention_bshd`` and its autograd (with the flag set for
+        K4, which must then launch K4's bodies and no others); returns the
+        errors of o (and the LSE), dq and dk / dv by kernel, gradients
+        relative to the largest reference magnitude in bf16."""
         from paddle_tpu_torch.ops import flash_attention as fa
         q, k, v, do = self.q, self.k, self.v, self.do
-        o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, self.causal)
-        g_ref = fa.flash_bwd_ref(q, k, v, o_ref, lse_ref, do, self.causal)
-        _, lse = fa._launch_fwd(q, k, v, self.causal, self.scale)
+        fwd_ref, bwd_ref = self.refs()
+        o_ref, lse_ref = fwd_ref(q, k, v, self.causal)
+        g_ref = bwd_ref(q, k, v, o_ref, lse_ref, do, self.causal)
+        _, lse = fa._launch_fwd(q, k, v, self.causal, self.scale, self.direct)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        o = fa.flash_attention_bshd(*leaves, causal=self.causal)
-        o.backward(do)
+        with layout_direct(self.direct):
+            before = launch_counts()
+            o = fa.flash_attention_bshd(*leaves, causal=self.causal)
+            o.backward(do)
+            after = launch_counts()
         torch.cuda.synchronize()
+        ran = {n: after[n] - before[n] for n in FLASH_COUNTERS}
+        kern = {role: ROLE_KERNEL[(role, self.direct)]
+                for role in ("fwd", "dq", "dkv")}
+        check(ran == {n: int(n in kern.values()) for n in FLASH_COUNTERS},
+              f"flash {self.describe()}: launched {ran}, expected one each "
+              f"of {sorted(kern.values())}")
         f_tol, g_tol = FLASH_TOL[self.dtype]
 
         def err(a, b, grad):
@@ -429,53 +521,55 @@ class FlashCase:
             if grad and self.dtype == torch.bfloat16:
                 e /= b.float().abs().max().item()
             return e
-        errs = {"K1": max(err(o, o_ref, False), err(lse, lse_ref, False)),
-                "K2": err(leaves[0].grad, g_ref[0], True),
-                "K3": max(err(leaves[1].grad, g_ref[1], True),
-                          err(leaves[2].grad, g_ref[2], True))}
+        errs = {kern["fwd"]: max(err(o, o_ref, False),
+                                 err(lse, lse_ref, False)),
+                kern["dq"]: err(leaves[0].grad, g_ref[0], True),
+                kern["dkv"]: max(err(leaves[1].grad, g_ref[1], True),
+                                 err(leaves[2].grad, g_ref[2], True))}
         finite = all(bool(torch.isfinite(t).all())
                      for t in [o, lse] + [x.grad for x in leaves])
-        B, S, H, KVH_, D_ = self.shape
-        for kern, e in errs.items():
-            tol = f_tol if kern == "K1" else g_tol
+        for name, e in errs.items():
+            fwd = name == kern["fwd"]
+            tol = f_tol if fwd else g_tol
             ok = finite and e <= tol
-            print(f"flash {kern} {self.tag} {str(self.dtype)[6:]} B={B} S={S} "
-                  f"H={H} KVH={KVH_} D={D_} causal={self.causal}: err "
-                  f"{e:.3e}{' (of max)' if kern != 'K1' and self.dtype == torch.bfloat16 else ''} "
+            print(f"flash {name} {self.describe()}: err {e:.3e}"
+                  f"{' (of max)' if not fwd and self.dtype == torch.bfloat16 else ''} "
                   f"tol {tol:.0e} {'ok' if ok else 'FAIL'}", flush=True)
-            check(ok, f"flash {kern} {self.tag} {self.dtype}: error {e} over "
-                  f"{tol}")
+            check(ok, f"flash {name} {self.describe()}: error {e} over {tol}")
         return errs
 
-    def bound(self, kern):
+    def bound(self, role):
         """Least time (ms) and what sets it: the bytes of each input read
         once and each output written once over the memory rate, or the
         flops of the causal (or full) score pairs over the peak for the
-        type; the larger of the two.  K1: q k^T and P V (4 D flops a
-        pair); K2: q k^T, dO v^T, dS k (6 D); K3: q k^T, dO v^T, P^T dO,
-        dS^T q (8 D).  K2 writes delta, K3 reads it instead of o."""
+        type; the larger of the two.  fwd: q k^T and P V (4 D flops a
+        pair); dq: q k^T, dO v^T, dS k (6 D); dkv: q k^T, dO v^T, P^T dO,
+        dS^T q (8 D).  The dq body writes delta, the dkv body reads it
+        instead of o (K4 as K2 / K3)."""
         B, S, H, KVH_, D_ = self.shape
         el = self.q.element_size()
         pairs = B * H * (S * (S + 1) // 2 if self.causal else S * S)
         qb, kvb, rowb = B * S * H * D_ * el, B * S * KVH_ * D_ * el, B * H * S * 4
         flops, nbytes = {
-            "K1": (4 * D_ * pairs, 2 * qb + 2 * kvb + rowb),
-            "K2": (6 * D_ * pairs, 4 * qb + 2 * kvb + 2 * rowb),
-            "K3": (8 * D_ * pairs, 2 * qb + 4 * kvb + 2 * rowb)}[kern]
+            "fwd": (4 * D_ * pairs, 2 * qb + 2 * kvb + rowb),
+            "dq": (6 * D_ * pairs, 4 * qb + 2 * kvb + 2 * rowb),
+            "dkv": (8 * D_ * pairs, 2 * qb + 4 * kvb + 2 * rowb)}[role]
         peak = BF16_FLOPS if self.dtype == torch.bfloat16 else F32_FLOPS
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                            else "operations")
 
     def times(self, timer):
-        """Device ms of each kernel, the plain forward and backward, and
-        SDPA's forward and backward (the library yardstick, never called by
-        the port), after checking SDPA agrees with K1."""
+        """Device ms of each kernel (by role), the plain forward and
+        backward, and SDPA's forward and backward (the library yardstick,
+        never called by the port), after checking SDPA agrees with the
+        forward kernel."""
         from paddle_tpu_torch.ops import flash_attention as fa
-        q, k, v, do, c, s = (self.q, self.k, self.v, self.do, self.causal,
-                             self.scale)
-        o, lse = fa._launch_fwd(q, k, v, c, s)
-        _, delta = fa._launch_dq(q, k, v, o, lse, do, c, s)
+        q, k, v, do, c, s, d = (self.q, self.k, self.v, self.do, self.causal,
+                                self.scale, self.direct)
+        fwd_ref, bwd_ref = self.refs()
+        o, lse = fa._launch_fwd(q, k, v, c, s, d)
+        _, delta = fa._launch_dq(q, k, v, o, lse, do, c, s, d)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         dot = do.transpose(1, 2)
@@ -486,15 +580,17 @@ class FlashCase:
         lib_o = sdpa()
         lib_err = (lib_o.transpose(1, 2).float() - o.float()).abs().max()
         check(lib_err.item() <= FLASH_TOL[self.dtype][0],
-              f"flash {self.tag}: SDPA disagrees with K1 by {lib_err.item()}")
+              f"flash {self.tag}: SDPA disagrees with the forward kernel by "
+              f"{lib_err.item()}")
         return {
-            "K1": timer.ms(lambda: fa._launch_fwd(q, k, v, c, s)),
-            "K2": timer.ms(lambda: fa._launch_dq(q, k, v, o, lse, do, c, s)),
-            "K3": timer.ms(lambda: fa._launch_dkv(q, k, v, o, lse, do, delta,
-                                                  c, s)),
-            "plain_fwd": timer.ms(lambda: fa.flash_fwd_ref(q, k, v, c), n=5),
-            "plain_bwd": timer.ms(
-                lambda: fa.flash_bwd_ref(q, k, v, o, lse, do, c), n=5),
+            "fwd": timer.ms(lambda: fa._launch_fwd(q, k, v, c, s, d)),
+            "dq": timer.ms(lambda: fa._launch_dq(q, k, v, o, lse, do, c, s,
+                                                 d)),
+            "dkv": timer.ms(lambda: fa._launch_dkv(q, k, v, o, lse, do, delta,
+                                                   c, s, d)),
+            "plain_fwd": timer.ms(lambda: fwd_ref(q, k, v, c), n=5),
+            "plain_bwd": timer.ms(lambda: bwd_ref(q, k, v, o, lse, do, c),
+                                  n=5),
             "library_fwd": timer.ms(sdpa),
             "library_bwd": timer.ms(lambda: torch.autograd.grad(
                 lib_o, (qt, kt, vt), dot, retain_graph=True)),
@@ -502,67 +598,88 @@ class FlashCase:
 
 
 def flash_kernel_phase(dev, timer):
-    """K1-K3 against their plain versions in every case, then timed at the
-    GPT-2 and Llama shapes.  Returns the three kernels' lines (launches
-    filled in by the training phase)."""
+    """K1-K3 against their plain versions in every case of FLASH_CASES and
+    K4 in every case of K4_CASES, then timed at the FLASH_TIMED shapes.
+    Returns the six kernels' lines (launches filled in by the training
+    phase)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs, timed = {}, {}
-    for case in FLASH_CASES:
-        c = FlashCase(*case, gen, dev)
-        for kern, e in c.check().items():
-            errs.setdefault((kern, c.dtype), []).append(e)
-        if c.tag in ("gpt2", "llama"):
-            timed[c.tag] = (c, c.times(timer))
-        del c
-        torch.cuda.empty_cache()
+    for direct, cases in ((False, FLASH_CASES), (True, K4_CASES)):
+        for case in cases:
+            c = FlashCase(*case, gen, dev, direct=direct)
+            for kern, e in c.check().items():
+                errs.setdefault((kern, c.dtype), []).append(e)
+            if c.tag in FLASH_TIMED[direct]:
+                timed[(direct, c.tag)] = (c.shape, c.bound, c.times(timer))
+            del c
+            torch.cuda.empty_cache()
     lines = []
-    for name, kern, replaces in FLASH_KERNELS:
+    for name, kern, role, direct, replaces in FLASH_KERNELS:
         row = {}
-        for tag, (c, t) in timed.items():
-            plain = t["plain_fwd" if kern == "K1" else "plain_bwd"]
-            lib = t["library_fwd" if kern == "K1" else "library_bwd"]
-            bound_ms, bound_by = c.bound(kern)
-            row[tag] = dict(ms=t[kern], plain_ms=plain, library_ms=lib,
+        for tag in FLASH_TIMED[direct]:
+            shape, bound, t = timed[(direct, tag)]
+            fwd = role == "fwd"
+            plain = t["plain_fwd" if fwd else "plain_bwd"]
+            lib = t["library_fwd" if fwd else "library_bwd"]
+            bound_ms, bound_by = bound(role)
+            row[tag] = dict(ms=t[role], plain_ms=plain, library_ms=lib,
                             bound_ms=bound_ms, bound_by=bound_by)
-            B, S, H, KVH_, D_ = c.shape
+            B, S, H, KVH_, D_ = shape
             print(f"{name} ({kern}) {tag} bf16 B={B} S={S} H={H} KVH={KVH_} "
-                  f"D={D_} causal: kernel {t[kern]:.4f} ms, plain {plain:.4f} "
-                  f"ms{'' if kern == 'K1' else ' (K2 + K3 together)'}, "
+                  f"D={D_} causal: kernel {t[role]:.4f} ms, plain {plain:.4f} "
+                  f"ms{'' if fwd else ' (dq + dk/dv together)'}, "
                   f"library {lib:.4f} ms "
-                  f"({'SDPA forward' if kern == 'K1' else 'SDPA backward, K2 + K3 together'}), "
+                  f"({'SDPA forward' if fwd else 'SDPA backward, dq + dk/dv together'}), "
                   f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-        g = row["gpt2"]
+        g = row.pop("gpt2")
+        fwd = role == "fwd"
+        plain = ("bshd_fwd_ref" if direct else "flash_fwd_ref") if fwd else (
+            f"{'bshd' if direct else 'flash'}_bwd_ref (dq, dk, dv together)")
         lines.append({
             "name": name, "kernel": kern, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces, "launches": None,
             "max_abs_err": max(errs[(kern, torch.bfloat16)]),
-            "tolerance": FLASH_TOL[torch.bfloat16][kern != "K1"],
+            "tolerance": FLASH_TOL[torch.bfloat16][not fwd],
             "max_abs_err_f32": max(errs[(kern, torch.float32)]),
-            "tolerance_f32": FLASH_TOL[torch.float32][kern != "K1"],
-            "error_of": ("o and lse, absolute" if kern == "K1" else
+            "tolerance_f32": FLASH_TOL[torch.float32][not fwd],
+            "error_of": ("o and lse, absolute" if fwd else
                          "gradients; bf16 relative to the largest reference "
                          "magnitude, f32 absolute"),
             "ms": g["ms"], "plain_ms": g["plain_ms"],
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
             "library_ms": g["library_ms"],
-            "library": ("SDPA forward" if kern == "K1" else
+            "library": ("SDPA forward" if fwd else
                         "SDPA backward (dq, dk, dv together)"),
-            "plain": ("flash_fwd_ref" if kern == "K1" else
-                      "flash_bwd_ref (dq, dk, dv together)"),
+            "plain": plain,
             "shape": "GPT-2 bench: bf16 B=16 S=1024 H=12 D=64 causal",
-            "llama": row["llama"],
+            **row,
         })
     return lines
 
 
 def head_dim_refusal(dev):
-    """head_dim 256 passes ``supported()``, as in the reference, but the
-    kernels are built for 64 and 128: the card's tensors are refused, with
-    no launch, and never run some other way."""
+    """Every head_dim that ``supported()`` takes runs on the card up to
+    256: at 192 and 256 a forward and backward launch K1, K2 and K3 once
+    each; 320 also passes ``supported()``, as in the reference, but the
+    kernels stop at 256, so the card's tensors are refused there, with no
+    launch, and never run some other way."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    q = torch.zeros(1, 128, 2, 256, dtype=torch.bfloat16, device=dev)
-    check(fa.supported(q.shape, q.shape), "supported() refuses head_dim 256")
+    for d in (192, 256):
+        q = torch.zeros(1, 128, 2, d, dtype=torch.bfloat16, device=dev,
+                        requires_grad=True)
+        before = launch_counts()
+        fa.flash_attention_bshd(q, q, q).float().sum().backward()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        ran = {n: after[n] - before[n] for n in FLASH_COUNTERS}
+        check(ran == {"K1": 1, "K2": 1, "K3": 1, "K4-fwd": 0, "K4-dq": 0,
+                      "K4-dkv": 0},
+              f"flash at head_dim {d} on the card launched {ran}")
+        check(bool(torch.isfinite(q.grad).all()),
+              f"flash at head_dim {d}: gradient not finite")
+    q = torch.zeros(1, 128, 2, 320, dtype=torch.bfloat16, device=dev)
+    check(fa.supported(q.shape, q.shape), "supported() refuses head_dim 320")
     before = launch_counts()
     try:
         fa.flash_attention_bshd(q, q, q)
@@ -570,8 +687,9 @@ def head_dim_refusal(dev):
     except ValueError as e:
         refused = str(e)
     check(refused is not None and launch_counts() == before,
-          "flash_attention_bshd at head_dim 256 was not refused on the card")
-    print(f"flash head_dim 256 on the card: refused ({refused})", flush=True)
+          "flash_attention_bshd at head_dim 320 was not refused on the card")
+    print(f"flash head_dim 192 and 256 on the card: K1, K2, K3 launched once "
+          f"each; head_dim 320: refused ({refused})", flush=True)
 
 
 # ---------------------------------------------------------- phase 3: engine
@@ -958,6 +1076,7 @@ def engine_phase(dev, card):
 
 # -------------------------------------------------------- phase 4: training
 TRAIN_TIMED = 6          # timed steps after the checked first one
+TRAIN_TIMED_DIRECT = 3   # the same, on the layout-direct (K4) path
 TINY_LR = 1e-3
 # bf16 agreement of the flash path with the same model on the dense
 # reference attention: the first loss within 2e-2 (absolute); the Llama
@@ -1109,18 +1228,20 @@ def new_adamw(model):
                  grad_clip=ClipGradByGlobalNorm(1.0))
 
 
-def dense_run(model, x, y, steps, names):
+def reference_run(model, x, y, steps, names, dense=True):
     """``steps`` AdamW steps of the model through the dense reference
-    attention, from its current weights, which are put back afterwards.
-    Returns the losses and the first step's gradients of ``names``.  Only
-    the first step is held to a tolerance: bf16 runs drift apart step by
-    step, so the later losses are printed beside the flash run's."""
+    attention (``dense``) or through the default flash path (K1-K3,
+    FLAGS_flash_layout_direct off), from its current weights, which are put
+    back afterwards.  Returns the losses and the first step's gradients of
+    ``names``.  Only the first step is held to a tolerance: bf16 runs drift
+    apart step by step, so the later losses are printed beside the checked
+    run's."""
     saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
     opt = new_adamw(model)
     params = dict(model.named_parameters())
     losses = []
     reset_launch_counts()
-    with dense_attention():
+    with dense_attention() if dense else layout_direct(False):
         for _ in range(steps):
             _, loss = model(x, labels=y)
             loss.backward()
@@ -1129,10 +1250,11 @@ def dense_run(model, x, y, steps, names):
             opt.step()
             opt.clear_grad()
             losses.append(loss.item())
-    launched = {k: v for k, v in launch_counts().items()
-                if k in ("K1", "K2", "K3")}
-    check(launched == {"K1": 0, "K2": 0, "K3": 0},
-          f"the dense reference launched flash kernels: {launched}")
+    launched = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+    path = () if dense else ("K1", "K2", "K3")
+    check(all((launched[k] > 0) == (k in path) for k in FLASH_COUNTERS),
+          f"the {'dense' if dense else 'default flash'} reference launched "
+          f"{launched}")
     model.load_state_dict(saved)
     del opt, saved
     gc.collect()
@@ -1140,10 +1262,11 @@ def dense_run(model, x, y, steps, names):
     return losses, grads
 
 
-def profile_step(model, opt, x, y, tag):
+def profile_step(model, opt, x, y, tag, kernels=("K1", "K2", "K3")):
     """One more step under torch.profiler: the device's busy share (kernel
     time over the profiled wall) and the kernels that take the most device
-    time, with the flash kernels' share."""
+    time, with the flash kernels' share (``kernels``: the forward, dq and
+    dk / dv bodies the path runs)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1158,93 +1281,101 @@ def profile_step(model, opt, x, y, tag):
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy = sum(ms for _, _, ms in rows)
     share = {k: sum(ms for key, _, ms in rows if pat in key)
-             for k, pat in (("K1", "fwd_bf16"), ("K2", "dq_bf16"),
-                            ("K3", "dkv_bf16"))}
+             for k, pat in zip(kernels, ("fwd_bf16", "dq_bf16", "dkv_bf16"))}
     pct = (lambda ms: 100 * ms / busy) if busy else (lambda ms: 0.0)
     print(f"profile train {tag}: 1 step in {wall:.1f} ms (profiled), device "
-          f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%); K1 "
-          f"{share['K1']:.2f} ms ({pct(share['K1']):.1f}%), K2 "
-          f"{share['K2']:.2f} ms ({pct(share['K2']):.1f}%), K3 "
-          f"{share['K3']:.2f} ms ({pct(share['K3']):.1f}%)", flush=True)
+          f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%); "
+          + ", ".join(f"{k} {ms:.2f} ms ({pct(ms):.1f}%)"
+                      for k, ms in share.items()), flush=True)
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:12]:
         print(f"profile train {tag}:   {ms:9.3f} ms {pct(ms):5.1f}%  "
               f"x{count:<5d} {key[:90]}")
 
 
-def train_bench(tag, model, batch, seq, layers, hidden, checked, card):
-    """The main path: a checked first step, then ``TRAIN_TIMED`` timed
-    steps, on one repeated batch of random token ids
-    (``np.random.RandomState(0)``, as ``bench.py``), with every launch
-    count set to 0 just before and read just after; then one profiled
-    step.  Returns the launches."""
+def train_bench(tag, model, batch, seq, layers, hidden, checked, card,
+                direct=False, timed=TRAIN_TIMED):
+    """The main path: a checked first step, then ``timed`` timed steps, on
+    one repeated batch of random token ids (``np.random.RandomState(0)``,
+    as ``bench.py``), with every launch count set to 0 just before and read
+    just after; then one profiled step.  The default path (K1-K3) is held
+    to the model with dense attention; with ``direct``, the whole run has
+    FLAGS_flash_layout_direct set (K4) and is held to the default path from
+    the same weights and batch.  Returns the launches."""
     vocab = model.config.vocab_size
     ids = np.random.RandomState(0).randint(0, vocab, (batch, seq + 1))
     dev = model.device
     x = torch.as_tensor(ids[:, :-1], device=dev)
     y = torch.as_tensor(ids[:, 1:], device=dev)
-    dense_losses, ref_grads = dense_run(model, x, y, 1 + TRAIN_TIMED, checked)
-    ref_loss = dense_losses[0]
+    ref_name = "the default path (K1-K3)" if direct else "dense attention"
+    ref_losses, ref_grads = reference_run(
+        model, x, y, 1 if direct else 1 + timed, checked, dense=not direct)
+    ref_loss = ref_losses[0]
+    kernels = ("K4-fwd", "K4-dq", "K4-dkv") if direct else ("K1", "K2", "K3")
     opt = new_adamw(model)
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    _, loss = model(x, labels=y)
-    loss.backward()
-    params = dict(model.named_parameters())
-    first = loss.item()
-    check(abs(first - ref_loss) <= TRAIN_LOSS_TOL,
-          f"train {tag}: first loss {first} vs dense {ref_loss}")
-    for n, g in ref_grads.items():
-        got = params[n].grad.float()
-        err = (got - g).abs().max().item() / g.abs().max().item()
-        rel = ((got - g).norm() / g.norm()).item()
-        check(bool(torch.isfinite(got).all()) and err <= TRAIN_GRAD_TOL,
-              f"train {tag}: gradient of {n} off by {err} of its largest")
-        print(f"train {tag}: {n} gradient vs dense attention: largest error "
-              f"{err:.3e} of the largest element (tol {TRAIN_GRAD_TOL}), "
-              f"relative norm error {rel:.3e}", flush=True)
-    opt.step()
-    opt.clear_grad()
-    losses, times = [first], []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(TRAIN_TIMED):
+    with layout_direct(direct):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses.append(train_step(model, opt, x, y).item())
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    steps = 1 + TRAIN_TIMED
-    want = {"K1": layers * steps, "K2": layers * steps, "K3": layers * steps}
-    print(f"train {tag}: losses {[round(v, 4) for v in losses]}; first loss "
-          f"{first:.4f} vs dense attention {ref_loss:.4f} (tol "
-          f"{TRAIN_LOSS_TOL}); launches {launches} (expected {want} = "
-          f"{layers} layers x {steps} forwards / backwards)", flush=True)
-    print(f"train {tag}: the same steps with dense attention: losses "
-          f"{[round(v, 4) for v in dense_losses]}", flush=True)
-    check(all(np.isfinite(losses)), f"train {tag}: a loss is not finite")
-    check(losses[-1] < losses[0], f"train {tag}: the loss did not fall "
-          f"({losses[0]} -> {losses[-1]})")
-    check({k: launches[k] for k in want} == want,
-          f"train {tag}: launches {launches}, expected {want}")
-    step_s = float(np.median(times))
-    n_params = sum(p.numel() for p in model.parameters())
-    flops_per_token = 6 * n_params + 12 * layers * hidden * seq
-    tok_s = batch * seq / step_s
-    print(f"train {tag}: median step {step_s * 1e3:.2f} ms over "
-          f"{TRAIN_TIMED} steps, {tok_s:.0f} tokens/s, MFU "
-          f"{tok_s * flops_per_token / BF16_FLOPS:.4f} ({n_params} "
-          f"parameters, {flops_per_token} flops a token, vs 989 TFLOP/s bf16 "
-          f"dense), peak memory {peak:.2f} GiB, batch {batch} x {seq}, on "
-          f"{card}", flush=True)
-    profile_step(model, opt, x, y, tag)
+        reset_launch_counts()
+        _, loss = model(x, labels=y)
+        loss.backward()
+        params = dict(model.named_parameters())
+        first = loss.item()
+        check(abs(first - ref_loss) <= TRAIN_LOSS_TOL,
+              f"train {tag}: first loss {first} vs {ref_name} {ref_loss}")
+        for n, g in ref_grads.items():
+            got = params[n].grad.float()
+            err = (got - g).abs().max().item() / g.abs().max().item()
+            rel = ((got - g).norm() / g.norm()).item()
+            check(bool(torch.isfinite(got).all()) and err <= TRAIN_GRAD_TOL,
+                  f"train {tag}: gradient of {n} off by {err} of its largest")
+            print(f"train {tag}: {n} gradient vs {ref_name}: largest error "
+                  f"{err:.3e} of the largest element (tol {TRAIN_GRAD_TOL}), "
+                  f"relative norm error {rel:.3e}", flush=True)
+        opt.step()
+        opt.clear_grad()
+        losses, times = [first], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(train_step(model, opt, x, y).item())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = 1 + timed
+        want = {k: layers * steps if k in kernels else 0
+                for k in FLASH_COUNTERS}
+        got = {k: launches[k] for k in FLASH_COUNTERS}
+        print(f"train {tag}: losses {[round(v, 4) for v in losses]}; first "
+              f"loss {first:.4f} vs {ref_name} {ref_loss:.4f} (tol "
+              f"{TRAIN_LOSS_TOL}); flash launches {got} (expected {want}: "
+              f"{layers} layers x {steps} forwards / backwards)", flush=True)
+        if not direct:
+            print(f"train {tag}: the same steps with dense attention: losses "
+                  f"{[round(v, 4) for v in ref_losses]}", flush=True)
+        check(all(np.isfinite(losses)), f"train {tag}: a loss is not finite")
+        check(losses[-1] < losses[0], f"train {tag}: the loss did not fall "
+              f"({losses[0]} -> {losses[-1]})")
+        check(got == want, f"train {tag}: launches {got}, expected {want}")
+        step_s = float(np.median(times))
+        n_params = sum(p.numel() for p in model.parameters())
+        flops_per_token = 6 * n_params + 12 * layers * hidden * seq
+        tok_s = batch * seq / step_s
+        print(f"train {tag}: median step {step_s * 1e3:.2f} ms over "
+              f"{timed} steps, {tok_s:.0f} tokens/s, MFU "
+              f"{tok_s * flops_per_token / BF16_FLOPS:.4f} ({n_params} "
+              f"parameters, {flops_per_token} flops a token, vs 989 TFLOP/s "
+              f"bf16 dense), peak memory {peak:.2f} GiB, batch {batch} x "
+              f"{seq}, on {card}", flush=True)
+        profile_step(model, opt, x, y, tag, kernels)
     return launches
 
 
 def training_phase(dev, card):
-    """Tiny f32 agreement, then GPT-2 124M and the Llama-3-shaped model in
-    bf16 (each model freed before the next).  Returns K1-K3's launches on
-    the GPT-2 run."""
+    """Tiny f32 agreement, then GPT-2 124M in bf16 on the default path and
+    with FLAGS_flash_layout_direct, and the Llama-3-shaped model in bf16
+    (each model freed before the next).  Returns K1-K3's launches on the
+    default GPT-2 run and K4's on the layout-direct one."""
     from paddle_tpu_torch.models.gpt2 import GPT2ForCausalLM
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
     # the serving models die with the engines' reference cycles: collect
@@ -1260,6 +1391,19 @@ def training_phase(dev, card):
                        cfg.hidden_size, ["gpt2.blocks.0.attn.qkv.weight",
                                          "gpt2.blocks.0.attn.proj.weight"],
                        card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K4's path: the same model from the same seed, with
+    # FLAGS_flash_layout_direct set, held to the default path
+    model = GPT2ForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                            generator=torch.Generator(device=dev).manual_seed(
+                                SEED))
+    direct = train_bench("gpt2-124m bf16 layout-direct", model, batch, seq,
+                         cfg.num_layers, cfg.hidden_size,
+                         ["gpt2.blocks.0.attn.qkv.weight",
+                          "gpt2.blocks.0.attn.proj.weight"], card,
+                         direct=True, timed=TRAIN_TIMED_DIRECT)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1289,7 +1433,339 @@ def training_phase(dev, card):
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: gpt2[k] for k in ("K1", "K2", "K3")}
+    return {**{k: gpt2[k] for k in ("K1", "K2", "K3")},
+            **{k: direct[k] for k in ("K4-fwd", "K4-dq", "K4-dkv")}}
+
+
+# --------------------------------------------------- phase 5: weight-only
+# Llama-3-8B's seven projections of a layer, (name, in_features K,
+# out_features N), as weight_only_linear stores them: [K, N]
+LLAMA_PROJ = [("q", 4096, 4096), ("k", 4096, 1024), ("v", 4096, 1024),
+              ("o", 4096, 4096), ("gate", 4096, 14336), ("up", 4096, 14336),
+              ("down", 14336, 4096)]
+WO_LAYERS = 32
+WO_M = 8                 # decode batch
+WO_PASSES = 5            # timed passes, median
+# K8 against quant_matmul_ref: bf16 at 2e-2 of the largest reference
+# magnitude, the bar of tests/test_quantization.py's kernel test (both sum
+# in f32; they differ by the order of the sum and one bf16 rounding of
+# y); f32 at 1e-5 of it (full f32 on both sides, sums in other orders).
+WO_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max().item()
+            / want.float().abs().max().item())
+
+
+def _timed(fn, n=WO_PASSES, kernels=None):
+    """Times of ``fn``, a pass over distinct weights whose bytes exceed the
+    50 MB L2 (so no flush is needed): ``wall``, the median of ``n``
+    synchronised runs between CUDA events, host issue included; and
+    ``device``, the median over three runs under torch.profiler of the
+    device time of its kernels (those whose names contain one of
+    ``kernels``, or all), which leaves out the host's launch gaps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    walls, devs = [], []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        walls.append(a.elapsed_time(b))
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        devs.append(sum(
+            e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and (kernels is None or any(k in e.key for k in kernels))))
+    return {"wall": float(np.median(walls)), "device": float(np.median(devs))}
+
+
+def _gemm_bound(shapes, wbytes_per_el, el=2):
+    """Least time (ms) of GEMMs y [M, N] = x [M, K] @ W: each input read
+    once (x, W at ``wbytes_per_el`` bytes a weight, the f32 scale) and y
+    written once, over the memory rate, or 2 M K N flops over the bf16
+    peak; the larger, and which."""
+    nbytes = sum(WO_M * K * el + K * N * wbytes_per_el + 4 * N + WO_M * N * el
+                 for K, N in shapes)
+    flops = sum(2 * WO_M * K * N for K, N in shapes)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def weight_only_phase(dev, card):
+    """K8's path: Llama-3-8B's 224 projection weights (32 layers), drawn in
+    bf16 from a seeded generator on the card one layer at a time and
+    quantized through the port's ``weight_quantize`` to int8 and to int4;
+    one decode step's worth of ``nn.quant.weight_only_linear`` at M = 8
+    under ``no_grad``, in int8 and in int4, with the launch counts set to
+    0 just before and read just after each pass; every output against
+    ``quant_matmul_ref``.  Then M = 1 and 300, one f32 shape, a call that
+    needs a gradient (the dequant formulation, no launch), and the memory
+    a call allocates.  Times: the pass, the dequant formulation over the
+    same pass, F.linear on dequantized bf16 weights, the library's int8
+    call where it runs on CUDA, the plain twin, and K8 per projection
+    shape.  Returns the kernels' lines and launches."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.nn import quant
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    weights = {"int8": [], "int4": []}    # [(K, N, qw, scale)] in pass order
+    for _ in range(WO_LAYERS):
+        for _, K, N in LLAMA_PROJ:
+            w = torch.randn(K, N, generator=gen, device=dev,
+                            dtype=torch.bfloat16) * 0.02
+            for algo in ("int8", "int4"):
+                q, s = quant.weight_quantize(w, algo=f"weight_only_{algo}")
+                weights[algo].append((K, N, q, s))
+            del w
+    torch.cuda.synchronize()
+    wbytes = {a: sum(q.numel() for _, _, q, _ in ws)
+              for a, ws in weights.items()}
+    print(f"weight-only: Llama-3-8B's {len(weights['int8'])} projection "
+          f"weights ({WO_LAYERS} layers) drawn in bf16 and quantized in "
+          f"{time.perf_counter() - t0:.1f} s: int8 {wbytes['int8'] / 1e9:.2f} "
+          f"GB, int4 {wbytes['int4'] / 1e9:.2f} GB", flush=True)
+    xs = {K: torch.randn(WO_M, K, generator=gen, device=dev).to(torch.bfloat16)
+          for K in {K for _, K, _ in LLAMA_PROJ}}
+
+    def run_pass(algo, out=None):
+        for K, N, q, s in weights[algo]:
+            y = quant.weight_only_linear(xs[K], q, weight_scale=s,
+                                         weight_dtype=algo)
+            if out is not None:
+                out.append(y)
+
+    lines, launches = [], {}
+    for algo, kern in (("int8", "K8"), ("int4", "K8-int4")):
+        int4 = algo == "int4"
+        outs = []
+        with torch.no_grad():
+            reset_launch_counts()
+            run_pass(algo, outs)
+            got = launch_counts()
+        torch.cuda.synchronize()
+        launches[kern] = got[kern]
+        want = {k: len(weights[algo]) if k == kern else 0 for k in COUNTERS}
+        check(got == want, f"weight-only {algo} pass: launches {got}, "
+              f"expected {want}")
+        worst = 0.0
+        for (K, N, q, s), y in zip(weights[algo], outs):
+            e = _rel_err(y, qm.quant_matmul_ref(xs[K], q, s, int4=int4))
+            check(bool(torch.isfinite(y).all()) and y.shape == (WO_M, N)
+                  and e <= WO_TOL[torch.bfloat16],
+                  f"weight-only {algo} {K}x{N}: error {e} of the largest")
+            worst = max(worst, e)
+        del outs
+        errs = {f"bf16 M={WO_M} pass": worst}
+        # M 1 and 300 at one shape, and one f32 shape
+        K, N, q, s = weights[algo][0]
+        for M, dt in ((1, torch.bfloat16), (300, torch.bfloat16),
+                      (WO_M, torch.float32)):
+            x = torch.randn(M, K, generator=gen, device=dev).to(dt)
+            e = _rel_err(qm.quant_matmul(x, q, s, int4=int4),
+                         qm.quant_matmul_ref(x, q, s, int4=int4))
+            check(e <= WO_TOL[dt], f"weight-only {algo} M={M} {dt}: error "
+                  f"{e} over {WO_TOL[dt]}")
+            errs[f"{'bf16' if dt == torch.bfloat16 else 'f32'} M={M}"] = e
+        print(f"weight-only {algo} ({kern}): {got[kern]} launches over "
+              f"{len(weights[algo])} GEMMs; errors of the largest reference "
+              f"magnitude " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tol bf16 {WO_TOL[torch.bfloat16]:.0e}, f32 "
+              f"{WO_TOL[torch.float32]:.0e})", flush=True)
+        # a call that needs a gradient takes the dequant formulation
+        xg = xs[K].clone().requires_grad_()
+        before = launch_counts()
+        y = quant.weight_only_linear(xg, q, weight_scale=s, weight_dtype=algo)
+        w_deq = qm.unpack_int4(q) if int4 else q
+        e = _rel_err(y, (xg @ w_deq.to(xg.dtype)) * s.to(xg.dtype))
+        check(launch_counts() == before and y.requires_grad
+              and e <= WO_TOL[torch.bfloat16],
+              f"weight-only {algo}: a call needing a gradient launched K8 or "
+              f"left the dequant formulation")
+        # the largest weight: what a K8 call allocates beside its output
+        K, N, q, s = max(weights[algo], key=lambda t: t[0] * t[1])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            y = quant.weight_only_linear(xs[K], q, weight_scale=s,
+                                         weight_dtype=algo)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
+        check(rise < K * N * 2, f"weight-only {algo}: a {K}x{N} call "
+              f"allocated {rise} bytes, as much as its bf16 weight")
+        print(f"weight-only {algo}: a {K}x{N} K8 call allocated {rise} bytes "
+              f"at its peak (its bf16 weight would need {K * N * 2}); a call "
+              f"needing a gradient took the dequant formulation with no "
+              f"launch", flush=True)
+        del y, xg, w_deq
+
+        # times: the pass and its alternatives, over the same distinct
+        # weights (more bytes than the L2 holds)
+        k8 = ("qmm", "reduce_splits")
+        with torch.no_grad():
+            t = _timed(lambda: run_pass(algo), kernels=k8)
+            set_flags({"weight_only_use_kernel": False})
+            try:
+                dequant = _timed(lambda: run_pass(algo))
+            finally:
+                set_flags({"weight_only_use_kernel": True})
+            plain = _timed(lambda: [
+                qm.quant_matmul_ref(xs[K], q, s, int4=int4)
+                for K, N, q, s in weights[algo]], n=3)
+            per_shape = {}
+            for name, K, N in LLAMA_PROJ:
+                mine = [(q, s) for k_, n_, q, s in weights[algo]
+                        if (k_, n_) == (K, N)]
+                ts = _timed(lambda: [qm.quant_matmul(xs[K], q, s, int4=int4)
+                                     for q, s in mine], kernels=k8)
+                per_shape[f"{name} {K}x{N}"] = {
+                    "ms": ts["device"] / len(mine),
+                    "wall_ms": ts["wall"] / len(mine),
+                    "bound_ms": _gemm_bound([(K, N)], 0.5 if int4 else 1)[0]}
+        shapes = [(K, N) for K, N, _, _ in weights[algo]]
+        bound_ms, bound_by = _gemm_bound(shapes, 0.5 if int4 else 1)
+        lib, lib_note, lib_err = (_int4pack if int4 else _int8pack)(
+            weights[algo], xs)
+        lib_ms = None if lib is None else lib["device"]
+        lines.append({
+            "name": f"quant_matmul_{algo}", "kernel": kern, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
+            "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:32",
+            "launches": None,
+            "max_abs_err": max(v for k, v in errs.items()
+                               if k.startswith("bf16")),
+            "tolerance": WO_TOL[torch.bfloat16],
+            "max_abs_err_f32": errs[f"f32 M={WO_M}"],
+            "tolerance_f32": WO_TOL[torch.float32],
+            "error_of": "y, relative to the largest reference magnitude",
+            "ms": t["device"], "plain_ms": plain["device"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "library": lib_note, "library_err": lib_err,
+            "plain": "quant_matmul_ref over the same pass",
+            "times_are": ("device time of the pass's kernels (torch.profiler); "
+                          "*_wall_ms: the synchronised pass, host issue "
+                          "included"),
+            "wall_ms": t["wall"], "plain_wall_ms": plain["wall"],
+            "library_wall_ms": None if lib is None else lib["wall"],
+            "dequant_ms": dequant["device"], "dequant_wall_ms": dequant["wall"],
+            "shape": (f"one decode step of Llama-3-8B's linear layers: "
+                      f"{len(shapes)} GEMMs (32 layers x q, k, v, o, gate, "
+                      f"up, down) at M={WO_M}, bf16 x, {algo} weights "
+                      f"{wbytes[algo]} bytes"),
+            "per_shape": per_shape,
+        })
+        print(f"weight-only {algo} ({kern}) pass of {len(shapes)} GEMMs at "
+              f"M={WO_M}, device time (wall, host issue included): kernel "
+              f"{t['device']:.4f} ms ({t['wall']:.4f}), bound {bound_ms:.4f} "
+              f"ms ({bound_by}), dequant formulation {dequant['device']:.4f} "
+              f"ms ({dequant['wall']:.4f}), plain {plain['device']:.4f} ms "
+              f"({plain['wall']:.4f}), library "
+              + ("n/a" if lib is None else
+                 f"{lib['device']:.4f} ms ({lib['wall']:.4f}), error "
+                 f"{lib_err:.2e} of the largest")
+              + f" ({lib_note}); per projection, device (wall) a call: "
+              + ", ".join(f"{k} {v['ms']:.4f} ({v['wall_ms']:.4f}) ms, bound "
+                          f"{v['bound_ms']:.4f}" for k, v in per_shape.items())
+              + f"; on {card}", flush=True)
+        torch.cuda.empty_cache()
+
+    # F.linear on the same weights dequantized to bf16 (14 GB), layer by
+    # layer as the pass goes, timed over the whole pass
+    with torch.no_grad():
+        dense = [(K, quant.weight_dequantize(q, s, algo="weight_only_int8",
+                                             out_dtype="bfloat16").t())
+                 for K, N, q, s in weights["int8"]]
+        lin = _timed(lambda: [torch.nn.functional.linear(xs[K], w)
+                              for K, w in dense])
+    del dense
+    lin_bound = _gemm_bound([(K, N) for K, N, _, _ in weights["int8"]], 2)[0]
+    print(f"weight-only: F.linear on the bf16-dequantized weights, the same "
+          f"pass: device {lin['device']:.4f} ms (wall {lin['wall']:.4f}), "
+          f"bound {lin_bound:.4f} ms (bytes)", flush=True)
+    for line in lines:
+        line["bf16_linear_ms"] = lin["device"]
+        line["bf16_linear_wall_ms"] = lin["wall"]
+        line["bf16_linear_bound_ms"] = lin_bound
+    del weights, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lines, launches
+
+
+def _library_pass(name, weights, xs, pack, call, int4):
+    """Times one PyTorch call that computes K8's function over the same
+    pass: ``pack`` repacks each (K, N, qw, scale) once, outside the timing,
+    and ``call(x, packed)`` computes y.  Its first weight's y is held
+    against ``quant_matmul_ref`` at the bf16 bar.  Returns (``_timed``'s
+    dict, a note, the error), or (None, why it does not run here, None)."""
+    from paddle_tpu_torch.ops.quant_matmul import quant_matmul_ref
+    op = getattr(torch, name, None)
+    if op is None:
+        return None, f"torch.{name}: absent in this torch", None
+    K, N, q, s = weights[0]
+    try:
+        y = call(op, xs[K], pack(K, N, q, s))
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, (f"torch.{name} does not run on CUDA here: "
+                      f"{str(e).splitlines()[0][:120]}"), None
+    err = _rel_err(y, quant_matmul_ref(xs[K], q, s, int4=int4))
+    check(err <= WO_TOL[torch.bfloat16], f"torch.{name}: error {err} of the "
+          f"largest against quant_matmul_ref, repacked wrongly")
+    packed = [(K, pack(K, N, q, s)) for K, N, q, s in weights]
+    return (_timed(lambda: [call(op, xs[K], p) for K, p in packed]),
+            f"torch.{name} on the same weights repacked, the same pass", err)
+
+
+def _int8pack(weights, xs):
+    """``torch._weight_int8pack_mm``: x @ W^T * scale with W int8 [N, K]
+    and the scale in x's dtype (rounded to bf16)."""
+    return _library_pass(
+        "_weight_int8pack_mm", weights, xs,
+        lambda K, N, q, s: (q.t().contiguous(), s.to(torch.bfloat16)),
+        lambda op, x, p: op(x, *p), int4=False)
+
+
+INT4_GROUP = 256   # rows a scale group covers in the int4pack layout
+
+
+def _int4pack(weights, xs):
+    """``torch._weight_int4pack_mm`` (tinygemm): x @ ((u - 8) * scale +
+    zero) with u uint4 in its own tiled layout and a (scale, zero) pair per
+    group of rows and column.  K8's int4 function, once each signed nibble
+    q is stored as u = q + 8 (two to a byte of the [N, K / 2] input to
+    ``torch._convert_weight_to_int4pack``, the even row in the high
+    nibble), every group's scale is the column's (rounded to bf16) and
+    every zero is 0."""
+    from paddle_tpu_torch.ops.quant_matmul import unpack_int4
+
+    def pack(K, N, q, s):
+        u = unpack_int4(q).t().to(torch.int32) + 8               # [N, K]
+        u8 = (u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8).contiguous()
+        sz = torch.stack([s.to(torch.bfloat16).expand(K // INT4_GROUP, N),
+                          torch.zeros(K // INT4_GROUP, N, device=s.device,
+                                      dtype=torch.bfloat16)], -1)
+        return torch._convert_weight_to_int4pack(u8, 8), sz.contiguous()
+
+    return _library_pass(
+        "_weight_int4pack_mm", weights, xs, pack,
+        lambda op, x, p: op(x, p[0], INT4_GROUP, p[1]), int4=True)
 
 
 def main():
@@ -1318,8 +1794,14 @@ def main():
     torch.cuda.empty_cache()
     launches = engine_phase(dev, card)
     launches.update(training_phase(dev, card))
+    wo_lines, wo_launches = weight_only_phase(dev, card)
+    kernels += wo_lines
+    launches.update(wo_launches)
     for k in kernels:
         k["launches"] = launches[k["kernel"]]
+        check(k["launches"] > 0, f"{k['kernel']} never launched on its path")
+    check(sorted(k["kernel"] for k in kernels) == sorted(COUNTERS),
+          f"the kernels line lists {[k['kernel'] for k in kernels]}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     # one card: the run uses cuda:0 and nothing else

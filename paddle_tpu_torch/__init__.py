@@ -10,6 +10,7 @@ by hand for ``sm_90a`` under ``csrc/``, built at first use by
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; see :func:`paddle_tpu_torch.device.resolve_device`.
 """
+from .core.flags import get_flags, set_flags  # noqa: F401
 from .device import resolve_device  # noqa: F401
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "set_flags", "get_flags"]

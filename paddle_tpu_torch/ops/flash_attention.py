@@ -2,22 +2,31 @@
 PyTorch twins.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``.  One CUDA
-source, ``csrc/flash_attention.cu``, holds the three kernels of the
-reference's default path (see the note there for the design, the fixed
-tiles and what bounds them):
+source, ``csrc/flash_attention.cu``, holds the kernels of both of the
+reference's paths (see the note there for the design, the fixed tiles and
+what bounds them).  The default path:
 
 - K1 (``_fwd_kernel``): the forward, O and the natural-log LSE;
 - K2 (``_dq_kernel``): dQ, which also computes delta = rowsum(dO * O);
 - K3 (``_dkv_kernel``): dK and dV, summed over each GQA group.
 
+The layout-direct path (K4: ``_bshd_fwd_kernel``, ``_bshd_dq_kernel``,
+``_bshd_dkv_kernel``), which the reference takes for MHA when
+``FLAGS_flash_layout_direct`` is set and :func:`_bshd_config` finds tiles:
+the same three bodies with K4's numerics (scores from the unscaled q times
+the scale in f32, natural exp).  Its plain twins are :func:`bshd_fwd_ref`
+and :func:`bshd_bwd_ref`.
+
 :func:`flash_attention_bshd` takes ``[B, S, H, D]`` tensors, as the JAX
-function does, and runs through a :class:`torch.autograd.Function` whose
-forward launches K1 and whose backward launches K2 then K3.  The device
-alone decides the path: CPU tensors compute the plain versions
-(:func:`flash_fwd_ref`, :func:`flash_bwd_ref`); CUDA tensors launch the
-kernels or raise — they never fall back.  Each kernel has its own launch
-counter, a plain int: ``flash_attention_bshd.launches_fwd`` (K1),
-``.launches_dq`` (K2) and ``.launches_dkv`` (K3).
+function does, picks the path as the reference does, and runs through a
+:class:`torch.autograd.Function` whose forward launches the forward kernel
+and whose backward launches the dQ then the dK / dV kernel.  The device
+alone decides between kernel and twin: CPU tensors compute the plain
+versions; CUDA tensors launch the kernels or raise — they never fall back.
+Each kernel has its own launch counter, a plain int:
+``flash_attention_bshd.launches_fwd`` (K1), ``.launches_dq`` (K2),
+``.launches_dkv`` (K3), ``.launches_direct_fwd``, ``.launches_direct_dq``
+and ``.launches_direct_dkv`` (K4).
 
 The LSE is ``[B * H, Sq]`` float32 (the TPU kernels broadcast it over 128
 lanes).  There is no block autotuning: the kernels use one tile choice per
@@ -32,9 +41,11 @@ import numpy as np
 import torch
 
 from . import _build
+from ..core.flags import flag
 
 __all__ = ["flash_attention_bshd", "flash_fwd_ref", "flash_bwd_ref",
-           "supported", "BQ", "BK", "NEG_INF"]
+           "bshd_fwd_ref", "bshd_bwd_ref", "supported", "BQ", "BK",
+           "NEG_INF"]
 
 BQ = 128
 BK = 128
@@ -43,7 +54,8 @@ LN2 = 0.6931471805599453
 NEG_INF = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 192, 256)
+_B_BQ, _B_BK = 512, 512
 _lib = None
 
 
@@ -52,7 +64,8 @@ def _kernel_lib():
     if _lib is None:
         lib = _build.load("flash_attention")
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        tail = [ci] * 6 + [cf, cf, ci, ci, vp]   # B H Hk Sq Sk D, scales...
+        # B H Hk Sq Sk D, scale, qscale, causal, dtype, direct, stream
+        tail = [ci] * 6 + [cf, cf, ci, ci, ci, vp]
         lib.flash_fwd.argtypes = [vp] * 6 + tail
         lib.flash_bwd_dq.argtypes = [vp] * 9 + tail
         lib.flash_bwd_dkv.argtypes = [vp] * 9 + tail
@@ -77,8 +90,9 @@ def _check_divisible(Sq, Sk, D, bq=None, bk=None):
 def supported(q_shape, kv_shape=None, dtype=None) -> bool:
     """Single dispatch predicate for the kernel path ([B, S, H, D]
     layouts), the reference's: S % 128 == 0, head_dim % 64 == 0, H % Hk ==
-    0.  The CUDA kernels are built for head_dim 64 and 128; a CUDA tensor
-    with another head_dim that passes here is refused by the wrapper."""
+    0.  The CUDA kernels are built for head_dim 64, 128, 192 and 256; a
+    CUDA tensor with a larger head_dim that passes here is refused by the
+    wrapper before any launch."""
     B, S, H, D = q_shape
     ok = (S % BQ == 0) and (D % 64 == 0)
     if kv_shape is not None:
@@ -156,6 +170,80 @@ def flash_bwd_ref(q, k, v, o, lse, do, causal=True, scale=None):
             dv.to(v.dtype))
 
 
+def _direct_scores(q, k, s, causal):
+    """K4's scores [B, H, Sq, Sk] in float32: the unscaled q k^T of the
+    dtype-rounded operands, times the scale in f32; NEG_INF above the
+    diagonal when causal."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    sc = torch.einsum("bqhd,bthd->bhqt", q.float(), k.float()) * s
+    if causal:
+        above = (torch.arange(Sk, device=q.device)[None, :]
+                 > torch.arange(Sq, device=q.device)[:, None])
+        sc = sc.masked_fill(above, NEG_INF)
+    return sc
+
+
+def bshd_fwd_ref(q, k, v, causal=True, scale=None):
+    """Plain PyTorch version of K4's forward (``_bshd_fwd_kernel``), MHA:
+    q / k / v [B, S, H, D] -> (o in q's dtype, lse [B * H, Sq] float32).
+    Scores from the unscaled q times the scale in f32, natural exp (the
+    kernel computes it as exp2(x * log2 e), with the scale and log2 e
+    folded into one f32 multiply), P rounded to v's dtype before P V, l
+    clamped at 1e-30, natural-log LSE."""
+    B, Sq, H, D = q.shape
+    sc = _direct_scores(q, k, _scale(D, scale), causal)
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhqt,bthd->bqhd", p.to(v.dtype).float(), v.float())
+    o = o / l.permute(0, 2, 1, 3)
+    lse = (m + torch.log(l)).reshape(B * H, Sq)
+    return o.to(q.dtype), lse
+
+
+def bshd_bwd_ref(q, k, v, o, lse, do, causal=True, scale=None):
+    """Plain PyTorch version of K4's backward (``_bshd_dq_kernel`` and
+    ``_bshd_dkv_kernel``): (dq, dk, dv) in q's / k's / v's dtypes.  P =
+    exp(s - lse) from K4's scores, delta = rowsum(dO * O) in f32, dS = P
+    (dP - delta); dQ = (dS rounded to k's dtype) K * scale, dK = (dS
+    rounded to q's dtype)^T q * scale, dV = (P rounded to dO's dtype)^T dO,
+    the scale applied in f32 after each product."""
+    B, Sq, H, D = q.shape
+    s = _scale(D, scale)
+    sc = _direct_scores(q, k, s, causal)
+    p = torch.exp(sc - lse.reshape(B, H, Sq, 1))
+    dof = do.float()
+    dp = torch.einsum("bqhd,bthd->bhqt", dof, v.float())
+    delta = (dof * o.float()).sum(-1)                       # [B, Sq, H]
+    ds = p * (dp - delta.permute(0, 2, 1)[..., None])
+    dq = torch.einsum("bhqt,bthd->bqhd", ds.to(k.dtype).float(),
+                      k.float()) * s
+    dk = torch.einsum("bhqt,bqhd->bthd", ds.to(q.dtype).float(),
+                      q.float()) * s
+    dv = torch.einsum("bhqt,bqhd->bthd", p.to(do.dtype).float(), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bshd_config(B, Sq, Sk, H, D, dtype):
+    """The reference's ``_bshd_config``, a pure function of the shapes and
+    the dtype's itemsize: (bq, bk, hb) for the layout-direct path, or None
+    if it does not apply.  Here it decides the ROUTE only.  Its tiles are
+    TPU VMEM blocks (a whole-H block must fit a 12 MiB VMEM estimate); they
+    do not set the CUDA kernels' tiles, which are fixed per head_dim in
+    ``csrc/flash_attention.cu``."""
+    itemsize = dtype.itemsize
+    for bq, bk in ((_B_BQ, _B_BK), (256, 512), (256, 256), (128, 256),
+                   (128, 128)):
+        if Sq % bq or Sk % bk:
+            continue
+        vmem = (2 * (2 * bq + 2 * bk) * H * D * itemsize
+                + H * bq * (2 * 128 + D) * 4
+                + int(1.5 * H * bq * bk * 4))
+        if vmem <= 12 * 1024 * 1024:
+            return bq, bk, H
+    return None
+
+
 # ------------------------------------------------------------------- kernels
 def _strided(t):
     """``t`` as the bf16 kernels read it — unit last stride, 16-byte
@@ -219,9 +307,10 @@ def _sizes(q, k, causal, s):
             int(causal), _DTYPES[q.dtype])
 
 
-# The launchers take tensors that _check passed, as _strided gives them.
-def _launch_fwd(q, k, v, causal, s):
-    """K1: (o, lse)."""
+# The launchers take tensors that _check passed, as _strided gives them;
+# `direct` selects K4's bodies (and counters) instead of K1-K3's.
+def _launch_fwd(q, k, v, causal, s, direct=False):
+    """K1 (K4-fwd): (o, lse)."""
     B, Sq, H, D = q.shape
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
@@ -229,14 +318,18 @@ def _launch_fwd(q, k, v, causal, s):
         err = _kernel_lib().flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), _strides(q, k, v), *_sizes(q, k, causal, s),
-            _stream(q))
-    _raise_on(err, "forward (K1)")
-    flash_attention_bshd.launches_fwd += 1
+            int(direct), _stream(q))
+    _raise_on(err, "forward (K4)" if direct else "forward (K1)")
+    if direct:
+        flash_attention_bshd.launches_direct_fwd += 1
+    else:
+        flash_attention_bshd.launches_fwd += 1
     return o, lse
 
 
-def _launch_dq(q, k, v, o, lse, do, causal, s):
-    """K2: (dq, delta [B * H, Sq] float32), from K1's o and lse."""
+def _launch_dq(q, k, v, o, lse, do, causal, s, direct=False):
+    """K2 (K4-dq): (dq, delta [B * H, Sq] float32), from the forward's o
+    and lse."""
     B, Sq, H, D = q.shape
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     delta = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
@@ -244,23 +337,32 @@ def _launch_dq(q, k, v, o, lse, do, causal, s):
         err = _kernel_lib().flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), dq.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            _strides(q, k, v, o, do), *_sizes(q, k, causal, s), _stream(q))
-    _raise_on(err, "dq (K2)")
-    flash_attention_bshd.launches_dq += 1
+            _strides(q, k, v, o, do), *_sizes(q, k, causal, s), int(direct),
+            _stream(q))
+    _raise_on(err, "dq (K4)" if direct else "dq (K2)")
+    if direct:
+        flash_attention_bshd.launches_direct_dq += 1
+    else:
+        flash_attention_bshd.launches_dq += 1
     return dq, delta
 
 
-def _launch_dkv(q, k, v, o, lse, do, delta, causal, s):
-    """K3: (dk, dv), from K1's lse and K2's delta."""
+def _launch_dkv(q, k, v, o, lse, do, delta, causal, s, direct=False):
+    """K3 (K4-dkv): (dk, dv), from the forward's lse and the dq kernel's
+    delta."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = _kernel_lib().flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            _strides(q, k, v, o, do), *_sizes(q, k, causal, s), _stream(q))
-    _raise_on(err, "dk/dv (K3)")
-    flash_attention_bshd.launches_dkv += 1
+            _strides(q, k, v, o, do), *_sizes(q, k, causal, s), int(direct),
+            _stream(q))
+    _raise_on(err, "dk/dv (K4)" if direct else "dk/dv (K3)")
+    if direct:
+        flash_attention_bshd.launches_direct_dkv += 1
+    else:
+        flash_attention_bshd.launches_dkv += 1
     return dk, dv
 
 
@@ -277,53 +379,65 @@ def _device_path(q, name):
 
 class _Flash(torch.autograd.Function):
     """K1 forward, K2 + K3 backward (the reference's ``_flash3``
-    custom_vjp); saves q, k, v, o and the LSE, as ``_flash3_fwd`` does."""
+    custom_vjp), or with ``direct`` K4's three bodies (its ``_flash_bshd``
+    custom_vjp); saves q, k, v, o and the LSE, as ``_flash3_fwd`` and
+    ``_flash_bshd_fwd`` do."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, s):
+    def forward(ctx, q, k, v, causal, s, direct):
         if _device_path(q, "flash_attention_bshd") == "cpu":
-            o, lse = flash_fwd_ref(q, k, v, causal, s)
+            ref = bshd_fwd_ref if direct else flash_fwd_ref
+            o, lse = ref(q, k, v, causal, s)
         else:
             _check(q, k, v)
             q, k, v = _strided(q), _strided(k), _strided(v)
-            o, lse = _launch_fwd(q, k, v, causal, s)
+            o, lse = _launch_fwd(q, k, v, causal, s, direct)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, s
+        ctx.causal, ctx.scale, ctx.direct = causal, s, direct
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_bwd_ref(q, k, v, o, lse, do, ctx.causal,
-                                       ctx.scale)
+        c, s, direct = ctx.causal, ctx.scale, ctx.direct
+        if _device_path(q, "flash_attention_bshd") == "cpu":
+            ref = bshd_bwd_ref if direct else flash_bwd_ref
+            dq, dk, dv = ref(q, k, v, o, lse, do, c, s)
         else:
             if do.device != q.device or do.dtype != q.dtype \
                     or do.shape != q.shape:
                 raise ValueError(f"do {do.dtype} {tuple(do.shape)} on "
                                  f"{do.device} does not match o")
             do = _strided(do)
-            dq, delta = _launch_dq(q, k, v, o, lse, do, ctx.causal,
-                                   ctx.scale)
-            dk, dv = _launch_dkv(q, k, v, o, lse, do, delta, ctx.causal,
-                                 ctx.scale)
-        return dq, dk, dv, None, None
+            dq, delta = _launch_dq(q, k, v, o, lse, do, c, s, direct)
+            dk, dv = _launch_dkv(q, k, v, o, lse, do, delta, c, s, direct)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_bshd(q, k, v, causal=True, scale=None):
     """[B, S, H, D] flash attention with GQA (k / v [B, S, Hk, D], H % Hk
-    == 0; K / V are never repeated).  Differentiable: the backward is K2 and
-    K3 on the card, :func:`flash_bwd_ref` on the CPU.  CPU tensors take the
-    plain versions; CUDA tensors launch the kernels — float32 or bfloat16,
-    S % 128 == 0, head_dim 64 or 128 — or raise."""
-    H, Hk = q.shape[2], k.shape[2]
+    == 0; K / V are never repeated).  Differentiable.  The path is the
+    reference's: MHA with ``FLAGS_flash_layout_direct`` set and
+    :func:`_bshd_config` not None takes K4, everything else K1-K3.  CPU
+    tensors take the plain versions; CUDA tensors launch the kernels —
+    float32 or bfloat16, S % 128 == 0, head_dim 64, 128, 192 or 256 — or
+    raise."""
+    B, Sq, H, D = q.shape
+    Hk = k.shape[2]
     if Hk == 0 or H % Hk != 0:
         raise ValueError(f"q heads ({H}) must be a multiple of kv heads "
                          f"({Hk})")
-    _check_divisible(q.shape[1], k.shape[1], q.shape[-1])
-    return _Flash.apply(q, k, v, bool(causal), _scale(q.shape[-1], scale))
+    s = _scale(D, scale)
+    direct = (H == Hk and flag("flash_layout_direct")
+              and _bshd_config(B, Sq, k.shape[1], H, D, q.dtype) is not None)
+    if not direct:
+        _check_divisible(Sq, k.shape[1], D)
+    return _Flash.apply(q, k, v, bool(causal), s, direct)
 
 
 flash_attention_bshd.launches_fwd = 0
 flash_attention_bshd.launches_dq = 0
 flash_attention_bshd.launches_dkv = 0
+flash_attention_bshd.launches_direct_fwd = 0
+flash_attention_bshd.launches_direct_dq = 0
+flash_attention_bshd.launches_direct_dkv = 0

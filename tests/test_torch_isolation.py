@@ -21,6 +21,8 @@ from paddle_tpu_torch.models.gpt2 import GPT2ForCausalLM
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops.flash_attention import flash_attention_bshd
 from paddle_tpu_torch.ops.paged_attention import paged_attention
+from paddle_tpu_torch.ops.quant_matmul import quant_matmul
+from paddle_tpu_torch.quantization import weight_only_linear
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + [
@@ -56,6 +58,10 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.optimizer\n"
             "import paddle_tpu_torch.observability\n"
             "import paddle_tpu_torch.testing\n"
+            "import paddle_tpu_torch.core.flags\n"
+            "import paddle_tpu_torch.quantization\n"
+            "import paddle_tpu_torch.nn.quant\n"
+            "import paddle_tpu_torch.ops.quant_matmul\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -97,6 +103,24 @@ def test_entry_points_default_to_the_card_and_raise_without_it(no_cuda,
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_weight_only_matmul_raises_without_a_card(no_cuda):
+    """K8's route on a (fake) CUDA tensor without a card: ``quant_matmul``
+    and ``weight_only_linear`` refuse to launch, and the latter does not
+    run the dequant formulation instead."""
+    with FakeTensorMode():
+        x = torch.empty(8, 256, dtype=torch.bfloat16, device="cuda")
+        qw = torch.empty(256, 256, dtype=torch.int8, device="cuda")
+        q4 = torch.empty(128, 256, dtype=torch.int8, device="cuda")
+        s = torch.empty(256, dtype=torch.float32, device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            quant_matmul(x, qw, s)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            weight_only_linear(x, qw, weight_scale=s)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            weight_only_linear(x, q4, weight_scale=s, weight_dtype="int4")
+    assert quant_matmul.launches == quant_matmul.launches_int4 == 0
 
 
 def test_paged_attention_takes_only_cpu_or_cuda_tensors():
