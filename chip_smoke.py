@@ -13,20 +13,30 @@ Phases (any failure raises and the script exits non-zero):
    D=128, page 16), in bfloat16 and float32: K5 (paged attention) and K6
    (its int8-page variant) at the decode and prefill-chunk shapes, K5 also
    with a row whose context runs past its block table, K7 and K7q
-   (multi-query verify attention, bf16 and int8 pages) at the verify shape.
-   Each is then timed with CUDA events (L2 flushed before every launch)
-   beside its plain version, one PyTorch call that computes the same
-   function, and its bound.  Then the flash-attention kernels of training,
+   (multi-query verify attention, bf16 and int8 pages: the split-K body)
+   at the verify shape and in ``MQ_CASES`` (split edges, context 0, 12 and
+   64 rows, head_dim 64), each run twice and bitwise the same (in bf16
+   also each row against its own largest reference magnitude).  Each is
+   then timed with CUDA events (L2 flushed before every launch) beside its
+   plain version, one PyTorch call that computes the same function, and
+   its bound.  K7 / K7q and their SDPA yardstick are also timed with the
+   card held in a spin before the start event (the device's span of the
+   call, without host issue), K7 / K7q by the profiler's device time of
+   their two launches and by the host's time per call, piece by piece;
+   their split blocks that pass the early exit are counted on the card.
+   Then the flash-attention kernels of training,
    K1 (forward), K2 (dQ) and K3 (dK / dV), against their plain versions at
    the GPT-2 bench shape (B16 S1024 H12 D64, causal, bf16), the
-   Llama-shaped one (B8 S1024 H16 KVH4 D128, GQA), head_dim 192 and 256, a
-   non-causal case and four float32 cases (TF32 off); and K4, the
+   Llama-shaped one (B8 S1024 H16 KVH4 D128, GQA), head_dim 192, 256 and
+   512, a non-causal case and six float32 cases (TF32 off); and K4, the
    layout-direct bodies of the ``FLAGS_flash_layout_direct`` path, against
-   theirs at GPT-2's shape, MHA at head_dim 256, a non-causal case and two
-   float32 cases.  Each is then timed at the GPT-2 and head_dim-256 shapes
-   (K1-K3 also at the Llama one) beside its plain version, SDPA's forward /
-   backward and its bound.  head_dim 192 and 256 launch K1-K3 through
-   ``flash_attention_bshd`` on the card; 320 is refused before any launch.
+   theirs at GPT-2's shape, MHA at head_dim 256 and 512, a non-causal case
+   and three float32 cases.  Each is then timed at the GPT-2, head_dim-256
+   and head_dim-512 shapes (K1-K3 also at the Llama one) beside its plain
+   version, SDPA's forward / backward and its bound.  head_dim 320, 384 and
+   512 run forward and backward through ``flash_attention_bshd`` on the
+   card (K1-K3, and K4 with the flag), one launch each, held to the plain
+   versions; 576 is refused before any launch.
 3. engine: a float32 tiny Llama bridged from seeded numpy weights serves
    greedy requests on the card, each token checked against the dense
    reference, then again with int8 KV pages, with speculative decoding,
@@ -36,7 +46,9 @@ Phases (any failure raises and the script exits non-zero):
    seeded generator on the card, 32 layers) through add_request / step /
    stream: first in float32, then in bfloat16 (profiled afterwards), then
    in bfloat16 with speculative decoding (K5 + K7; the model drafts for
-   itself), then with int8 pages and speculative decoding (K6 + K7q).  Every request must finish with 32
+   itself; a window of its verify steps profiled afterwards: device busy
+   ms and K7's share), then with int8 pages and speculative decoding (K6 +
+   K7q).  Every request must finish with 32
    tokens, each kernel's launch count, set to 0 just before an engine runs
    and read just after, must equal layers x the dispatches that reach it,
    and every token must match a teacher-forced dense reference (see
@@ -65,8 +77,9 @@ Phases (any failure raises and the script exits non-zero):
    allocates (less than its bf16 weight); the pass timed beside its bound,
    the dequant formulation, F.linear on dequantized bf16 weights, and the
    library's int8 call where it runs on CUDA.
-6. the ``kernels`` JSON line (all twelve kernels, each launched on its
-   path), the card line, and last the result line.
+6. the verify window's line, the ``kernels`` JSON line (all twelve
+   kernels, each launched on its path; K7 / K7q with their design and
+   split plan), the card line, and last the result line.
 """
 from __future__ import annotations
 
@@ -92,6 +105,21 @@ VERIFY_Q = 8                           # Kv rows of a max_draft=4 verify step
 # row 0's contexts; 1020 + 7 runs past the table, as a padded verify row of
 # the slot nearest max_len does
 VERIFY_CTX = [1, 17, 600, 1020, 300, 1000, 64, 800]
+# K7 / K7q's further cases, each held against the plain twin in bf16 and
+# f32: (tag, row-0 contexts, Q, (H, KVH, D)).  split-edge: horizons that
+# end on a 128-token split edge (121 + 7, 128 + 0, 250 + 6 = 256), a split
+# that row 0 does not see and rows 1.. do (384), a sequence whose splits
+# past the first no row sees (5); ctx0: sequences with context 0 (row 0
+# sees nothing and returns 0); R12 and R64: G Q = 12 rows (not a multiple
+# of 16) and 64 (two row groups); D64: head_dim 64.
+MQ_CASES = [
+    ("split-edge", [121, 128, 250, 384, 5, 1017, 255, 129], VERIFY_Q,
+     (H, KVH, D)),
+    ("ctx0", [0, 0, 1, 600, 0, 1000, 64, 800], VERIFY_Q, (H, KVH, D)),
+    ("R12", VERIFY_CTX, 3, (H, KVH, D)),
+    ("R64", VERIFY_CTX, 16, (H, KVH, D)),
+    ("D64", VERIFY_CTX, VERIFY_Q, (16, 4, 64)),
+]
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 PROMPT_LENS = [17, 32, 64, 100, 255, 256, 400, 600]
 NEW_TOKENS = 32
@@ -176,18 +204,26 @@ def reset_launch_counts():
 
 # ------------------------------------------------------------------ timing
 class Timer:
-    """Median device time of fn over n launches, each after the L2 cache is
-    flushed (the engine reads each layer's pages cold)."""
+    """Median time of fn over n launches by CUDA events, each after the L2
+    cache is flushed (the engine reads each layer's pages cold).  ``ms``
+    records the start event right after the flush, so where fn's host
+    issue outlasts the flush, the time includes it; ``held_ms`` holds the
+    card in a short spin after the flush, so that fn's launches are queued
+    before the start event is reached and the time is the device's span of
+    the call alone."""
+    SPIN_CYCLES = 500_000          # about 0.25 ms at the H100's clock
 
     def __init__(self, dev):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
-    def ms(self, fn, n=30, warmup=3):
+    def ms(self, fn, n=30, warmup=3, spin=0):
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(n):
             self.flush.zero_()
+            if spin:
+                torch.cuda._sleep(spin)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -196,6 +232,38 @@ class Timer:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return float(np.median(times))
+
+    def held_ms(self, fn, n=30):
+        return self.ms(fn, n, spin=self.SPIN_CYCLES)
+
+    @staticmethod
+    def host_us(fn, n=200):
+        """Host time of one call of fn in microseconds: n calls issued back
+        to back (the card's queue absorbs their launches), no sync inside."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+
+    def device_ms(self, fn, match, n=20):
+        """Device time per call of fn's kernels whose names contain one of
+        ``match`` (torch.profiler, L2 flushed before each call)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and any(m in e.key for m in match)) / 1e3 / n
 
 
 # --------------------------------------------------------- phase 2: kernels
@@ -208,10 +276,12 @@ class Case:
     hold out-of-range garbage that the kernel must never read."""
 
     def __init__(self, dtype, ctx, gen, dev, shared=False, q_len=None,
-                 quant=False):
+                 quant=False, heads=(H, KVH, D)):
         from paddle_tpu_torch.ops.paged_attention import quantize_kv
         self.dtype, self.ctx, self.shared = dtype, list(ctx), shared
         self.q_len, self.quant = q_len, quant
+        self.heads = heads
+        H, KVH, D = heads
         B = len(ctx)
         S = TABLE_TOKENS // PAGE
         n_seq = 1 if shared else B
@@ -247,6 +317,7 @@ class Case:
         2 each per multiply-add, each row over its own horizon) over the
         peak for the type; the larger of the two.  Rows sharing one table
         (a prefill chunk) read its pages once."""
+        H, KVH, D = self.heads
         el = self.q.element_size()
         rows = self.q_len or 1
         seen = [min(c + rows - 1, TABLE_TOKENS) for c in self.ctx]
@@ -268,6 +339,7 @@ class Case:
         pages, so it reads twice the int8 bytes), with a boolean mask per
         row.  Returns a callable and its output in q's layout."""
         q, kp, vp, tables, cl = self.args
+        H, KVH, D = self.heads
         B, rows = len(self.ctx), self.q_len or 1
         T = min(max(self.ctx) + rows - 1, TABLE_TOKENS)
         safe = tables.clamp(max=kp.shape[0] - 1).long()
@@ -306,6 +378,66 @@ KERNELS = {
     "paged_attention_multiquery_int8": (
         "K7q", "paddle_tpu/ops/pallas/paged_attention.py:201", True, True),
 }
+MQ_DESIGN = ("split-K over the token range (flash-decoding): blocks of "
+             "(split, kv head, sequence x 32 rows), a 3-stage cp.async ring "
+             "of 32-token K/V tiles, mma.sync m16n8k16 for q K^T and P V "
+             "(two warps a token group, each half of D), int8 dequantized "
+             "in registers; a second launch combines the splits in order")
+MQ_KERNELS = ("mq_split", "mq_combine")     # K7 / K7q's device kernels
+
+
+def live_blocks(c, plan):
+    """K7 / K7q's split blocks that passed the early exit, counted on the
+    card: one call of the launcher on a workspace filled with NaN; every
+    block that runs writes (m, l) for the first row of its row group, and
+    the blocks that exit write nothing."""
+    from paddle_tpu_torch.ops.paged_attention import _launch_mq
+    q, kp, vp, tables, cl = c.args
+    ws = torch.full((plan.workspace_floats,), float("nan"),
+                    device=q.device)
+    _launch_mq(q, kp, vp, tables, cl, c.kw.get("k_scales"),
+               c.kw.get("v_scales"), None, workspace=ws)
+    B, KVH_ = len(c.ctx), kp.shape[2]
+    ml = ws[B * KVH_ * plan.n_splits * plan.rows * q.shape[-1]:]
+    m = ml.view(B, KVH_, plan.n_splits, plan.rows, 2)[..., ::32, 0]
+    return int((~torch.isnan(m)).sum())
+
+
+def wrapper_host_us(c):
+    """Host microseconds of one ``paged_attention_multiquery`` call on the
+    card, and of its pieces, each timed alone over many calls: the checks
+    (``_check``), the cached plan, the two allocations (workspace and out),
+    the ctypes call that makes both launches, and the whole wrapper."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    q, kp, vp, tables, cl = c.args
+    ks, vs = c.kw.get("k_scales"), c.kw.get("v_scales")
+    B, Q, H_, D_ = q.shape
+    _, page, KVH_, _ = kp.shape
+    S = tables.shape[1]
+    dt, quant = pa._DTYPES[q.dtype], int(ks is not None)
+    plan = pa._mq_plan(B, Q, H_, KVH_, D_, page, S, dt, quant)
+    lib = pa._mq_kernel_lib()
+    ws = torch.empty(plan.workspace_floats, device=q.device)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = [t.data_ptr() if t is not None else None
+            for t in (q, kp, vp, ks, vs, tables, cl, ws, out)]
+
+    def launch():
+        lib.paged_attention_mq_fwd(*ptrs, B, Q, H_, KVH_, D_, page, S,
+                                   plan.split, plan.n_splits,
+                                   1.0 / D_ ** 0.5, dt, quant, stream)
+    return {
+        "check": Timer.host_us(lambda: pa._check(q, kp, vp, tables, cl, ks,
+                                                 vs), 2000),
+        "plan": Timer.host_us(lambda: pa._mq_plan(B, Q, H_, KVH_, D_, page,
+                                                  S, dt, quant), 2000),
+        "alloc": Timer.host_us(lambda: (
+            torch.empty(plan.workspace_floats, device=q.device),
+            torch.empty_like(q)), 2000),
+        "ctypes_launch": Timer.host_us(launch),
+        "call": Timer.host_us(lambda: c.run(pa.paged_attention_multiquery)),
+    }
 
 
 def kernel_phase(dev, timer):
@@ -329,28 +461,51 @@ def kernel_phase(dev, timer):
               VERIFY_Q),
              ("paged_attention_multiquery_int8", "verify", VERIFY_CTX, False,
               VERIFY_Q)]
+    cases += [(name, tag, ctx, False, q_len, heads)
+              for tag, ctx, q_len, heads in MQ_CASES
+              for name in ("paged_attention_multiquery",
+                           "paged_attention_multiquery_int8")]
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for name, case, ctx, shared, q_len in cases:
+        for name, case, ctx, shared, q_len, *heads in cases:
             quant = KERNELS[name][2]
             kern, ref = multi if q_len else single
-            c = Case(dtype, ctx, gen, dev, shared, q_len, quant)
+            c = Case(dtype, ctx, gen, dev, shared, q_len, quant,
+                     *(heads or [(H, KVH, D)]))
             out = c.run(kern)
+            # the split-K kernels combine in split order: run to run the
+            # same bits
+            same = not q_len or torch.equal(out, c.run(kern))
             torch.cuda.synchronize()
             want = c.run(ref)
-            err = (out.float() - want.float()).abs().max().item()
-            ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype]
+            diff = (out.float() - want.float()).abs()
+            err = diff.max().item()
+            # in bf16 also each row's error over its own largest reference
+            # magnitude (long rows average to small outputs, so the absolute
+            # bar alone would let their errors hide under the short rows')
+            row_err = 0.0
+            if dtype == torch.bfloat16:
+                row_err = (diff.amax(-1) / want.float().abs().amax(-1)
+                           .clamp_min(1e-30)).max().item()
+            ok = (bool(torch.isfinite(out).all()) and err <= TOL[dtype]
+                  and row_err <= TOL[dtype] and same)
+            h_, kvh_, d_ = c.heads
             print(f"{name} {case} {str(dtype)[6:]} B={len(ctx)}"
-                  f"{f' Q={q_len}' if q_len else ''} max_abs_err={err:.3e} "
-                  f"tol={TOL[dtype]:.0e} {'ok' if ok else 'FAIL'}",
-                  flush=True)
-            check(ok, f"{name} {case} {dtype}: error {err} over "
-                  f"{TOL[dtype]}")
+                  f"{f' Q={q_len} H={h_} KVH={kvh_} D={d_}' if q_len else ''}"
+                  f" max_abs_err={err:.3e}"
+                  f"{f' max_row_rel_err={row_err:.3e}' if row_err else ''}"
+                  f" tol={TOL[dtype]:.0e}"
+                  f"{' deterministic' if q_len and same else ''} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"{name} {case} {dtype}: error {err} (per row "
+                  f"{row_err}) over {TOL[dtype]}"
+                  f"{'' if same else ', two runs differ'}")
             errs.setdefault((name, dtype), []).append(err)
+            errs.setdefault((name, "row"), []).append(row_err)
 
     # timing at each kernel's main-path shape, in the engine's dtype
     dtype = torch.bfloat16
-    lines = []
+    lines, later = [], []
     for name, (num, replaces, quant, mq) in KERNELS.items():
         ctx, q_len = (VERIFY_CTX, VERIFY_Q) if mq else (DECODE_CTX, None)
         kern, ref = multi if mq else single
@@ -372,10 +527,12 @@ def kernel_phase(dev, timer):
               f"{bound_ms:.4f} ms ({bound_by})", flush=True)
         line = {
             "name": name, "kernel": num, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+            "source": ("paddle_tpu_torch/csrc/paged_attention_mq.cu" if mq
+                       else "paddle_tpu_torch/csrc/paged_attention.cu"),
             "replaces": replaces,
             "launches": None,
             "max_abs_err": max(errs[(name, torch.bfloat16)]),
+            "max_row_rel_err": max(errs[(name, "row")]),
             "tolerance": TOL[torch.bfloat16],
             "max_abs_err_f32": max(errs[(name, torch.float32)]),
             "tolerance_f32": TOL[torch.float32],
@@ -388,6 +545,8 @@ def kernel_phase(dev, timer):
                         + (", boolean mask per row" if mq else "")),
             "shape": shape,
         }
+        if mq:
+            later.append((line, c, kern, lib_fn))
         if not quant and not mq:
             # K5 at the prefill-chunk shape too: 32 rows share one table
             pre = Case(dtype, prefill_ctx, gen, dev, shared=True)
@@ -406,6 +565,47 @@ def kernel_phase(dev, timer):
                   f"{line['prefill_library_ms']:.4f} ms, bound "
                   f"{line['prefill_bound_ms']:.4f} ms", flush=True)
         lines.append(line)
+    # K7 / K7q's further readings, after every kernel's event time above:
+    # a profiler session or a host loop may leave the host slower for a
+    # while, and an event time taken then would count it
+    for line, c, kern, lib_fn in later:
+        num, q_len, ctx = line["kernel"], VERIFY_Q, VERIFY_CTX
+        # the redesigned body: its plan at this shape, the split blocks
+        # that passed the early exit (read back from the workspace), and
+        # three more readings of the kernel beside SDPA: the event time
+        # with the card held (the device's span of the call), the
+        # profiler's device time of its two launches, and the host's
+        # time per call, piece by piece
+        from paddle_tpu_torch.ops.paged_attention import split_plan
+        plan = split_plan(len(ctx), q_len, H, KVH, D, PAGE,
+                          TABLE_TOKENS // PAGE, context_lens=ctx)
+        live = live_blocks(c, plan)
+        check(live == plan.live_blocks,
+              f"{num}: {live} split blocks wrote the workspace, the plan "
+              f"has {plan.live_blocks}")
+        line["design"] = MQ_DESIGN
+        line["splits"] = {
+            "split_tokens": plan.split, "n_splits": plan.n_splits,
+            "grid": list(plan.grid), "threads": plan.threads,
+            "live_blocks": live,
+            "workspace_bytes": 4 * plan.workspace_floats}
+        line["held_ms"] = timer.held_ms(lambda: c.run(kern))
+        line["library_held_ms"] = timer.held_ms(lib_fn)
+        line["host_us"] = wrapper_host_us(c)
+        line["library_host_us"] = timer.host_us(lib_fn)
+    for line, c, kern, _ in later:         # the profiler last
+        line["device_ms"] = timer.device_ms(lambda: c.run(kern),
+                                            MQ_KERNELS)
+        print(f"{line['name']} ({line['kernel']}): "
+              f"{line['splits']['live_blocks']} split blocks passed the "
+              f"early exit (measured; the plan's count) of grid "
+              f"{tuple(line['splits']['grid'])}, "
+              f"{line['splits']['split_tokens']}-token splits; held "
+              f"{line['held_ms']:.4f} ms, device time of its two "
+              f"launches {line['device_ms']:.4f} ms (profiler), library "
+              f"held {line['library_held_ms']:.4f} ms; host us a call "
+              f"{ {k: round(v, 2) for k, v in line['host_us'].items()} }"
+              f", library {line['library_host_us']:.2f}", flush=True)
     return lines
 
 
@@ -423,27 +623,34 @@ FLASH_KERNELS = [
 ROLE_KERNEL = {(role, direct): kern
                for _, kern, role, direct, _ in FLASH_KERNELS}
 # (tag, B, S, H, KVH, D, causal, dtype): K1-K3 at the two training shapes,
-# head_dim 192 and 256, one non-causal case, and float32 (TF32 off)
+# head_dim 192, 256 and 512 (the column-chunked bodies), one non-causal
+# case, and float32 (TF32 off)
 FLASH_CASES = [
     ("gpt2", 16, 1024, 12, 12, 64, True, torch.bfloat16),
     ("llama", 8, 1024, 16, 4, 128, True, torch.bfloat16),
     ("d192", 4, 1024, 8, 8, 192, True, torch.bfloat16),
     ("d256", 4, 1024, 8, 4, 256, True, torch.bfloat16),
+    ("d512", 4, 1024, 8, 4, 512, True, torch.bfloat16),
     ("non-causal", 4, 512, 12, 4, 64, False, torch.bfloat16),
     ("f32 mha", 1, 256, 2, 2, 128, True, torch.float32),
     ("f32 gqa", 1, 256, 4, 1, 64, True, torch.float32),
     ("f32 d192", 1, 256, 2, 2, 192, True, torch.float32),
     ("f32 d256", 1, 256, 4, 2, 256, True, torch.float32),
+    ("f32 d320", 1, 256, 4, 2, 320, True, torch.float32),
+    ("f32 d512", 1, 256, 2, 2, 512, False, torch.float32),
 ]
-# K4 (MHA only): GPT-2's shape, head_dim 256, non-causal, float32
+# K4 (MHA only): GPT-2's shape, head_dim 256 and 512, non-causal, float32
 K4_CASES = [
     ("gpt2", 16, 1024, 12, 12, 64, True, torch.bfloat16),
     ("d256", 4, 1024, 8, 8, 256, True, torch.bfloat16),
+    ("d512", 4, 1024, 8, 8, 512, True, torch.bfloat16),
     ("non-causal", 4, 512, 12, 12, 64, False, torch.bfloat16),
     ("f32 d64", 1, 256, 2, 2, 64, True, torch.float32),
     ("f32 d256", 1, 256, 2, 2, 256, True, torch.float32),
+    ("f32 d512", 1, 256, 2, 2, 512, True, torch.float32),
 ]
-FLASH_TIMED = {False: ("gpt2", "llama", "d256"), True: ("gpt2", "d256")}
+FLASH_TIMED = {False: ("gpt2", "llama", "d256", "d512"),
+               True: ("gpt2", "d256", "d512")}
 # forward (o and lse, absolute) and gradient tolerances, those of
 # tests/test_pallas_kernels.py: float32 absolute; bf16 gradients at 2e-2 of
 # the largest reference magnitude (they scale with the inputs)
@@ -658,28 +865,25 @@ def flash_kernel_phase(dev, timer):
     return lines
 
 
-def head_dim_refusal(dev):
-    """Every head_dim that ``supported()`` takes runs on the card up to
-    256: at 192 and 256 a forward and backward launch K1, K2 and K3 once
-    each; 320 also passes ``supported()``, as in the reference, but the
-    kernels stop at 256, so the card's tensors are refused there, with no
-    launch, and never run some other way."""
+WIDE_HEAD_DIMS = (320, 384, 512)
+
+
+def head_dim_phase(dev):
+    """Head dims above 256 run on the card through ``flash_attention_bshd``
+    as in the reference: at 320, 384 and 512 a forward and backward launch
+    K1, K2 and K3 once each (and, with ``FLAGS_flash_layout_direct`` and
+    MHA, K4's three bodies once each), held against their plain versions
+    (``FlashCase.check``); 576 also passes ``supported()``, but the kernels
+    stop at 512, so the card's tensors are refused there, with no launch,
+    and never run some other way."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    for d in (192, 256):
-        q = torch.zeros(1, 128, 2, d, dtype=torch.bfloat16, device=dev,
-                        requires_grad=True)
-        before = launch_counts()
-        fa.flash_attention_bshd(q, q, q).float().sum().backward()
-        torch.cuda.synchronize()
-        after = launch_counts()
-        ran = {n: after[n] - before[n] for n in FLASH_COUNTERS}
-        check(ran == {"K1": 1, "K2": 1, "K3": 1, "K4-fwd": 0, "K4-dq": 0,
-                      "K4-dkv": 0},
-              f"flash at head_dim {d} on the card launched {ran}")
-        check(bool(torch.isfinite(q.grad).all()),
-              f"flash at head_dim {d}: gradient not finite")
-    q = torch.zeros(1, 128, 2, 320, dtype=torch.bfloat16, device=dev)
-    check(fa.supported(q.shape, q.shape), "supported() refuses head_dim 320")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for d in WIDE_HEAD_DIMS:
+        for direct, kvh in ((False, 2), (True, 4)):
+            FlashCase(f"d{d}", 1, 256, 4, kvh, d, True, torch.bfloat16, gen,
+                      dev, direct=direct).check()
+    q = torch.zeros(1, 128, 2, 576, dtype=torch.bfloat16, device=dev)
+    check(fa.supported(q.shape, q.shape), "supported() refuses head_dim 576")
     before = launch_counts()
     try:
         fa.flash_attention_bshd(q, q, q)
@@ -687,9 +891,11 @@ def head_dim_refusal(dev):
     except ValueError as e:
         refused = str(e)
     check(refused is not None and launch_counts() == before,
-          "flash_attention_bshd at head_dim 320 was not refused on the card")
-    print(f"flash head_dim 192 and 256 on the card: K1, K2, K3 launched once "
-          f"each; head_dim 320: refused ({refused})", flush=True)
+          "flash_attention_bshd at head_dim 576 was not refused on the card")
+    print(f"flash head_dim {', '.join(map(str, WIDE_HEAD_DIMS))} on the "
+          f"card: K1, K2, K3 and K4's bodies launched once each a call and "
+          f"held to their plain versions; head_dim 576: refused ({refused})",
+          flush=True)
 
 
 # ---------------------------------------------------------- phase 3: engine
@@ -831,7 +1037,8 @@ def serve_full_width(model, tag, gap, dev, profile=False, spec=False,
     speculative decoding, max_draft 4, the model drafting for itself
     through ``generate`` (see :func:`engine_phase` for why not n-gram
     drafts).  With ``profile``, then profile the same engine
-    (:func:`profile_engine`).  The engine is freed before returning."""
+    (:func:`profile_engine`, or :func:`profile_verify` with ``spec``).  The
+    engine is freed before returning."""
     from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.inference.serving import (LLMEngine, RequestStatus,
                                                     SpecConfig)
@@ -948,9 +1155,14 @@ def serve_full_width(model, tag, gap, dev, profile=False, spec=False,
             1 for _, k, _ in steps if k == kind)
 
     ttft = sorted(eng.ttft(r) for r in rids)
+    window = None
     if profile:
         eng.step = step
-        profile_engine(eng, prompts, tag)
+        if spec:
+            eng._proposer.propose = propose
+            window = profile_verify(eng, prompts, tag)
+        else:
+            profile_engine(eng, prompts, tag)
     res = {
         "ttft_p50_s": float(np.median(ttft)),
         "ttft_max_s": ttft[-1],
@@ -974,6 +1186,7 @@ def serve_full_width(model, tag, gap, dev, profile=False, spec=False,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "argmax_flips": int(counts[1]),
         "worst_shortfall": worst,
+        "verify_window": window,
     }
     # the timing wrappers tie the engine into reference cycles: collect
     # them, or the next engine's peak memory counts this one's buffers
@@ -983,47 +1196,81 @@ def serve_full_width(model, tag, gap, dev, profile=False, spec=False,
     return res
 
 
-def profile_engine(eng, prompts, tag, n_steps=8):
-    """Where a step's time goes: the prompts served again, with
-    ``torch.profiler`` over their first ``n_steps`` prefill chunks and over
-    ``n_steps`` decode steps at full batch.  Prints each window's wall time,
-    the device's busy share (kernel time over wall, which the profiler's
-    own host cost lowers) and the kernels that take the most device
-    time."""
+def profile_window(eng, tag, kind, n_steps, cpu=True):
+    """``n_steps`` engine steps under ``torch.profiler``: prints the wall
+    time, the device's busy share (kernel time over wall, which the
+    profiler's own host cost lowers) and the kernels that take the most
+    device time; returns (wall ms, busy ms, [(kernel, count, ms)]).
+    ``cpu=False`` traces the device alone (no host ops to record and sort:
+    far cheaper for steps that run many small ops)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    rids = [eng.add_request(p, max_new_tokens=2 * n_steps) for p in prompts]
-
-    def window(kind):
-        pf0 = eng.prefill_dispatches
+    pf0 = eng.prefill_dispatches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_steps):
-                eng.step()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # kernels only: the CPU ops that launched them carry the same time
-        rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and not e.is_user_annotation]
-        busy = sum(ms for _, _, ms in rows)
-        print(f"profile {tag} {kind}: {n_steps} steps "
-              f"({eng.prefill_dispatches - pf0} prefill dispatches) in "
-              f"{wall * 1e3:.1f} ms (profiled), device busy {busy:.1f} ms "
-              f"({100 * busy / (wall * 1e3):.1f}%)", flush=True)
-        for key, count, ms in sorted(rows, key=lambda r: -r[2])[:12]:
-            print(f"profile {tag} {kind}:   {ms:9.3f} ms "
-                  f"{100 * ms / busy:5.1f}%  x{count:<5d} {key[:90]}")
+        wall = time.perf_counter() - t0
+    # kernels only: the CPU ops that launched them carry the same time
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy = sum(ms for _, _, ms in rows)
+    print(f"profile {tag} {kind}: {n_steps} steps "
+          f"({eng.prefill_dispatches - pf0} prefill dispatches) in "
+          f"{wall * 1e3:.1f} ms (profiled), device busy {busy:.1f} ms "
+          f"({100 * busy / (wall * 1e3):.1f}%)", flush=True)
+    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:12]:
+        print(f"profile {tag} {kind}:   {ms:9.3f} ms "
+              f"{100 * ms / busy:5.1f}%  x{count:<5d} {key[:90]}")
+    return wall * 1e3, busy, rows
 
-    window("prefill")
+
+def profile_engine(eng, prompts, tag, n_steps=8):
+    """Where a step's time goes: the prompts served again, with
+    ``profile_window`` over their first ``n_steps`` prefill chunks and over
+    ``n_steps`` decode steps at full batch."""
+    rids = [eng.add_request(p, max_new_tokens=2 * n_steps) for p in prompts]
+    profile_window(eng, tag, "prefill", n_steps)
     while any(not eng._lookup(r).out for r in rids):   # until all decode
         eng.step()
-    window("decode")
+    profile_window(eng, tag, "decode", n_steps)
     eng.run_until_done()
+
+
+def profile_verify(eng, prompts, tag, n_steps=2):
+    """The speculative engine's verify steps: the prompts served again,
+    each for as many tokens as its first plus ``n_steps`` verify steps
+    emit at most (so the batch stays full), until every request decodes;
+    then ``profile_window`` over ``n_steps`` steps at full batch (each
+    drafts with the model and verifies in one forward), tracing the device
+    alone; the requests are left unfinished and go with the engine.
+    Returns the window's wall ms, device busy ms, K7 / K7q's device ms
+    (their split and combine kernels), verify dispatches, the batch and
+    the seconds the whole re-serve took."""
+    t0 = time.perf_counter()
+    tokens = 1 + n_steps * (MAX_DRAFT + 1)
+    rids = [eng.add_request(p, max_new_tokens=tokens) for p in prompts]
+    while any(not eng._lookup(r).out for r in rids):
+        eng.step()
+    batch = sum(not eng.status(r).terminal for r in rids)
+    v0 = eng.spec_dispatches
+    wall, busy, rows = profile_window(eng, tag, "verify", n_steps,
+                                      cpu=False)
+    k7 = sum(ms for key, _, ms in rows if any(m in key for m in MQ_KERNELS))
+    verify = eng.spec_dispatches - v0
+    secs = time.perf_counter() - t0
+    print(f"profile {tag} verify: batch {batch}, the re-serve and its "
+          f"window took {secs:.1f} s", flush=True)
+    check(verify > 0 and k7 > 0,
+          f"profile {tag}: the window ran {verify} verify dispatches and "
+          f"{k7} ms of K7")
+    return {"wall_ms": wall, "busy_ms": busy, "k7_ms": k7,
+            "verify_dispatches": verify, "steps": n_steps, "batch": batch,
+            "cost_s": secs}
 
 
 def engine_line(tag, e2e, card):
@@ -1045,9 +1292,10 @@ def engine_phase(dev, card):
     """The float32 checks first (tiny bridged model with every option, then
     full width, both held to the dense reference almost exactly); then the
     bfloat16 engines at full width on one model: the default path (K5,
-    profiled), speculative decoding (K5 + K7), and int8 pages with
-    speculative decoding (K6 + K7q).  Returns each kernel's launches on the
-    run of its path."""
+    profiled), speculative decoding (K5 + K7, a window of its verify steps
+    profiled), and int8 pages with speculative decoding (K6 + K7q).
+    Returns each kernel's launches on the run of its path, and the verify
+    window."""
     tiny_f32_engine(dev)
     model = full_width_model(torch.float32, dev)
     engine_line("f32", serve_full_width(model, "f32", F32_GAP, dev), card)
@@ -1063,15 +1311,16 @@ def engine_phase(dev, card):
     # n-gram run), so n-gram drafts would leave K7 / K7q to chance.
     runs = {}
     for tag, kw in (("bf16", dict(profile=True)),
-                    ("bf16 spec", dict(spec=True)),
+                    ("bf16 spec", dict(spec=True, profile=True)),
                     ("bf16 int8 spec", dict(spec=True,
                                             kv_cache_dtype="int8"))):
         runs[tag] = serve_full_width(model, tag, GAP, dev, **kw)
         engine_line(tag, runs[tag], card)
-    return {"K5": runs["bf16"]["launches"]["K5"],
-            "K7": runs["bf16 spec"]["launches"]["K7"],
-            "K6": runs["bf16 int8 spec"]["launches"]["K6"],
-            "K7q": runs["bf16 int8 spec"]["launches"]["K7q"]}
+    launches = {"K5": runs["bf16"]["launches"]["K5"],
+                "K7": runs["bf16 spec"]["launches"]["K7"],
+                "K6": runs["bf16 int8 spec"]["launches"]["K6"],
+                "K7q": runs["bf16 int8 spec"]["launches"]["K7q"]}
+    return launches, runs["bf16 spec"]["verify_window"]
 
 
 # -------------------------------------------------------- phase 4: training
@@ -1775,6 +2024,11 @@ def main():
     from paddle_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
+    t_run = time.perf_counter()
+
+    def mark(phase):
+        print(f"time: {phase} done at {time.perf_counter() - t_run:.1f} s",
+              flush=True)
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} cuda "
@@ -1786,15 +2040,22 @@ def main():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"build {src}: {line.strip()}")
 
+    mark("build")
     timer = Timer(dev)
     kernels = kernel_phase(dev, timer)
+    mark("paged kernels")
     kernels += flash_kernel_phase(dev, timer)
-    head_dim_refusal(dev)
+    mark("flash kernels")
+    head_dim_phase(dev)
+    mark("head dims")
     del timer
     torch.cuda.empty_cache()
-    launches = engine_phase(dev, card)
+    launches, verify_window = engine_phase(dev, card)
+    mark("engines")
     launches.update(training_phase(dev, card))
+    mark("training")
     wo_lines, wo_launches = weight_only_phase(dev, card)
+    mark("weight-only")
     kernels += wo_lines
     launches.update(wo_launches)
     for k in kernels:
@@ -1802,6 +2063,14 @@ def main():
         check(k["launches"] > 0, f"{k['kernel']} never launched on its path")
     check(sorted(k["kernel"] for k in kernels) == sorted(COUNTERS),
           f"the kernels line lists {[k['kernel'] for k in kernels]}")
+    w = verify_window
+    print(f"verify window (bf16 spec engine, Llama-3-8B width, batch "
+          f"{w['batch']}): "
+          f"{w['steps']} steps, {w['verify_dispatches']} verify dispatches, "
+          f"wall {w['wall_ms']:.1f} ms (profiled), device busy "
+          f"{w['busy_ms']:.1f} ms, K7 {w['k7_ms']:.3f} ms "
+          f"({100 * w['k7_ms'] / w['busy_ms']:.2f}% of busy); the re-serve "
+          f"and its window took {w['cost_s']:.1f} s, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     # one card: the run uses cuda:0 and nothing else

@@ -59,9 +59,10 @@
 // rows are padded by 16 bytes so every fragment load is free of bank
 // conflicts.  Fixed Hopper tiles (no autotune), four warps a block except
 // K3 above D = 128:
-//   K1: 64 q rows x 64 keys (x 32 keys at D = 256);
+//   K1: 64 q rows x 64 keys (x 32 keys above D = 192);
 //   K2: 64 q rows x 64 keys (D = 64) or x 32 keys (D >= 128);
-//   K3: 64 keys x 64 q rows (D = 64) or x 32 q rows (D >= 128).
+//   K3: 64 keys x 64 q rows (D = 64), x 32 q rows (D 128 - 256) or x 16
+//       q rows (above 256).
 // Registers set the tiles: a warp's 16-row f32 accumulator is D / 2
 // registers a thread (128 at D = 256), of 255.  Up to D = 128 the q (and
 // dO) fragments are held in registers for the whole k loop; above it they
@@ -70,13 +71,26 @@
 // there K3 runs eight warps: warps w and w + 4 own the same 16 keys, each
 // recomputes their S^T and dP^T tiles over the full D and accumulates dK
 // and dV for its half of the columns (96 or 128).  That costs K3 1.5x the
-// products of one warp a key group (12 D instead of 8 D flops a pair), but
+// products of one warp a key group (12 D flops instead of 8 D a pair), but
 // needs no shared-memory accumulators and no exchange of P between warps.
+// Above D = 256 (320 - 512, every multiple of 64) no accumulator fits a
+// warp, so the output columns are split over a third grid dimension of NC
+// = 2 blocks: each block of a pair computes the same scores (and dP) over
+// the full D from the same tiles and accumulates O (dQ; dK and dV) for its
+// half of the columns only, D / 2 <= 256, which is the D = 256 case again.
+// The pair repeats the score products (K1 6 D flops a pair instead of 4 D,
+// K2 10 D instead of 6 D, K3 20 D instead of 8 D); only the first block of
+// a pair writes the LSE (K1) and delta (K2).  This repairs a gap (the
+// reference takes any head_dim % 64 == 0); it is right, not tuned.
 // float32 runs on CUDA cores in full f32 (TF32 cannot meet the reference's
 // 2e-5 bar): a plain block of 128 threads over 32 x 32 tiles in shared
-// memory (K3: 32 keys x 16 q rows at D = 256, to fit 227 KB), for checks
-// and small models only.  Instantiated for D = 64, 128, 192 and 256; a
-// larger D would need yet smaller tiles and is refused by the wrapper.
+// memory (16 x 16 above D = 256; K3: 32 keys x 16 q rows at D = 256, 16 x 8
+// above it, to fit 227 KB), for checks and small models only.
+// Instantiated for D = 64, 128, 192, 256, 320, 384, 448 and 512; the
+// wrapper refuses a larger D: above 512 half the columns no longer fit a
+// warp's registers (a third column chunk would be needed), and from D = 640
+// K2's q, dO, K and V tiles alone need 248,832 bytes of shared memory, more
+// than the 232,448 a block may use.
 //
 // Bound.  Each kernel does 4 D (K1), 6 D (K2) or 8 D (K3) flops per
 // visible (query, key) pair, about S^2 / 2 pairs a head when causal, over
@@ -243,15 +257,17 @@ template <int D>
 struct FwdTile {
   static constexpr int BQ = 64, BK = D <= 192 ? 64 : 32, LD = D + 8;
   static constexpr bool kHold = D <= 128;      // q fragments in registers
+  static constexpr int NC = D > 256 ? 2 : 1;   // column chunks (grid z)
+  static constexpr int DC = D / NC;            // O columns a block owns
   static constexpr size_t smem = (size_t)(BQ + 2 * BK) * LD * sizeof(bf16);
 };
 
-// K1 / K4-fwd.  Block: 64 q rows of one (b, h); warp w owns rows 16w ..
-// 16w + 15.
+// K1 / K4-fwd.  Block: 64 q rows of one (b, h) and O columns c0 .. c0 +
+// DC - 1 (all of them up to D = 256); warp w owns rows 16w .. 16w + 15.
 template <int D, bool kDirect>
 __global__ void __launch_bounds__(kThreads) fwd_bf16(const Params p) {
   using C = FwdTile<D>;
-  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, DC = C::DC;
   constexpr bool kHold = C::kHold;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -259,7 +275,7 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16(const Params p) {
   bf16* sV = sK + BK * LD;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const int q0 = blockIdx.x * BQ, bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ, bh = blockIdx.y, c0 = blockIdx.z * DC;
   const int b = bh / p.H, h = bh % p.H, hk = h / (p.H / p.Hk);
   const bf16* kb = head_ptr<bf16>(p.k, p.sk, b, hk);
   const bf16* vb = head_ptr<bf16>(p.v, p.sv, b, hk);
@@ -274,9 +290,9 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16(const Params p) {
       frag_a(qf[kc], sQ, LD, warp * 16, kc * 16, g, tq);
   }
 
-  float acc[D / 8][4];
+  float acc[DC / 8][4];
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb)
+  for (int nb = 0; nb < DC / 8; ++nb)
     acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const int row0 = q0 + warp * 16 + g;           // rows row0, row0 + 8
@@ -332,7 +348,7 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16(const Params p) {
       }
       l[r] = l[r] * corr + sum;                  // this thread's columns
 #pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb) {
+      for (int nb = 0; nb < DC / 8; ++nb) {
         acc[nb][2 * r] *= corr;
         acc[nb][2 * r + 1] *= corr;
       }
@@ -342,9 +358,9 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16(const Params p) {
       uint32_t a[4];
       frag_a_acc(a, s, kc);                      // P rounded to v's dtype
 #pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb) {
+      for (int nb = 0; nb < DC / 8; ++nb) {
         uint32_t bf[2];
-        frag_b_kn(bf, sV, LD, kc * 16, nb * 8, g, tq);
+        frag_b_kn(bf, sV, LD, kc * 16, c0 + nb * 8, g, tq);
         mma_bf16(acc[nb], a, bf);
       }
     }
@@ -358,12 +374,12 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16(const Params p) {
     lr += __shfl_xor_sync(0xffffffffu, lr, 2);
     const float lc = fmaxf(lr, 1e-30f);
     const int row = row0 + 8 * r;
-    bf16* orow = ob + ((long long)(b * p.Sq + row) * p.H + h) * D;
+    bf16* orow = ob + ((long long)(b * p.Sq + row) * p.H + h) * D + c0;
 #pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb)
+    for (int nb = 0; nb < DC / 8; ++nb)
       *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * tq) =
           pack_bf16(acc[nb][2 * r] / lc, acc[nb][2 * r + 1] / lc);
-    if (tq == 0) p.lse[(long long)bh * p.Sq + row] = (m[r] + log2f(lc)) * kLn2;
+    if (tq == 0 && blockIdx.z == 0) p.lse[(long long)bh * p.Sq + row] = (m[r] + log2f(lc)) * kLn2;
   }
 }
 
@@ -371,16 +387,18 @@ template <int D>
 struct DqTile {
   static constexpr int BQ = 64, BK = D == 64 ? 64 : 32, LD = D + 8;
   static constexpr bool kHold = D <= 128;      // q, dO fragments in registers
+  static constexpr int NC = D > 256 ? 2 : 1;   // column chunks (grid z)
+  static constexpr int DC = D / NC;            // dQ columns a block owns
   static constexpr size_t smem =
       (size_t)(2 * BQ + 2 * BK) * LD * sizeof(bf16) + 2 * BQ * sizeof(float);
 };
 
-// K2 / K4-dq.  Block: 64 q rows of one (b, h); warp w owns rows 16w ..
-// 16w + 15.
+// K2 / K4-dq.  Block: 64 q rows of one (b, h) and dQ columns c0 .. c0 +
+// DC - 1; warp w owns rows 16w .. 16w + 15.
 template <int D, bool kDirect>
 __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
   using C = DqTile<D>;
-  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, DC = C::DC;
   constexpr bool kHold = C::kHold;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);      // q (K2: * scale * log2 e)
@@ -391,7 +409,7 @@ __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
   float* sDl = sL + BQ;                                  // delta
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const int q0 = blockIdx.x * BQ, bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ, bh = blockIdx.y, c0 = blockIdx.z * DC;
   const int b = bh / p.H, h = bh % p.H, hk = h / (p.H / p.Hk);
   const bf16* kb = head_ptr<bf16>(p.k, p.sk, b, hk);
   const bf16* vb = head_ptr<bf16>(p.v, p.sv, b, hk);
@@ -423,7 +441,7 @@ __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
     if (half == 0) {
       const long long i = (long long)bh * p.Sq + q0 + r;
       sDl[r] = sum;
-      p.delta[i] = sum;
+      if (blockIdx.z == 0) p.delta[i] = sum;
       sL[r] = p.lse[i] * kLog2e;
     }
   }
@@ -438,9 +456,9 @@ __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
   }
   const float lse2[2] = {sL[warp * 16 + g], sL[warp * 16 + g + 8]};
   const float dl[2] = {sDl[warp * 16 + g], sDl[warp * 16 + g + 8]};
-  float dq[D / 8][4];
+  float dq[DC / 8][4];
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb)
+  for (int nb = 0; nb < DC / 8; ++nb)
     dq[nb][0] = dq[nb][1] = dq[nb][2] = dq[nb][3] = 0.f;
   const int row0 = q0 + warp * 16 + g;
   int nk = p.Sk / BK;
@@ -488,9 +506,9 @@ __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
       uint32_t a[4];
       frag_a_acc(a, s, kc);                      // dS rounded to k's dtype
 #pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb) {
+      for (int nb = 0; nb < DC / 8; ++nb) {
         uint32_t bf[2];
-        frag_b_kn(bf, sK, LD, kc * 16, nb * 8, g, tq);
+        frag_b_kn(bf, sK, LD, kc * 16, c0 + nb * 8, g, tq);
         mma_bf16(dq[nb], a, bf);
       }
     }
@@ -500,9 +518,9 @@ __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     bf16* orow =
-        out + ((long long)(b * p.Sq + row0 + 8 * r) * p.H + h) * D;
+        out + ((long long)(b * p.Sq + row0 + 8 * r) * p.H + h) * D + c0;
 #pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb)
+    for (int nb = 0; nb < DC / 8; ++nb)
       *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * tq) = pack_bf16(
           dq[nb][2 * r] * p.scale, dq[nb][2 * r + 1] * p.scale);
   }
@@ -510,9 +528,11 @@ __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
 
 template <int D, bool kDirect>
 struct DkvTile {
-  static constexpr int BK = 64, BQ = D == 64 ? 64 : 32, LD = D + 8;
+  static constexpr int BK = 64, BQ = D == 64 ? 64 : D > 256 ? 16 : 32;
+  static constexpr int LD = D + 8;
   static constexpr int NS = D > 128 ? 2 : 1;   // warps sharing a key group
-  static constexpr int DW = D / NS;            // dK / dV columns a warp owns
+  static constexpr int NC = D > 256 ? 2 : 1;   // column chunks (grid z)
+  static constexpr int DW = D / NC / NS;       // dK / dV columns a warp owns
   static constexpr int NT = kThreads * NS;
   // K4 keeps one q tile: its scores come from the unscaled q
   static constexpr size_t smem =
@@ -520,9 +540,10 @@ struct DkvTile {
       2 * BQ * sizeof(float);
 };
 
-// K3 / K4-dkv.  Block: 64 keys of one (b, hk); warp w owns keys 16 (w % 4)
-// .. + 15 and dK / dV columns DW (w / 4) .. + DW - 1, and computes the
-// transposed tiles (keys x queries) directly.
+// K3 / K4-dkv.  Block: 64 keys of one (b, hk) and dK / dV columns D / NC
+// blockIdx.z .. + D / NC - 1; warp w owns keys 16 (w % 4) .. + 15 and DW
+// of those columns from DW (w / 4) on, and computes the transposed tiles
+// (keys x queries) directly.
 template <int D, bool kDirect>
 __global__ void __launch_bounds__(DkvTile<D, kDirect>::NT)
     dkv_bf16(const Params p) {
@@ -538,7 +559,8 @@ __global__ void __launch_bounds__(DkvTile<D, kDirect>::NT)
   float* sDl = sL + BQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const int kw = (warp % 4) * 16, c0 = (warp / 4) * DW;
+  const int kw = (warp % 4) * 16;
+  const int c0 = blockIdx.z * (D / C::NC) + (warp / 4) * DW;
   const int k0 = blockIdx.x * BK, bhk = blockIdx.y;
   const int b = bhk / p.Hk, hk = bhk % p.Hk, rep = p.H / p.Hk;
 
@@ -650,24 +672,24 @@ __global__ void __launch_bounds__(DkvTile<D, kDirect>::NT)
 }
 
 // ----------------------------------------------------------------- f32 path
-// Plain blocks of 128 threads over 32 x 32 tiles in shared memory (rows
-// padded by one float); every product in full f32 on CUDA cores.  K3 walks
-// q tiles of KQ rows: 32, or 16 at D = 256, where 32 would need 239 KB.
-constexpr int kT = 32;
-
+// Plain blocks of 128 threads over T x T tiles in shared memory (rows
+// padded by one float); every product in full f32 on CUDA cores.  T = 32,
+// or 16 above D = 256.  K3 walks q tiles of KQ rows: 32, 16 at D = 256
+// (32 would need 239 KB), 8 above it.
 template <int D, bool kDirect>
 struct F32Tile {
-  static constexpr int LD = D + 1, LS = kT + 1;
-  static constexpr int KQ = D > 192 ? 16 : 32, LQ = KQ + 1;
-  static constexpr size_t fwd = (size_t)(3 * kT * LD + kT * D + kT * LS + 3 * kT) * 4;
-  static constexpr size_t dq = (size_t)(4 * kT * LD + kT * D + kT * LS + 2 * kT) * 4;
+  static constexpr int T = D > 256 ? 16 : 32;
+  static constexpr int LD = D + 1, LS = T + 1;
+  static constexpr int KQ = D > 256 ? 8 : D > 192 ? 16 : 32, LQ = KQ + 1;
+  static constexpr size_t fwd = (size_t)(3 * T * LD + T * D + T * LS + 3 * T) * 4;
+  static constexpr size_t dq = (size_t)(4 * T * LD + T * D + T * LS + 2 * T) * 4;
   static constexpr size_t dkv =
-      (size_t)(2 * kT * LD + (kDirect ? 2 : 3) * KQ * LD + 2 * kT * D +
-               2 * kT * LQ + 2 * KQ) * 4;
+      (size_t)(2 * T * LD + (kDirect ? 2 : 3) * KQ * LD + 2 * T * D +
+               2 * T * LQ + 2 * KQ) * 4;
 };
 
 // R rows of one head into t[R][D + 1], times `mul`
-template <int D, int R = kT>
+template <int D, int R>
 __device__ __forceinline__ void load_f32(float* t, const float* src,
                                          long long rs, float mul, int tid) {
   for (int i = tid; i < R * D; i += kThreads) {
@@ -687,7 +709,7 @@ __device__ __forceinline__ float dot_f32(const float* a, const float* b) {
 // K1 / K4-fwd, float32.
 template <int D, bool kDirect>
 __global__ void __launch_bounds__(kThreads) fwd_f32(const Params p) {
-  constexpr int LD = D + 1, LS = kT + 1;
+  constexpr int kT = F32Tile<D, kDirect>::T, LD = D + 1, LS = kT + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);
   float* sK = sQ + kT * LD;
@@ -703,7 +725,7 @@ __global__ void __launch_bounds__(kThreads) fwd_f32(const Params p) {
   const float* kb = head_ptr<float>(p.k, p.sk, b, hk);
   const float* vb = head_ptr<float>(p.v, p.sv, b, hk);
   const float smul = kDirect ? p.qscale : 1.f;   // on the score (K4) ...
-  load_f32<D>(sQ, head_ptr<float>(p.q, p.sq, b, h) + q0 * p.sq.s, p.sq.s,
+  load_f32<D, kT>(sQ, head_ptr<float>(p.q, p.sq, b, h) + q0 * p.sq.s, p.sq.s,
               kDirect ? 1.f : p.qscale, tid);    // ... or on q (K1)
   for (int i = tid; i < kT * D; i += kThreads) sAcc[i] = 0.f;
   if (tid < kT) { sM[tid] = kNegInf; sLs[tid] = 0.f; }
@@ -712,8 +734,8 @@ __global__ void __launch_bounds__(kThreads) fwd_f32(const Params p) {
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * kT;
     __syncthreads();
-    load_f32<D>(sK, kb + k0 * p.sk.s, p.sk.s, 1.f, tid);
-    load_f32<D>(sV, vb + k0 * p.sv.s, p.sv.s, 1.f, tid);
+    load_f32<D, kT>(sK, kb + k0 * p.sk.s, p.sk.s, 1.f, tid);
+    load_f32<D, kT>(sV, vb + k0 * p.sv.s, p.sv.s, 1.f, tid);
     __syncthreads();
     for (int i = tid; i < kT * kT; i += kThreads) {
       const int r = i / kT, c = i % kT;
@@ -760,7 +782,7 @@ __global__ void __launch_bounds__(kThreads) fwd_f32(const Params p) {
 // K2 / K4-dq, float32 (also writes delta).
 template <int D, bool kDirect>
 __global__ void __launch_bounds__(kThreads) dq_f32(const Params p) {
-  constexpr int LD = D + 1, LS = kT + 1;
+  constexpr int kT = F32Tile<D, kDirect>::T, LD = D + 1, LS = kT + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);    // q (K2: * scale * log2 e)
   float* sdO = sQ + kT * LD;
@@ -777,9 +799,9 @@ __global__ void __launch_bounds__(kThreads) dq_f32(const Params p) {
   const float* vb = head_ptr<float>(p.v, p.sv, b, hk);
   const float* obase = head_ptr<float>(p.o, p.so, b, h);
   const float smul = kDirect ? p.qscale : 1.f;
-  load_f32<D>(sQ, head_ptr<float>(p.q, p.sq, b, h) + q0 * p.sq.s, p.sq.s,
+  load_f32<D, kT>(sQ, head_ptr<float>(p.q, p.sq, b, h) + q0 * p.sq.s, p.sq.s,
               kDirect ? 1.f : p.qscale, tid);
-  load_f32<D>(sdO, head_ptr<float>(p.dout, p.sdo, b, h) + q0 * p.sdo.s,
+  load_f32<D, kT>(sdO, head_ptr<float>(p.dout, p.sdo, b, h) + q0 * p.sdo.s,
               p.sdo.s, 1.f, tid);
   for (int i = tid; i < kT * D; i += kThreads) sdq[i] = 0.f;
   __syncthreads();
@@ -797,8 +819,8 @@ __global__ void __launch_bounds__(kThreads) dq_f32(const Params p) {
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * kT;
     __syncthreads();
-    load_f32<D>(sK, kb + k0 * p.sk.s, p.sk.s, 1.f, tid);
-    load_f32<D>(sV, vb + k0 * p.sv.s, p.sv.s, 1.f, tid);
+    load_f32<D, kT>(sK, kb + k0 * p.sk.s, p.sk.s, 1.f, tid);
+    load_f32<D, kT>(sV, vb + k0 * p.sv.s, p.sv.s, 1.f, tid);
     __syncthreads();
     for (int i = tid; i < kT * kT; i += kThreads) {
       const int r = i / kT, c = i % kT;
@@ -824,11 +846,11 @@ __global__ void __launch_bounds__(kThreads) dq_f32(const Params p) {
   }
 }
 
-// K3 / K4-dkv, float32: 32 keys a block, q tiles of KQ rows.
+// K3 / K4-dkv, float32: T keys a block, q tiles of KQ rows.
 template <int D, bool kDirect>
 __global__ void __launch_bounds__(kThreads) dkv_f32(const Params p) {
   using C = F32Tile<D, kDirect>;
-  constexpr int LD = C::LD, KQ = C::KQ, LQ = C::LQ;
+  constexpr int kT = C::T, LD = C::LD, KQ = C::KQ, LQ = C::LQ;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sK = reinterpret_cast<float*>(smem);
   float* sV = sK + kT * LD;
@@ -845,9 +867,9 @@ __global__ void __launch_bounds__(kThreads) dkv_f32(const Params p) {
   const int k0 = blockIdx.x * kT, bhk = blockIdx.y;
   const int b = bhk / p.Hk, hk = bhk % p.Hk, rep = p.H / p.Hk;
   const float smul = kDirect ? p.qscale : 1.f;
-  load_f32<D>(sK, head_ptr<float>(p.k, p.sk, b, hk) + k0 * p.sk.s, p.sk.s,
+  load_f32<D, kT>(sK, head_ptr<float>(p.k, p.sk, b, hk) + k0 * p.sk.s, p.sk.s,
               1.f, tid);
-  load_f32<D>(sV, head_ptr<float>(p.v, p.sv, b, hk) + k0 * p.sv.s, p.sv.s,
+  load_f32<D, kT>(sV, head_ptr<float>(p.v, p.sv, b, hk) + k0 * p.sv.s, p.sv.s,
               1.f, tid);
   for (int i = tid; i < kT * D; i += kThreads) sdk[i] = sdv[i] = 0.f;
   const int nq = p.Sq / KQ;
@@ -924,29 +946,29 @@ cudaError_t dispatch(Which w, int dtype, const Params& p, cudaStream_t st) {
     if (w == kFwd) {
       using C = FwdTile<D>;
       if (p.Sq % C::BQ || p.Sk % C::BK) return cudaErrorInvalidValue;
-      return launch(fwd_bf16<D, kDirect>, dim3(p.Sq / C::BQ, BH), kThreads,
+      return launch(fwd_bf16<D, kDirect>, dim3(p.Sq / C::BQ, BH, C::NC), kThreads,
                     C::smem, st, p);
     }
     if (w == kDq) {
       using C = DqTile<D>;
       if (p.Sq % C::BQ || p.Sk % C::BK) return cudaErrorInvalidValue;
-      return launch(dq_bf16<D, kDirect>, dim3(p.Sq / C::BQ, BH), kThreads,
+      return launch(dq_bf16<D, kDirect>, dim3(p.Sq / C::BQ, BH, C::NC), kThreads,
                     C::smem, st, p);
     }
     using C = DkvTile<D, kDirect>;
     if (p.Sq % C::BQ || p.Sk % C::BK) return cudaErrorInvalidValue;
-    return launch(dkv_bf16<D, kDirect>, dim3(p.Sk / C::BK, BHk), C::NT,
+    return launch(dkv_bf16<D, kDirect>, dim3(p.Sk / C::BK, BHk, C::NC), C::NT,
                   C::smem, st, p);
   }
   using C = F32Tile<D, kDirect>;
-  if (p.Sq % kT || p.Sk % kT) return cudaErrorInvalidValue;
+  if (p.Sq % C::T || p.Sk % C::T) return cudaErrorInvalidValue;
   if (w == kFwd)
-    return launch(fwd_f32<D, kDirect>, dim3(p.Sq / kT, BH), kThreads, C::fwd,
+    return launch(fwd_f32<D, kDirect>, dim3(p.Sq / C::T, BH), kThreads, C::fwd,
                   st, p);
   if (w == kDq)
-    return launch(dq_f32<D, kDirect>, dim3(p.Sq / kT, BH), kThreads, C::dq,
+    return launch(dq_f32<D, kDirect>, dim3(p.Sq / C::T, BH), kThreads, C::dq,
                   st, p);
-  return launch(dkv_f32<D, kDirect>, dim3(p.Sk / kT, BHk), kThreads, C::dkv,
+  return launch(dkv_f32<D, kDirect>, dim3(p.Sk / C::T, BHk), kThreads, C::dkv,
                 st, p);
 }
 
@@ -958,6 +980,10 @@ cudaError_t by_dim(Which w, int D, int dtype, const Params& p,
     case 128: return dispatch<128, kDirect>(w, dtype, p, st);
     case 192: return dispatch<192, kDirect>(w, dtype, p, st);
     case 256: return dispatch<256, kDirect>(w, dtype, p, st);
+    case 320: return dispatch<320, kDirect>(w, dtype, p, st);
+    case 384: return dispatch<384, kDirect>(w, dtype, p, st);
+    case 448: return dispatch<448, kDirect>(w, dtype, p, st);
+    case 512: return dispatch<512, kDirect>(w, dtype, p, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,12 +1,13 @@
 // Paged (block) KV-cache attention for Hopper (sm_90a): one kernel body,
-// four instantiations.
+// the single-query wrapper's two instantiations.
 //
 //   K5  pages in q's dtype, q_len = 1  replaces paddle_tpu/ops/pallas/
 //       paged_attention.py::_kernel (decode / prefill-chunk attention)
 //   K6  int8 pages + scales, q_len = 1 replaces ::_kernel_q
-//   K7  pages in q's dtype, q_len = Q  replaces ::_kernel_mq (via _mq_step),
-//       speculative-decode verification
-//   K7q int8 pages + scales, q_len = Q replaces ::_kernel_mq_q
+//
+// The body takes any q_len, but only the single-query wrapper launches
+// it: the multi-query verify kernels K7 / K7q (::_kernel_mq, ::_kernel_mq_q)
+// have a split-K body of their own, paged_attention_mq.cu.
 //
 // Semantics (those of the TPU kernels): q [B, Q, H, D] (row j of sequence b
 // sits at position context_lens[b] - 1 + j) against K/V pages
@@ -33,19 +34,20 @@
 // the current tile, so device-memory latency hides behind the arithmetic;
 // then the block stages the tile [TILE, D] in shared memory ONCE (int8 rows
 // are dequantized to q's dtype as they are staged, so the rest of the body
-// is the same for all four kernels) and scores ALL R = G * Q rows of its
-// group against it: G = 4 rows for K5 / K6 and 32 for K7 / K7q at
-// Llama-3-8B with Q = 8.  That is what _mq_step does on the TPU (each page
-// DMA'd once for all Q rows); a row-by-row loop over K5 would stream the
-// prefix Q times.  Warp w scores rows w, w+4, ... in groups of 4 (lane j
-// <-> token j, K rows padded by 16 bytes so the lane-per-token dot products
-// are bank-conflict free, each K chunk unpacked once for the group), then
-// thread t accumulates output column t % D of its rows from the rounded P
-// and the V tile, 4 rows at a time in registers.  q and acc live in shared
-// memory in f32, so any R that fits 227 KB works (the wrapper checks).
+// is the same for both kernels) and scores ALL R = G * Q rows of its
+// group against it: G = 4 rows for K5 / K6 at Llama-3-8B, 32 for a
+// multi-query call with Q = 8.  That is what _mq_step does on the TPU
+// (each page DMA'd once for all Q rows); a row-by-row loop over K5 would
+// stream the prefix Q times.  Warp w scores rows w, w+4, ... in groups of 4
+// (lane j <-> token j, K rows padded by 16 bytes so the lane-per-token dot
+// products are bank-conflict free, each K chunk unpacked once for the
+// group), then thread t accumulates output column t % D of its rows from
+// the rounded P and the V tile, 4 rows at a time in registers.  q and acc
+// live in shared memory in f32, so any R that fits 227 KB works (the
+// wrapper checks).
 //
-// Bound.  All four read every valid K/V byte once and do about 4 * R flops
-// per K/V element (R = 4 at decode, 32 at verify), far below the card's
+// Bound.  Both read every valid K/V byte once and do about 4 * R flops
+// per K/V element (R = 4 at decode), far below the card's
 // ~295 flop/byte ridge in bf16: they are bound by device-memory bytes, and
 // int8 pages halve those bytes (D + 4 bytes per token-head instead of 2D).
 // What this simple design leaves on the table: only B * KVH blocks (64 at
@@ -55,8 +57,10 @@
 // several would keep more bytes moving); the dot products run on CUDA
 // cores, not mma / wgmma, which matters once R = 32 verify rows (or 32
 // prefill rows, which today are 32 single-row problems that each re-read
-// the pages) share a tile: K7 reads about K5's bytes and takes about four
-// times as long, so its arithmetic, not the bytes, sets its time.
+// the pages) share a tile: a Q = 8 call on this body reads about K5's
+// bytes and takes about four times as long, so its arithmetic, not the
+// bytes, sets its time, which is why K7 / K7q have the split-K, mma body of
+// paged_attention_mq.cu.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>

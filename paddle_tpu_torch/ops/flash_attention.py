@@ -54,7 +54,7 @@ LN2 = 0.6931471805599453
 NEG_INF = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 192, 256)
+_HEAD_DIMS = tuple(range(64, 513, 64))      # 64, 128, ..., 512
 _B_BQ, _B_BK = 512, 512
 _lib = None
 
@@ -90,8 +90,8 @@ def _check_divisible(Sq, Sk, D, bq=None, bk=None):
 def supported(q_shape, kv_shape=None, dtype=None) -> bool:
     """Single dispatch predicate for the kernel path ([B, S, H, D]
     layouts), the reference's: S % 128 == 0, head_dim % 64 == 0, H % Hk ==
-    0.  The CUDA kernels are built for head_dim 64, 128, 192 and 256; a
-    CUDA tensor with a larger head_dim that passes here is refused by the
+    0.  The CUDA kernels are built for every head_dim % 64 == 0 up to 512;
+    a CUDA tensor with a larger head_dim that passes here is refused by the
     wrapper before any launch."""
     B, S, H, D = q_shape
     ok = (S % BQ == 0) and (D % 64 == 0)
@@ -420,8 +420,8 @@ def flash_attention_bshd(q, k, v, causal=True, scale=None):
     reference's: MHA with ``FLAGS_flash_layout_direct`` set and
     :func:`_bshd_config` not None takes K4, everything else K1-K3.  CPU
     tensors take the plain versions; CUDA tensors launch the kernels —
-    float32 or bfloat16, S % 128 == 0, head_dim 64, 128, 192 or 256 — or
-    raise."""
+    float32 or bfloat16, S % 128 == 0, head_dim a multiple of 64 up to 512
+    — or raise."""
     B, Sq, H, D = q.shape
     Hk = k.shape[2]
     if Hk == 0 or H % Hk != 0:

@@ -1,24 +1,27 @@
 """Paged (block) KV-cache attention: the CUDA kernels' wrappers and their
 plain PyTorch twins.
 
-Counterpart of ``paddle_tpu/ops/pallas/paged_attention.py``.  One CUDA
-source, ``csrc/paged_attention.cu``, holds one kernel body with four
-instantiations (see the note there for the design and what bounds it):
+Counterpart of ``paddle_tpu/ops/pallas/paged_attention.py``.  Two CUDA
+sources (see the note in each for the design and what bounds it):
 
-- K5 (``_kernel``): :func:`paged_attention` with pages in q's dtype;
-- K6 (``_kernel_q``): :func:`paged_attention` with int8 pages and scales;
-- K7 (``_kernel_mq``): :func:`paged_attention_multiquery`;
-- K7q (``_kernel_mq_q``): :func:`paged_attention_multiquery` with int8
-  pages and scales.
+- ``csrc/paged_attention.cu``, one body with two instantiations for the
+  single-query wrapper :func:`paged_attention`: K5 (``_kernel``, pages in
+  q's dtype) and K6 (``_kernel_q``, int8 pages and scales);
+- ``csrc/paged_attention_mq.cu``, the split-K body of
+  :func:`paged_attention_multiquery`: K7 (``_kernel_mq``) and K7q
+  (``_kernel_mq_q``, int8 pages and scales).  Each call makes two launches,
+  the splits and then their combine, planned by :func:`split_plan`.
 
 The device alone decides the path: on CPU tensors the wrappers compute
 their plain versions (:func:`paged_attention_ref`,
 :func:`paged_attention_multiquery_ref`); on CUDA tensors they launch the
-kernel or raise — they never fall back.  Each kernel body has its own
-launch counter, a plain int that counts its launches and nothing else:
-``paged_attention.launches`` (K5), ``paged_attention.launches_int8`` (K6),
-``paged_attention_multiquery.launches`` (K7) and
+kernel or raise — they never fall back.  Each kernel has its own counter,
+a plain int that counts the wrapper's calls that launched it and nothing
+else: ``paged_attention.launches`` (K5), ``paged_attention.launches_int8``
+(K6), ``paged_attention_multiquery.launches`` (K7) and
 ``paged_attention_multiquery.launches_int8`` (K7q).
+:func:`paged_attention_multiquery_split_ref` is a plain version of K7 /
+K7q's split-K numerics, for tests.
 
 :func:`quantize_kv` is the reference's per-(row, kv head) symmetric int8
 quantization, plain tensor code (the JAX package computes it outside any
@@ -26,7 +29,9 @@ kernel too).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import math
 
 import torch
@@ -35,6 +40,7 @@ from . import _build
 
 __all__ = ["paged_attention", "paged_attention_ref",
            "paged_attention_multiquery", "paged_attention_multiquery_ref",
+           "paged_attention_multiquery_split_ref", "split_plan",
            "quantize_kv", "NEG_INF"]
 
 NEG_INF = -1e30
@@ -42,7 +48,10 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _SMEM_LIMIT = 232_448          # bytes of shared memory one block may use
+_SPLIT_TOKENS = 128            # the split-K kernels' target split length
+_TILE = 32                     # tokens a stage of their ring holds
 _lib = None
+_mq_lib = None
 
 
 def _kernel_lib():
@@ -59,6 +68,57 @@ def _kernel_lib():
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _mq_kernel_lib():
+    global _mq_lib
+    if _mq_lib is None:
+        lib = _build.load("paged_attention_mq")
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.paged_attention_mq_fwd.argtypes = ([vp] * 9 + [ci] * 9
+                                               + [cf, ci, ci, vp])
+        lib.paged_attention_mq_fwd.restype = ci
+        lib.paged_attention_mq_smem_bytes.argtypes = [ci, ci, ci]
+        lib.paged_attention_mq_smem_bytes.restype = ctypes.c_size_t
+        lib.paddle_cuda_error_string.argtypes = [ci]
+        lib.paddle_cuda_error_string.restype = ctypes.c_char_p
+        _mq_lib = lib
+    return _mq_lib
+
+
+SplitPlan = collections.namedtuple(
+    "SplitPlan", "split n_splits rows row_groups threads grid "
+                 "workspace_floats live_blocks")
+
+
+def split_plan(B, Q, H, KVH, D, page_size, S, context_lens=None):
+    """How :func:`paged_attention_multiquery` cuts a call on the card, from
+    the shapes alone (no device sync): ``split`` tokens a split, the
+    smallest multiple of the page size and of the 32-token ring tile that
+    is at least 128 tokens; ``n_splits`` = ceil(S * page / split) splits a
+    sequence; R = (H / KVH) * Q rows a (sequence, kv head), 32 a block of
+    128 threads, so ``row_groups`` blocks cover R; the split launch's
+    ``grid`` (n_splits, KVH, B * row_groups) and ``threads``; the f32
+    workspace of the per-split (acc [R, D], m, l), ``workspace_floats``.
+    With ``context_lens`` (host ints), ``live_blocks``: the blocks whose
+    split starts before the last row's horizon min(ctx + Q - 1, S * page),
+    and split 0 of a sequence no row sees (it writes the zeros); the rest
+    exit before reading the table.  The CUDA source applies the same rule
+    to the split, the grid and the threads."""
+    unit = math.lcm(page_size, _TILE)
+    split = unit * -(-_SPLIT_TOKENS // unit)
+    n_splits = -(-(S * page_size) // split)
+    R = (H // KVH) * Q
+    row_groups, threads = -(-R // 32), 128
+    live = None
+    if context_lens is not None:
+        t_cap = S * page_size
+        live = KVH * row_groups * sum(
+            max(1, -(-max(0, min(int(c) + Q - 1, t_cap)) // split))
+            for c in context_lens)
+    return SplitPlan(split, n_splits, R, row_groups, threads,
+                     (n_splits, KVH, B * row_groups),
+                     B * KVH * n_splits * R * (D + 2), live)
 
 
 def quantize_kv(x):
@@ -161,6 +221,58 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, k_scales,
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _mq_plan(B, Q, H, KVH, D, page_size, S, dt, quant):
+    """:func:`split_plan` for a call's shapes, after the shared-memory
+    check; cached, since the engine repeats the same shapes every layer."""
+    smem = _mq_kernel_lib().paged_attention_mq_smem_bytes(D, dt, quant)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"the split-K kernel at head_dim {D} needs {smem} "
+                         f"bytes of shared memory (limit {_SMEM_LIMIT})")
+    return split_plan(B, Q, H, KVH, D, page_size, S)
+
+
+def _launch_mq(q, k_pages, v_pages, block_tables, context_lens, k_scales,
+               v_scales, scale, workspace=None):
+    """Check, then launch K7 / K7q's split kernel and its combine on q
+    [B, Q, H, D]; returns out in q's shape and dtype.  The f32 workspace
+    (``split_plan(...).workspace_floats``) is allocated here unless given:
+    a caller that pre-fills it can read which split blocks wrote it."""
+    _check(q, k_pages, v_pages, block_tables, context_lens, k_scales,
+           v_scales)
+    B, Q, H, D = q.shape
+    _, page_size, KVH, _ = k_pages.shape
+    S = block_tables.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    quant = k_scales is not None
+    lib = _mq_kernel_lib()
+    dt = _DTYPES[q.dtype]
+    plan = _mq_plan(B, Q, H, KVH, D, page_size, S, dt, int(quant))
+    ws = workspace
+    if ws is None:
+        ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
+                         device=q.device)
+    elif (ws.dtype != torch.float32 or ws.device != q.device
+          or ws.numel() < plan.workspace_floats or not ws.is_contiguous()):
+        raise ValueError(f"workspace must be {plan.workspace_floats} "
+                         f"contiguous float32 on {q.device}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.paged_attention_mq_fwd(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr() if quant else None,
+            v_scales.data_ptr() if quant else None,
+            block_tables.data_ptr(), context_lens.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), B, Q, H, KVH, D, page_size, S,
+            plan.split, plan.n_splits, float(scale), dt, int(quant), stream)
+    if err:
+        raise RuntimeError("paged_attention_multiquery kernel launch failed: "
+                           + lib.paddle_cuda_error_string(err).decode())
+    return out
+
+
 def _on_cuda(q, name):
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
@@ -219,8 +331,11 @@ def paged_attention_multiquery(q, k_pages, v_pages, block_tables,
     returns        [B, Q, H, D] in q's dtype
 
     CPU tensors take :func:`paged_attention_multiquery_ref`; CUDA tensors
-    launch K7 (pages in q's dtype) or K7q (int8 pages), which read q in
-    place and stream each page once for all Q rows, or raise."""
+    launch K7 (pages in q's dtype) or K7q (int8 pages) — float32 or
+    bfloat16 q, head_dim 64 or 128, any page size, any H % KVH == 0 and
+    any Q — which read q in place and stream each page once for all Q
+    rows, split over the token range (:func:`split_plan`), or raise.  The
+    counters count calls: one a call, for its two launches."""
     if q.device.type == "cpu":
         return paged_attention_multiquery_ref(
             q, k_pages, v_pages, block_tables, context_lens,
@@ -229,8 +344,8 @@ def paged_attention_multiquery(q, k_pages, v_pages, block_tables,
     if q.dim() != 4:
         raise ValueError(f"paged_attention_multiquery takes q [B, Q, H, D], "
                          f"got {tuple(q.shape)}")
-    out = _launch(q, k_pages, v_pages, block_tables, context_lens, k_scales,
-                  v_scales, scale)
+    out = _launch_mq(q, k_pages, v_pages, block_tables, context_lens,
+                     k_scales, v_scales, scale)
     if k_scales is None:
         paged_attention_multiquery.launches += 1
     else:
@@ -285,6 +400,63 @@ def paged_attention_multiquery_ref(q, k_pages, v_pages, block_tables,
     sc = torch.where(vis, sc, torch.full((), NEG_INF, device=q.device))
     p = torch.where(vis, torch.softmax(sc, dim=-1), 0.0)
     out = torch.einsum("bhgqt,bhtd->bhgqd", p, v)
+    return out.reshape(B, H, Q, D).transpose(1, 2).to(q.dtype)
+
+
+def paged_attention_multiquery_split_ref(q, k_pages, v_pages, block_tables,
+                                         context_lens, *, split_tokens=None,
+                                         k_scales=None, v_scales=None,
+                                         scale=None):
+    """Plain version of K7 / K7q's split-K numerics, for tests: the table's
+    S * page tokens cut into splits of ``split_tokens`` (None: one split);
+    per split and row, f32 scores over the split's visible tokens, m = their
+    max (NEG_INF if none), P = exp(s - m) rounded to the working dtype, l =
+    sum(P) in f32, acc = P V in f32; then the splits combined in split order,
+    out = sum(acc_s w_s) / max(sum(l_s w_s), 1e-30) with w_s = exp(m_s - M),
+    M the largest m_s.  Int8 values are dequantized in f32 and rounded to
+    q's dtype, as the kernels do.  V at positions no row sees is zeroed, so
+    pages past the last row's horizon never reach the output."""
+    B, Q, H, D = q.shape
+    P, page_size, KVH, _ = k_pages.shape
+    S = block_tables.shape[1]
+    G = H // KVH
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    T = S * page_size
+    split = T if split_tokens is None else int(split_tokens)
+    ns = -(-T // split)
+    idx = block_tables.long().clamp(0, P - 1)
+    k = _dense(k_pages, k_scales, idx)
+    v = _dense(v_pages, v_scales, idx)
+    wdt = q.dtype if k_scales is not None else v_pages.dtype
+    if k_scales is not None:
+        k, v = k.to(q.dtype).float(), v.to(q.dtype).float()
+    ctx = context_lens.to(q.device).long()
+    mask = (torch.arange(T, device=q.device)[None, None, :]
+            < (ctx[:, None] + torch.arange(Q, device=q.device))[:, :, None])
+    v = v.masked_fill(~mask.any(1)[:, None, :, None], 0.0)
+    pad = ns * split - T
+    k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    mask = torch.nn.functional.pad(mask, (0, pad))
+    qh = q.transpose(1, 2).reshape(B, KVH, G, Q, D).float()
+    sc = torch.einsum("bhgqd,bhtd->bhgqt", qh * scale, k)
+    vis = mask[:, None, None].expand_as(sc)
+    sc = torch.where(vis, sc, torch.full((), NEG_INF, device=q.device))
+    sc, vis = (x.reshape(B, KVH, G, Q, ns, split) for x in (sc, vis))
+    m = sc.amax(-1)                                   # [B, KVH, G, Q, ns]
+    p = torch.where(vis, torch.exp(sc - m[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bhgqst,bhstd->bhgqsd", p.to(wdt).float(),
+                       v.reshape(B, KVH, ns, split, D))
+    M = m.amax(-1)
+    num = torch.zeros_like(acc[..., 0, :])
+    den = torch.zeros_like(l[..., 0])
+    for i in range(ns):                               # in split order
+        w = torch.exp(m[..., i] - M)
+        num = num + acc[..., i, :] * w[..., None]
+        den = den + l[..., i] * w
+    out = num / den.clamp_min(1e-30)[..., None]
     return out.reshape(B, H, Q, D).transpose(1, 2).to(q.dtype)
 
 

@@ -53,13 +53,15 @@ def _close(got, want, dt, grad=False):
         np.testing.assert_allclose(got, want, atol=2e-2 * scale, rtol=0)
 
 
-# (S, D, causal, H, Hk, dtype): S 128 and 256, D 64, 128, 192 and 256,
-# causal and not, MHA and GQA 2:1 and 4:1, float32 and bfloat16
+# (S, D, causal, H, Hk, dtype): S 128 and 256, D 64, 128, 192, 256, 320
+# and 512, causal and not, MHA and GQA 2:1 and 4:1, float32 and bfloat16
 CASES = [(128, 64, True, 2, 2, "f32"), (256, 64, True, 4, 2, "f32"),
          (256, 128, False, 2, 2, "f32"), (128, 128, True, 4, 1, "f32"),
          (128, 64, False, 4, 1, "bf16"), (256, 128, True, 4, 2, "bf16"),
          (128, 192, True, 2, 1, "f32"), (128, 256, False, 2, 2, "f32"),
-         (128, 192, False, 2, 2, "bf16"), (128, 256, True, 4, 2, "bf16")]
+         (128, 192, False, 2, 2, "bf16"), (128, 256, True, 4, 2, "bf16"),
+         (128, 320, True, 4, 2, "f32"), (128, 512, False, 2, 2, "f32"),
+         (128, 512, True, 2, 1, "bf16")]
 
 
 @pytest.mark.parametrize("S,D,causal,H,Hk,dt", CASES)
@@ -154,12 +156,13 @@ def test_supported_agrees_with_jax(q_shape, kv_shape):
 
 
 def test_kernels_refuse_head_dims_they_lack(monkeypatch):
-    """head_dim 320 passes the dispatch predicate, as in the reference; CPU
+    """head_dim 576 passes the dispatch predicate, as in the reference; CPU
     tensors take the plain versions (matching the JAX kernels), and on the
     card's path the wrapper refuses it before any launch, since the CUDA
-    kernels are instantiated for head_dim 64, 128, 192 and 256.  Those four
-    pass the wrapper's check and reach the launcher."""
-    B, S, H, Hk, D = 1, 128, 2, 1, 320
+    kernels are instantiated for every head_dim % 64 == 0 up to 512.  Those
+    eight, 320, 384 and 512 among them, pass the wrapper's check and reach
+    the launcher."""
+    B, S, H, Hk, D = 1, 128, 2, 1, 576
     q, k, v, do = _inputs(11, B, S, H, Hk, D)
     assert supported(q.shape, k.shape)
     o3, _ = jfa._flash_fwd(_to3(q, "f32"), _to3(k, "f32"), _to3(v, "f32"),
@@ -174,7 +177,8 @@ def test_kernels_refuse_head_dims_they_lack(monkeypatch):
     reached = []
     monkeypatch.setattr(tfa, "_launch_fwd", lambda q, *a: reached.append(
         q.shape[-1]) or tfa.flash_fwd_ref(q, *a[:3]))
-    for d in (64, 128, 192, 256):
+    dims = (64, 128, 192, 256, 320, 384, 448, 512)
+    for d in dims:
         x = torch.zeros(1, 128, 2, d)
         flash_attention_bshd(x, x, x)
-    assert reached == [64, 128, 192, 256]
+    assert reached == list(dims)

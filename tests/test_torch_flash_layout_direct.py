@@ -52,10 +52,13 @@ def layout_direct():
         tpt.set_flags({"FLAGS_flash_layout_direct": False})
 
 
-# (S, D, causal, H, dtype): D 64 and 256, causal and not, f32 and bf16
+# (S, D, causal, H, dtype): D 64, 256, 320 and 512, causal and not, f32 and
+# bf16
 CASES = [(128, 64, True, 2, "f32"), (256, 64, False, 2, "f32"),
          (128, 256, True, 2, "f32"), (128, 256, False, 1, "f32"),
-         (256, 64, True, 2, "bf16"), (128, 256, False, 2, "bf16")]
+         (256, 64, True, 2, "bf16"), (128, 256, False, 2, "bf16"),
+         (128, 320, True, 2, "f32"), (128, 512, False, 1, "f32"),
+         (128, 512, True, 2, "bf16")]
 
 
 @pytest.mark.parametrize("S,D,causal,H,dt", CASES)

@@ -1,5 +1,6 @@
 """The PyTorch port's int8-page and multi-query paged attention (K6, K7,
-K7q) on CPU tensors — their plain versions — and its ``quantize_kv``,
+K7q) on CPU tensors — their plain versions, and the plain version of K7 /
+K7q's split-K numerics with its split plan — and its ``quantize_kv``,
 against the JAX package's Pallas kernels (interpret mode on CPU) and jnp
 references, on the same seeded numpy inputs.
 
@@ -9,6 +10,8 @@ the interpret-mode kernel, the reference's own bar (``test_kv_int8.py``,
 ``test_spec_decode.py``); bfloat16 atol 2e-2 (the JAX kernels round
 dequantized int8 values to bf16 before the dots, the plain versions
 dequantize in float32, and both round the output to bf16)."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +20,8 @@ import torch
 from paddle_tpu.ops.pallas import paged_attention as jpa
 from paddle_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_multiquery,
-    paged_attention_multiquery_ref, paged_attention_ref, quantize_kv)
+    paged_attention_multiquery_ref, paged_attention_multiquery_split_ref,
+    paged_attention_ref, quantize_kv, split_plan)
 
 # (B, P, page, KVH, H, D, S, Q, row-0 contexts): the reference's multi-query
 # test shape, and the engine's head_dim 128 at a max_draft=4 verify width
@@ -26,11 +30,28 @@ SHAPES = {
     "reference": (2, 9, 8, 2, 4, 16, 4, 3, (13, 22)),
     "d128_q8": (3, 13, 16, 2, 8, 128, 4, 8, (1, 40, 60)),
 }
+# The split-K cases (page 8, S * page = 64 tokens): ctx0, contexts of 0 (row
+# 0 sees nothing); split_edge, horizons ctx + j ending on 8- and 16-token
+# split edges (13 + 3, 16 + 0, 29 + 3); unseen_split, a sequence whose
+# splits past the first no row sees (2 + 3 = 5 tokens); capped, rows past
+# the table (62 + 3 > 64); int8, int8 pages; gq12 and gq64, G Q = 12 rows
+# (not a multiple of 16) and 64; d128, the engine's head_dim.
+SPLIT_SHAPES = {
+    "ctx0": (3, 25, 8, 2, 4, 16, 8, 4, (0, 5, 0)),
+    "split_edge": (3, 25, 8, 2, 4, 16, 8, 4, (13, 16, 29)),
+    "unseen_split": (3, 25, 8, 2, 4, 16, 8, 4, (2, 40, 3)),
+    "capped": (3, 25, 8, 2, 4, 16, 8, 4, (62, 64, 10)),
+    "int8": (3, 25, 8, 2, 4, 16, 8, 4, (13, 40, 57)),
+    "gq12": (2, 17, 8, 2, 8, 16, 8, 3, (21, 50)),
+    "gq64": (2, 17, 8, 2, 16, 16, 8, 8, (21, 50)),
+    "d128": (2, 17, 8, 2, 8, 128, 8, 8, (7, 49)),
+}
+SPLITS = {"one_page": 8, "two_pages": 16, "one_split": None}
 TOLS = {"float32": (2e-5, 2e-3), "bfloat16": (2e-2, 2e-2)}
 
 
 def _inputs(shape, seed=0):
-    B, P, page, KVH, H, D, S, Q, ctx = SHAPES[shape]
+    B, P, page, KVH, H, D, S, Q, ctx = {**SHAPES, **SPLIT_SHAPES}[shape]
     rng = np.random.default_rng(seed)
     kp = rng.standard_normal((P, page, KVH, D)).astype(np.float32)
     vp = rng.standard_normal((P, page, KVH, D)).astype(np.float32)
@@ -247,6 +268,79 @@ def test_int8_and_multiquery_input_checks_raise(case, err):
         _check(*args, **kw)
 
 
+@functools.lru_cache(maxsize=None)
+def _split_case(shape, dtype):
+    """Inputs of a split-K case (int8 pages for "int8"), with the JAX
+    kernel's output in interpret mode and the plain twin's, computed once
+    for every split size."""
+    q, kp, vp, bt, cl = _inputs(shape, seed=5)
+    scales = None
+    if shape == "int8":
+        kp, vp, ks, vs = _quant(kp, vp)
+        scales = (ks, vs)
+    args = (q, kp, vp, bt, cl)
+    want = _jax(jpa.paged_attention_multiquery, dtype, *args, scales)
+    twin = _torch(paged_attention_multiquery_ref, dtype, *args, scales)
+    return args, scales, want, twin
+
+
+@pytest.mark.parametrize("split", sorted(SPLITS))
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+@pytest.mark.parametrize("shape", sorted(SPLIT_SHAPES))
+def test_split_ref_matches_jax_kernel_and_twin(shape, dtype, split):
+    """K7 / K7q's split-K numerics (per-split m, l, acc in f32, combined in
+    split order) at splits of one page, two pages and one split: against
+    the JAX kernel in interpret mode and the plain twin, at the file's
+    tolerances.  A split no row sees (unseen_split, ctx0, capped) leaves
+    the rows unchanged."""
+    args, scales, want, twin = _split_case(shape, dtype)
+    tol_ref, tol_kernel = TOLS[dtype]
+    got = _torch(functools.partial(paged_attention_multiquery_split_ref,
+                                   split_tokens=SPLITS[split]),
+                 dtype, *args, scales)
+    assert got.shape == args[0].shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, twin, atol=tol_ref, rtol=0)
+    # a row that sees no token (row 0 at context 0) returns 0, as the twin
+    # does; the JAX kernel gives each masked score of the first page
+    # exp(0) there (a recorded divergence), so it is held on the others
+    cl, Q = args[4], args[0].shape[1]
+    blind = (cl[:, None] + np.arange(Q)) == 0               # [B, Q]
+    np.testing.assert_array_equal(got[blind], 0.0)
+    np.testing.assert_allclose(got[~blind], want[~blind], atol=tol_kernel,
+                               rtol=0)
+    assert blind.any() == (shape == "ctx0")
+
+
+@pytest.mark.parametrize("page,ctx,Q,H,KVH,want", [
+    # the verify shape of chip_smoke.py: 34 live splits x 8 kv heads
+    (16, (1, 17, 600, 1020, 300, 1000, 64, 800), 8, 32, 8,
+     dict(split=128, n_splits=8, rows=32, row_groups=1, live_blocks=272)),
+    # page 1: 128 pages a split; G Q = 64: two row groups
+    (1, (5, 300), 16, 32, 8,
+     dict(split=128, n_splits=8, rows=64, row_groups=2, live_blocks=2 * 8 * 4)),
+    # page 48: splits of lcm(48, 32) = 96 * 2 tokens; G Q = 12
+    (48, (0, 200), 3, 32, 8,
+     dict(split=192, n_splits=6, rows=12, row_groups=1, live_blocks=8 * 3)),
+    # page 256: one page a split; context 0 and Q = 1: split 0 still lives
+    (256, (0, 0, 0), 1, 8, 2,
+     dict(split=256, n_splits=4, rows=4, row_groups=1, live_blocks=3 * 2)),
+])
+def test_split_plan(page, ctx, Q, H, KVH, want):
+    """The split plan, pure Python: split length, splits a sequence, rows,
+    row groups, the grid, the threads, the workspace and the live blocks
+    for given context lengths."""
+    B, D, S = len(ctx), 128, 1024 // page
+    plan = split_plan(B, Q, H, KVH, D, page, S, context_lens=ctx)
+    assert {k: getattr(plan, k) for k in want} == want
+    assert plan.split % page == 0 and plan.split % 32 == 0
+    assert plan.split // page <= 128
+    assert plan.grid == (plan.n_splits, KVH, B * plan.row_groups)
+    assert plan.threads == 128
+    assert plan.workspace_floats == (B * KVH * plan.n_splits * plan.rows
+                                     * (D + 2))
+    assert split_plan(B, Q, H, KVH, D, page, S).live_blocks is None
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -255,13 +349,16 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["d128_q8"] + sorted(SPLIT_SHAPES))
 @pytest.mark.parametrize("quant", [False, True])
-def test_cuda_multiquery_kernels_match_plain_version(cuda_device, quant):
+def test_cuda_multiquery_kernels_match_plain_version(cuda_device, quant,
+                                                     shape):
     """On the card, K7 / K7q and K6 against their plain versions at the
-    d128_q8 shape (float32, TF32 off)."""
+    d128_q8 shape and the split-K cases (float32, TF32 off); K7 / K7q also
+    in bf16 (2e-2), and bitwise the same on a second run."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, kp, vp, bt, cl = (torch.from_numpy(a).to(cuda_device)
-                         for a in _inputs("d128_q8"))
+                         for a in _inputs(shape))
     kw = {}
     if quant:
         kp, ks = quantize_kv(kp)
@@ -276,3 +373,13 @@ def test_cuda_multiquery_kernels_match_plain_version(cuda_device, quant):
     torch.testing.assert_close(
         single, paged_attention_ref(q[:, 0].contiguous(), kp, vp, bt, cl,
                                     **kw), rtol=0, atol=2e-5)
+    qb = q.bfloat16()
+    if not quant:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    out = paged_attention_multiquery(qb, kp, vp, bt, cl, **kw)
+    assert torch.equal(out, paged_attention_multiquery(qb, kp, vp, bt, cl,
+                                                       **kw))
+    torch.testing.assert_close(
+        out.float(), paged_attention_multiquery_ref(qb, kp, vp, bt, cl,
+                                                    **kw).float(),
+        rtol=0, atol=2e-2)
