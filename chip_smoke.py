@@ -10,20 +10,21 @@ Phases (any failure raises and the script exits non-zero):
    parallel) and the build time printed.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving engine gives it at Llama-3-8B width (H=32, KVH=8,
-   D=128, page 16), in bfloat16 and float32: K5 (paged attention) and K6
-   (its int8-page variant) at the decode and prefill-chunk shapes, K5 also
-   with a row whose context runs past its block table, K7 and K7q
-   (multi-query verify attention, bf16 and int8 pages: the split-K body)
-   at the verify shape and in ``MQ_CASES`` (split edges, context 0, 12 and
-   64 rows, head_dim 64), each run twice and bitwise the same (in bf16
-   also each row against its own largest reference magnitude).  Each is
-   then timed with CUDA events (L2 flushed before every launch) beside its
-   plain version, one PyTorch call that computes the same function, and
-   its bound.  K7 / K7q and their SDPA yardstick are also timed with the
-   card held in a spin before the start event (the device's span of the
-   call, without host issue), K7 / K7q by the profiler's device time of
-   their two launches and by the host's time per call, piece by piece;
-   their split blocks that pass the early exit are counted on the card.
+   D=128, page 16), in bfloat16 and float32; all four are one split-K
+   body: K5 (paged attention) and K6 (its int8-page variant) at the
+   decode and prefill-chunk shapes, K5 also with a row whose context runs
+   past its block table, K7 and K7q (multi-query verify attention, bf16
+   and int8 pages) at the verify shape and in ``MQ_CASES`` (split edges,
+   context 0, 12 and 64 rows, head_dim 64), and all four at head_dim 16,
+   80, 96 and 256 (``HEAD_DIM_CASES``); each case run twice and bitwise
+   the same (in bf16 also each row against its own largest reference
+   magnitude).  Each is then timed with CUDA events (L2 flushed before
+   every launch) beside its plain version, one PyTorch call that computes
+   the same function, and its bound; also with the card held in a spin
+   before the start event (the device's span of the call, without host
+   issue, beside SDPA's), by the profiler's device time of its two
+   launches and by the host's time per call, piece by piece; its split
+   blocks that pass the early exit are counted on the card.
    Then the flash-attention kernels of training,
    K1 (forward), K2 (dQ) and K3 (dK / dV), against their plain versions at
    the GPT-2 bench shape (B16 S1024 H12 D64, causal, bf16), the
@@ -41,10 +42,13 @@ Phases (any failure raises and the script exits non-zero):
    greedy requests on the card, each token checked against the dense
    reference, then again with int8 KV pages, with speculative decoding,
    with both (each token-identical to the plain engine of its KV dtype),
-   and with the model drafting for itself.  Then ``LLMEngine`` serves 8
+   and with the model drafting for itself, each launching its paged
+   kernels; at head_dim 128, 16 (``LlamaConfig.tiny()``) and 64
+   (``TINY_ENGINES``).  Then ``LLMEngine`` serves 8
    greedy requests at the full width of Llama-3-8B (random weights from a
    seeded generator on the card, 32 layers) through add_request / step /
-   stream: first in float32, then in bfloat16 (profiled afterwards), then
+   stream: first in float32, then in bfloat16 (profiled afterwards: a
+   decode window's device busy ms and K5's share), then
    in bfloat16 with speculative decoding (K5 + K7; the model drafts for
    itself; a window of its verify steps profiled afterwards: device busy
    ms and K7's share), then with int8 pages and speculative decoding (K6 +
@@ -77,8 +81,8 @@ Phases (any failure raises and the script exits non-zero):
    allocates (less than its bf16 weight); the pass timed beside its bound,
    the dequant formulation, F.linear on dequantized bf16 weights, and the
    library's int8 call where it runs on CUDA.
-6. the verify window's line, the ``kernels`` JSON line (all twelve
-   kernels, each launched on its path; K7 / K7q with their design and
+6. the decode and verify windows' lines, the ``kernels`` JSON line (all
+   twelve kernels, each launched on its path; K5-K7q with their design and
    split plan), the card line, and last the result line.
 """
 from __future__ import annotations
@@ -120,6 +124,11 @@ MQ_CASES = [
     ("R64", VERIFY_CTX, 16, (H, KVH, D)),
     ("D64", VERIFY_CTX, VERIFY_Q, (16, 4, 64)),
 ]
+# All four paged kernels at head dims beside the main path's 128, at its
+# heads (32 q, 8 kv) and contexts (decode for K5 / K6, verify for K7 /
+# K7q): 16 (LlamaConfig.tiny()), 80 and 96 (instantiated at 128 columns,
+# the pad zero-filled) and 256
+HEAD_DIM_CASES = (16, 80, 96, 256)
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 PROMPT_LENS = [17, 32, 64, 100, 255, 256, 400, 600]
 NEW_TOKENS = 32
@@ -378,45 +387,49 @@ KERNELS = {
     "paged_attention_multiquery_int8": (
         "K7q", "paddle_tpu/ops/pallas/paged_attention.py:201", True, True),
 }
-MQ_DESIGN = ("split-K over the token range (flash-decoding): blocks of "
-             "(split, kv head, sequence x 32 rows), a 3-stage cp.async ring "
-             "of 32-token K/V tiles, mma.sync m16n8k16 for q K^T and P V "
-             "(two warps a token group, each half of D), int8 dequantized "
-             "in registers; a second launch combines the splits in order")
-MQ_KERNELS = ("mq_split", "mq_combine")     # K7 / K7q's device kernels
+PAGED_DESIGN = ("split-K over the token range (flash-decoding): blocks of "
+                "(split, kv head, sequence x up to 32 rows), a 3-stage "
+                "cp.async ring of 32-token K/V tiles, mma.sync m16n8k16 for "
+                "q K^T and P V (one m16 tile of rows where R <= 16, as at "
+                "decode, two above; two warps a token group, each half of "
+                "D), int8 dequantized in registers; a second launch "
+                "combines the splits in order")
+# the device kernels of all four (their split and combine launches)
+SPLIT_KERNELS = ("paged_split", "paged_combine")
 
 
 def live_blocks(c, plan):
-    """K7 / K7q's split blocks that passed the early exit, counted on the
-    card: one call of the launcher on a workspace filled with NaN; every
-    block that runs writes (m, l) for the first row of its row group, and
-    the blocks that exit write nothing."""
-    from paddle_tpu_torch.ops.paged_attention import _launch_mq
+    """The split blocks that passed the early exit, counted on the card:
+    one call of the launcher on a workspace filled with NaN; every block
+    that runs writes (m, l) for the first row of its row group, and the
+    blocks that exit write nothing."""
+    from paddle_tpu_torch.ops.paged_attention import _launch
     q, kp, vp, tables, cl = c.args
     ws = torch.full((plan.workspace_floats,), float("nan"),
                     device=q.device)
-    _launch_mq(q, kp, vp, tables, cl, c.kw.get("k_scales"),
-               c.kw.get("v_scales"), None, workspace=ws)
+    _launch(q, kp, vp, tables, cl, c.kw.get("k_scales"),
+            c.kw.get("v_scales"), None, workspace=ws)
     B, KVH_ = len(c.ctx), kp.shape[2]
     ml = ws[B * KVH_ * plan.n_splits * plan.rows * q.shape[-1]:]
     m = ml.view(B, KVH_, plan.n_splits, plan.rows, 2)[..., ::32, 0]
     return int((~torch.isnan(m)).sum())
 
 
-def wrapper_host_us(c):
-    """Host microseconds of one ``paged_attention_multiquery`` call on the
-    card, and of its pieces, each timed alone over many calls: the checks
+def wrapper_host_us(c, kern):
+    """Host microseconds of one call of the wrapper ``kern`` on the card,
+    and of its pieces, each timed alone over many calls: the checks
     (``_check``), the cached plan, the two allocations (workspace and out),
     the ctypes call that makes both launches, and the whole wrapper."""
     from paddle_tpu_torch.ops import paged_attention as pa
     q, kp, vp, tables, cl = c.args
     ks, vs = c.kw.get("k_scales"), c.kw.get("v_scales")
-    B, Q, H_, D_ = q.shape
+    B, H_, D_ = q.shape[0], q.shape[-2], q.shape[-1]
+    Q = q.shape[1] if q.dim() == 4 else 1
     _, page, KVH_, _ = kp.shape
     S = tables.shape[1]
     dt, quant = pa._DTYPES[q.dtype], int(ks is not None)
-    plan = pa._mq_plan(B, Q, H_, KVH_, D_, page, S, dt, quant)
-    lib = pa._mq_kernel_lib()
+    plan = pa._plan(B, Q, H_, KVH_, D_, page, S)
+    lib = pa._kernel_lib()
     ws = torch.empty(plan.workspace_floats, device=q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -424,26 +437,26 @@ def wrapper_host_us(c):
             for t in (q, kp, vp, ks, vs, tables, cl, ws, out)]
 
     def launch():
-        lib.paged_attention_mq_fwd(*ptrs, B, Q, H_, KVH_, D_, page, S,
-                                   plan.split, plan.n_splits,
-                                   1.0 / D_ ** 0.5, dt, quant, stream)
+        lib.paged_attention_fwd(*ptrs, B, Q, H_, KVH_, D_, page, S,
+                                plan.split, plan.n_splits, 1.0 / D_ ** 0.5,
+                                dt, quant, stream)
     return {
         "check": Timer.host_us(lambda: pa._check(q, kp, vp, tables, cl, ks,
                                                  vs), 2000),
-        "plan": Timer.host_us(lambda: pa._mq_plan(B, Q, H_, KVH_, D_, page,
-                                                  S, dt, quant), 2000),
+        "plan": Timer.host_us(lambda: pa._plan(B, Q, H_, KVH_, D_, page,
+                                               S), 2000),
         "alloc": Timer.host_us(lambda: (
             torch.empty(plan.workspace_floats, device=q.device),
             torch.empty_like(q)), 2000),
         "ctypes_launch": Timer.host_us(launch),
-        "call": Timer.host_us(lambda: c.run(pa.paged_attention_multiquery)),
+        "call": Timer.host_us(lambda: c.run(kern)),
     }
 
 
 def kernel_phase(dev, timer):
     from paddle_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_multiquery,
-        paged_attention_multiquery_ref, paged_attention_ref)
+        paged_attention_multiquery_ref, paged_attention_ref, split_plan)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("kernels: float32 matmuls and convolutions run without TF32")
@@ -465,6 +478,10 @@ def kernel_phase(dev, timer):
               for tag, ctx, q_len, heads in MQ_CASES
               for name in ("paged_attention_multiquery",
                            "paged_attention_multiquery_int8")]
+    cases += [(name, f"D{d}", VERIFY_CTX if mq else DECODE_CTX, False,
+               VERIFY_Q if mq else None, (H, KVH, d))
+              for d in HEAD_DIM_CASES
+              for name, (_, _, _, mq) in KERNELS.items()]
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, case, ctx, shared, q_len, *heads in cases:
@@ -475,7 +492,7 @@ def kernel_phase(dev, timer):
             out = c.run(kern)
             # the split-K kernels combine in split order: run to run the
             # same bits
-            same = not q_len or torch.equal(out, c.run(kern))
+            same = torch.equal(out, c.run(kern))
             torch.cuda.synchronize()
             want = c.run(ref)
             diff = (out.float() - want.float()).abs()
@@ -491,11 +508,10 @@ def kernel_phase(dev, timer):
                   and row_err <= TOL[dtype] and same)
             h_, kvh_, d_ = c.heads
             print(f"{name} {case} {str(dtype)[6:]} B={len(ctx)}"
-                  f"{f' Q={q_len} H={h_} KVH={kvh_} D={d_}' if q_len else ''}"
-                  f" max_abs_err={err:.3e}"
+                  f"{f' Q={q_len}' if q_len else ''} H={h_} KVH={kvh_} "
+                  f"D={d_} max_abs_err={err:.3e}"
                   f"{f' max_row_rel_err={row_err:.3e}' if row_err else ''}"
-                  f" tol={TOL[dtype]:.0e}"
-                  f"{' deterministic' if q_len and same else ''} "
+                  f" tol={TOL[dtype]:.0e}{' deterministic' if same else ''} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             check(ok, f"{name} {case} {dtype}: error {err} (per row "
                   f"{row_err}) over {TOL[dtype]}"
@@ -527,8 +543,7 @@ def kernel_phase(dev, timer):
               f"{bound_ms:.4f} ms ({bound_by})", flush=True)
         line = {
             "name": name, "kernel": num, "route": "cuda",
-            "source": ("paddle_tpu_torch/csrc/paged_attention_mq.cu" if mq
-                       else "paddle_tpu_torch/csrc/paged_attention.cu"),
+            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
             "replaces": replaces,
             "launches": None,
             "max_abs_err": max(errs[(name, torch.bfloat16)]),
@@ -536,6 +551,8 @@ def kernel_phase(dev, timer):
             "tolerance": TOL[torch.bfloat16],
             "max_abs_err_f32": max(errs[(name, torch.float32)]),
             "tolerance_f32": TOL[torch.float32],
+            "head_dims_checked": sorted({D, 64, *HEAD_DIM_CASES}
+                                        if mq else {D, *HEAD_DIM_CASES}),
             "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
@@ -545,8 +562,7 @@ def kernel_phase(dev, timer):
                         + (", boolean mask per row" if mq else "")),
             "shape": shape,
         }
-        if mq:
-            later.append((line, c, kern, lib_fn))
+        later.append((line, c, kern, lib_fn))
         if not quant and not mq:
             # K5 at the prefill-chunk shape too: 32 rows share one table
             pre = Case(dtype, prefill_ctx, gen, dev, shared=True)
@@ -565,37 +581,34 @@ def kernel_phase(dev, timer):
                   f"{line['prefill_library_ms']:.4f} ms, bound "
                   f"{line['prefill_bound_ms']:.4f} ms", flush=True)
         lines.append(line)
-    # K7 / K7q's further readings, after every kernel's event time above:
-    # a profiler session or a host loop may leave the host slower for a
-    # while, and an event time taken then would count it
+    # further readings, after every kernel's event time above: a profiler
+    # session or a host loop may leave the host slower for a while, and an
+    # event time taken then would count it
     for line, c, kern, lib_fn in later:
-        num, q_len, ctx = line["kernel"], VERIFY_Q, VERIFY_CTX
-        # the redesigned body: its plan at this shape, the split blocks
-        # that passed the early exit (read back from the workspace), and
-        # three more readings of the kernel beside SDPA: the event time
-        # with the card held (the device's span of the call), the
-        # profiler's device time of its two launches, and the host's
-        # time per call, piece by piece
-        from paddle_tpu_torch.ops.paged_attention import split_plan
-        plan = split_plan(len(ctx), q_len, H, KVH, D, PAGE,
-                          TABLE_TOKENS // PAGE, context_lens=ctx)
+        # the plan at this shape, the split blocks that passed the early
+        # exit (read back from the workspace), and three more readings of
+        # the kernel beside SDPA: the event time with the card held (the
+        # device's span of the call), the profiler's device time of its two
+        # launches, and the host's time per call, piece by piece
+        plan = split_plan(len(c.ctx), c.q_len or 1, H, KVH, D, PAGE,
+                          TABLE_TOKENS // PAGE, context_lens=c.ctx)
         live = live_blocks(c, plan)
         check(live == plan.live_blocks,
-              f"{num}: {live} split blocks wrote the workspace, the plan "
-              f"has {plan.live_blocks}")
-        line["design"] = MQ_DESIGN
+              f"{line['kernel']}: {live} split blocks wrote the workspace, "
+              f"the plan has {plan.live_blocks}")
+        line["design"] = PAGED_DESIGN
         line["splits"] = {
             "split_tokens": plan.split, "n_splits": plan.n_splits,
-            "grid": list(plan.grid), "threads": plan.threads,
-            "live_blocks": live,
+            "rows": plan.rows, "grid": list(plan.grid),
+            "threads": plan.threads, "live_blocks": live,
             "workspace_bytes": 4 * plan.workspace_floats}
         line["held_ms"] = timer.held_ms(lambda: c.run(kern))
         line["library_held_ms"] = timer.held_ms(lib_fn)
-        line["host_us"] = wrapper_host_us(c)
+        line["host_us"] = wrapper_host_us(c, kern)
         line["library_host_us"] = timer.host_us(lib_fn)
     for line, c, kern, _ in later:         # the profiler last
         line["device_ms"] = timer.device_ms(lambda: c.run(kern),
-                                            MQ_KERNELS)
+                                            SPLIT_KERNELS)
         print(f"{line['name']} ({line['kernel']}): "
               f"{line['splits']['live_blocks']} split blocks passed the "
               f"early exit (measured; the plan's count) of grid "
@@ -926,7 +939,13 @@ def teacher_forced_check(model, prompt, out, gap, dev, kv_int8=False):
     return np.array([close, flips, past2]), max(short)
 
 
-def tiny_f32_engine(dev):
+# The tiny float32 engines: LlamaConfig.tiny() overrides (hidden, q heads,
+# kv heads, FFN) for head_dim 128, 16 (LlamaConfig.tiny() itself, the
+# engine tests' width) and 64
+TINY_ENGINES = ((256, 2, 1, 512), (64, 4, 2, 128), (256, 4, 2, 512))
+
+
+def tiny_f32_engine(dev, hidden=256, heads=2, kv_heads=1, ffn=512):
     """A 2-layer float32 Llama from seeded numpy weights, bridged through
     llama_from_numpy, served on the card and checked token by token; then
     the same requests with int8 pages, speculative decoding, both, and the
@@ -935,8 +954,10 @@ def tiny_f32_engine(dev):
     from paddle_tpu_torch.inference.serving import LLMEngine, SpecConfig
     from paddle_tpu_torch.models.convert import llama_from_numpy
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
-                           num_key_value_heads=1, intermediate_size=512)
+    cfg = LlamaConfig.tiny(hidden_size=hidden, num_attention_heads=heads,
+                           num_key_value_heads=kv_heads,
+                           intermediate_size=ffn)
+    d = hidden // heads
     rng = np.random.RandomState(SEED)
     state = {}
     shapes = _jax_shapes(LlamaForCausalLM(cfg, device="cpu"))
@@ -948,36 +969,46 @@ def tiny_f32_engine(dev):
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in (5, 16, 21)]
     prompts.append(np.asarray(pattern * 3))      # something to draft from
 
-    def serve(**kw):
+    def serve(kernels, **kw):
+        """Serve the prompts; check that the kernels named (and no other
+        paged kernel) launched on the card."""
         eng = LLMEngine(model, device=dev, max_batch=2, max_len=64,
                         page_size=8, prefill_chunk=8, **kw)
+        before = launch_counts()
         rids = [eng.add_request(p, max_new_tokens=8) for p in prompts]
         eng.run_until_done()
+        after = launch_counts()
+        ran = {k for k in ("K5", "K6", "K7", "K7q") if after[k] > before[k]}
+        check(ran == set(kernels), f"tiny f32 D={d} {kw}: launched "
+              f"{sorted(ran)}, expected {kernels}")
         return eng, rids, [list(eng.result(r)) for r in rids]
 
-    eng, rids, base = serve()
+    eng, rids, base = serve(["K5"])
     counts, worst = check_all(model, prompts, eng, rids, F32_GAP, dev)
-    print(f"engine tiny f32 (llama_from_numpy, D=128): {len(rids)} requests "
+    print(f"engine tiny f32 D={d} (llama_from_numpy, hidden {hidden}, "
+          f"{heads}q/{kv_heads}kv heads): {len(rids)} requests "
           f"token-checked: {describe(counts, worst, F32_GAP)}", flush=True)
-    eng, rids, base8 = serve(kv_cache_dtype="int8")
+    eng, rids, base8 = serve(["K6"], kv_cache_dtype="int8")
     counts, worst = check_all(model, prompts, eng, rids, F32_GAP, dev,
                               kv_int8=True)
-    print(f"engine tiny f32 int8 pages: {len(rids)} requests token-checked "
-          f"against the int8 dense reference: "
+    print(f"engine tiny f32 D={d} int8 pages: {len(rids)} requests "
+          f"token-checked against the int8 dense reference: "
           f"{describe(counts, worst, F32_GAP)}", flush=True)
-    for tag, kw, want in (
-            ("spec", dict(spec_decode=SpecConfig(max_draft=MAX_DRAFT)), base),
-            ("int8 + spec", dict(kv_cache_dtype="int8",
-                                 spec_decode=SpecConfig(max_draft=MAX_DRAFT)),
-             base8),
-            ("self-draft", dict(spec_decode=SpecConfig(
+    for tag, kernels, kw, want in (
+            ("spec", ["K5", "K7"],
+             dict(spec_decode=SpecConfig(max_draft=MAX_DRAFT)), base),
+            ("int8 + spec", ["K6", "K7q"],
+             dict(kv_cache_dtype="int8",
+                  spec_decode=SpecConfig(max_draft=MAX_DRAFT)), base8),
+            ("self-draft", ["K5", "K7"], dict(spec_decode=SpecConfig(
                 max_draft=3, draft_model=model)), base)):
-        eng, _, got = serve(**kw)
+        eng, _, got = serve(kernels, **kw)
         st = eng.spec_stats()
-        check(got == want, f"tiny f32 {tag}: tokens differ from the engine "
-              f"without speculation")
-        check(st["verify_dispatches"] > 0, f"tiny f32 {tag}: no verify step")
-        print(f"engine tiny f32 {tag}: token-identical to spec off; "
+        check(got == want, f"tiny f32 D={d} {tag}: tokens differ from the "
+              f"engine without speculation")
+        check(st["verify_dispatches"] > 0,
+              f"tiny f32 D={d} {tag}: no verify step")
+        print(f"engine tiny f32 D={d} {tag}: token-identical to spec off; "
               f"{st['proposed']} drafts proposed, acceptance "
               f"{st['acceptance_rate']:.3f}, {st['tokens_per_step']:.2f} "
               f"tokens per verify step", flush=True)
@@ -1162,7 +1193,7 @@ def serve_full_width(model, tag, gap, dev, profile=False, spec=False,
             eng._proposer.propose = propose
             window = profile_verify(eng, prompts, tag)
         else:
-            profile_engine(eng, prompts, tag)
+            window = profile_engine(eng, prompts, tag)
     res = {
         "ttft_p50_s": float(np.median(ttft)),
         "ttft_max_s": ttft[-1],
@@ -1186,7 +1217,7 @@ def serve_full_width(model, tag, gap, dev, profile=False, spec=False,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "argmax_flips": int(counts[1]),
         "worst_shortfall": worst,
-        "verify_window": window,
+        "window": window,
     }
     # the timing wrappers tie the engine into reference cycles: collect
     # them, or the next engine's peak memory counts this one's buffers
@@ -1232,13 +1263,23 @@ def profile_window(eng, tag, kind, n_steps, cpu=True):
 def profile_engine(eng, prompts, tag, n_steps=8):
     """Where a step's time goes: the prompts served again, with
     ``profile_window`` over their first ``n_steps`` prefill chunks and over
-    ``n_steps`` decode steps at full batch."""
+    ``n_steps`` decode steps at full batch.  Returns the decode window's
+    wall ms, device busy ms and K5 / K6's device ms (their split and
+    combine kernels: a decode step launches no other paged kernel)."""
     rids = [eng.add_request(p, max_new_tokens=2 * n_steps) for p in prompts]
     profile_window(eng, tag, "prefill", n_steps)
     while any(not eng._lookup(r).out for r in rids):   # until all decode
         eng.step()
-    profile_window(eng, tag, "decode", n_steps)
+    batch = sum(not eng.status(r).terminal for r in rids)
+    wall, busy, rows = profile_window(eng, tag, "decode", n_steps)
+    k5 = sum(ms for key, _, ms in rows
+             if any(m in key for m in SPLIT_KERNELS))
+    print(f"profile {tag} decode: K5 {k5:.3f} ms of device busy "
+          f"{busy:.1f} ms ({100 * k5 / busy:.2f}%)", flush=True)
+    check(k5 > 0, f"profile {tag}: the decode window ran no K5")
     eng.run_until_done()
+    return {"wall_ms": wall, "busy_ms": busy, "kernel_ms": k5,
+            "steps": n_steps, "batch": batch}
 
 
 def profile_verify(eng, prompts, tag, n_steps=2):
@@ -1249,8 +1290,9 @@ def profile_verify(eng, prompts, tag, n_steps=2):
     drafts with the model and verifies in one forward), tracing the device
     alone; the requests are left unfinished and go with the engine.
     Returns the window's wall ms, device busy ms, K7 / K7q's device ms
-    (their split and combine kernels), verify dispatches, the batch and
-    the seconds the whole re-serve took."""
+    (their split and combine kernels: the window's steps verify, and a
+    verify step launches no other paged kernel), verify dispatches, the
+    batch and the seconds the whole re-serve took."""
     t0 = time.perf_counter()
     tokens = 1 + n_steps * (MAX_DRAFT + 1)
     rids = [eng.add_request(p, max_new_tokens=tokens) for p in prompts]
@@ -1260,7 +1302,8 @@ def profile_verify(eng, prompts, tag, n_steps=2):
     v0 = eng.spec_dispatches
     wall, busy, rows = profile_window(eng, tag, "verify", n_steps,
                                       cpu=False)
-    k7 = sum(ms for key, _, ms in rows if any(m in key for m in MQ_KERNELS))
+    k7 = sum(ms for key, _, ms in rows
+             if any(m in key for m in SPLIT_KERNELS))
     verify = eng.spec_dispatches - v0
     secs = time.perf_counter() - t0
     print(f"profile {tag} verify: batch {batch}, the re-serve and its "
@@ -1268,7 +1311,7 @@ def profile_verify(eng, prompts, tag, n_steps=2):
     check(verify > 0 and k7 > 0,
           f"profile {tag}: the window ran {verify} verify dispatches and "
           f"{k7} ms of K7")
-    return {"wall_ms": wall, "busy_ms": busy, "k7_ms": k7,
+    return {"wall_ms": wall, "busy_ms": busy, "kernel_ms": k7,
             "verify_dispatches": verify, "steps": n_steps, "batch": batch,
             "cost_s": secs}
 
@@ -1292,11 +1335,13 @@ def engine_phase(dev, card):
     """The float32 checks first (tiny bridged model with every option, then
     full width, both held to the dense reference almost exactly); then the
     bfloat16 engines at full width on one model: the default path (K5,
-    profiled), speculative decoding (K5 + K7, a window of its verify steps
+    profiled: a decode window, device busy and K5's share), speculative
+    decoding (K5 + K7, a window of its verify steps
     profiled), and int8 pages with speculative decoding (K6 + K7q).
     Returns each kernel's launches on the run of its path, and the verify
     window."""
-    tiny_f32_engine(dev)
+    for kw in TINY_ENGINES:
+        tiny_f32_engine(dev, *kw)
     model = full_width_model(torch.float32, dev)
     engine_line("f32", serve_full_width(model, "f32", F32_GAP, dev), card)
     del model
@@ -1320,7 +1365,8 @@ def engine_phase(dev, card):
                 "K7": runs["bf16 spec"]["launches"]["K7"],
                 "K6": runs["bf16 int8 spec"]["launches"]["K6"],
                 "K7q": runs["bf16 int8 spec"]["launches"]["K7q"]}
-    return launches, runs["bf16 spec"]["verify_window"]
+    return launches, {"decode": runs["bf16"]["window"],
+                      "verify": runs["bf16 spec"]["window"]}
 
 
 # -------------------------------------------------------- phase 4: training
@@ -2050,7 +2096,7 @@ def main():
     mark("head dims")
     del timer
     torch.cuda.empty_cache()
-    launches, verify_window = engine_phase(dev, card)
+    launches, windows = engine_phase(dev, card)
     mark("engines")
     launches.update(training_phase(dev, card))
     mark("training")
@@ -2063,14 +2109,20 @@ def main():
         check(k["launches"] > 0, f"{k['kernel']} never launched on its path")
     check(sorted(k["kernel"] for k in kernels) == sorted(COUNTERS),
           f"the kernels line lists {[k['kernel'] for k in kernels]}")
-    w = verify_window
+    w = windows["decode"]
+    print(f"decode window (bf16 engine, Llama-3-8B width, batch "
+          f"{w['batch']}): {w['steps']} steps, wall {w['wall_ms']:.1f} ms "
+          f"(profiled), device busy {w['busy_ms']:.1f} ms, K5 "
+          f"{w['kernel_ms']:.3f} ms ({100 * w['kernel_ms'] / w['busy_ms']:.2f}"
+          f"% of busy), on {card}")
+    w = windows["verify"]
     print(f"verify window (bf16 spec engine, Llama-3-8B width, batch "
           f"{w['batch']}): "
           f"{w['steps']} steps, {w['verify_dispatches']} verify dispatches, "
           f"wall {w['wall_ms']:.1f} ms (profiled), device busy "
-          f"{w['busy_ms']:.1f} ms, K7 {w['k7_ms']:.3f} ms "
-          f"({100 * w['k7_ms'] / w['busy_ms']:.2f}% of busy); the re-serve "
-          f"and its window took {w['cost_s']:.1f} s, on {card}")
+          f"{w['busy_ms']:.1f} ms, K7 {w['kernel_ms']:.3f} ms "
+          f"({100 * w['kernel_ms'] / w['busy_ms']:.2f}% of busy); the "
+          f"re-serve and its window took {w['cost_s']:.1f} s, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     # one card: the run uses cuda:0 and nothing else

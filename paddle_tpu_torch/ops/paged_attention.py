@@ -1,16 +1,14 @@
 """Paged (block) KV-cache attention: the CUDA kernels' wrappers and their
 plain PyTorch twins.
 
-Counterpart of ``paddle_tpu/ops/pallas/paged_attention.py``.  Two CUDA
-sources (see the note in each for the design and what bounds it):
-
-- ``csrc/paged_attention.cu``, one body with two instantiations for the
-  single-query wrapper :func:`paged_attention`: K5 (``_kernel``, pages in
-  q's dtype) and K6 (``_kernel_q``, int8 pages and scales);
-- ``csrc/paged_attention_mq.cu``, the split-K body of
-  :func:`paged_attention_multiquery`: K7 (``_kernel_mq``) and K7q
-  (``_kernel_mq_q``, int8 pages and scales).  Each call makes two launches,
-  the splits and then their combine, planned by :func:`split_plan`.
+Counterpart of ``paddle_tpu/ops/pallas/paged_attention.py``.  One CUDA
+source, ``csrc/paged_attention.cu`` (see its note for the design and what
+bounds it), holds the split-K body of all four kernels: K5 (``_kernel``)
+and K6 (``_kernel_q``, int8 pages and scales) behind the single-query
+wrapper :func:`paged_attention`, K7 (``_kernel_mq``) and K7q
+(``_kernel_mq_q``) behind :func:`paged_attention_multiquery`.  Each call
+makes two launches, the splits and then their combine, planned by
+:func:`split_plan`.  Head dims: every multiple of 16 from 16 to 256.
 
 The device alone decides the path: on CPU tensors the wrappers compute
 their plain versions (:func:`paged_attention_ref`,
@@ -20,8 +18,8 @@ a plain int that counts the wrapper's calls that launched it and nothing
 else: ``paged_attention.launches`` (K5), ``paged_attention.launches_int8``
 (K6), ``paged_attention_multiquery.launches`` (K7) and
 ``paged_attention_multiquery.launches_int8`` (K7q).
-:func:`paged_attention_multiquery_split_ref` is a plain version of K7 /
-K7q's split-K numerics, for tests.
+:func:`paged_attention_multiquery_split_ref` is a plain version of the
+kernels' split-K numerics, for tests.
 
 :func:`quantize_kv` is the reference's per-(row, kv head) symmetric int8
 quantization, plain tensor code (the JAX package computes it outside any
@@ -46,12 +44,10 @@ __all__ = ["paged_attention", "paged_attention_ref",
 NEG_INF = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
-_SMEM_LIMIT = 232_448          # bytes of shared memory one block may use
-_SPLIT_TOKENS = 128            # the split-K kernels' target split length
+_HEAD_DIMS = tuple(range(16, 257, 16))   # every multiple of 16 to 256
+_SPLIT_TOKENS = 128            # the kernels' target split length
 _TILE = 32                     # tokens a stage of their ring holds
 _lib = None
-_mq_lib = None
 
 
 def _kernel_lib():
@@ -59,31 +55,13 @@ def _kernel_lib():
     if _lib is None:
         lib = _build.load("paged_attention")
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.paged_attention_fwd.argtypes = [vp] * 8 + [ci] * 7 + [cf, ci, ci,
-                                                                  vp]
+        lib.paged_attention_fwd.argtypes = ([vp] * 9 + [ci] * 9
+                                            + [cf, ci, ci, vp])
         lib.paged_attention_fwd.restype = ci
-        lib.paged_attention_smem_bytes.argtypes = [ci, ci, ci]
-        lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
         lib.paddle_cuda_error_string.argtypes = [ci]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
-
-
-def _mq_kernel_lib():
-    global _mq_lib
-    if _mq_lib is None:
-        lib = _build.load("paged_attention_mq")
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.paged_attention_mq_fwd.argtypes = ([vp] * 9 + [ci] * 9
-                                               + [cf, ci, ci, vp])
-        lib.paged_attention_mq_fwd.restype = ci
-        lib.paged_attention_mq_smem_bytes.argtypes = [ci, ci, ci]
-        lib.paged_attention_mq_smem_bytes.restype = ctypes.c_size_t
-        lib.paddle_cuda_error_string.argtypes = [ci]
-        lib.paddle_cuda_error_string.restype = ctypes.c_char_p
-        _mq_lib = lib
-    return _mq_lib
 
 
 SplitPlan = collections.namedtuple(
@@ -92,12 +70,14 @@ SplitPlan = collections.namedtuple(
 
 
 def split_plan(B, Q, H, KVH, D, page_size, S, context_lens=None):
-    """How :func:`paged_attention_multiquery` cuts a call on the card, from
-    the shapes alone (no device sync): ``split`` tokens a split, the
-    smallest multiple of the page size and of the 32-token ring tile that
-    is at least 128 tokens; ``n_splits`` = ceil(S * page / split) splits a
-    sequence; R = (H / KVH) * Q rows a (sequence, kv head), 32 a block of
-    128 threads, so ``row_groups`` blocks cover R; the split launch's
+    """How :func:`paged_attention` (Q = 1) and
+    :func:`paged_attention_multiquery` cut a call on the card, from the
+    shapes alone (no device sync): ``split`` tokens a split, the smallest
+    multiple of the page size and of the 32-token ring tile that is at
+    least 128 tokens; ``n_splits`` = ceil(S * page / split) splits a
+    sequence; R = (H / KVH) * Q rows a (sequence, kv head), at most 32 a
+    block of 128 threads (bf16: one m16 tile where R <= 16, two above), so
+    ``row_groups`` blocks cover R; the split launch's
     ``grid`` (n_splits, KVH, B * row_groups) and ``threads``; the f32
     workspace of the per-split (acc [R, D], m, l), ``workspace_floats``.
     With ``context_lens`` (host ints), ``live_blocks``: the blocks whose
@@ -174,7 +154,8 @@ def _check(q, k_pages, v_pages, block_tables, context_lens, k_scales=None,
                 raise ValueError(f"{name} shape {tuple(t.shape)} is not "
                                  f"[P, page, KVH] = {(P, page, KVH)}")
     if D not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
+        raise ValueError(f"head_dim {D}: the kernels take multiples of 16 "
+                         f"from 16 to 256")
     if H % KVH != 0:
         raise ValueError(f"q heads {H} not a multiple of kv heads {KVH}")
     if block_tables.shape[0] != B or tuple(context_lens.shape) != (B,):
@@ -186,13 +167,21 @@ def _check(q, k_pages, v_pages, block_tables, context_lens, k_scales=None,
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+# the engine repeats the same shapes every layer: plan each shape once
+_plan = functools.lru_cache(maxsize=64)(split_plan)
+
+
 def _launch(q, k_pages, v_pages, block_tables, context_lens, k_scales,
-            v_scales, scale):
-    """Check, then launch the kernel on q [B, Q, H, D]; returns out in q's
-    shape and dtype."""
+            v_scales, scale, workspace=None):
+    """Check, then launch the split kernel and its combine on q [B, H, D]
+    (K5 / K6: one query row a sequence) or [B, Q, H, D] (K7 / K7q);
+    returns out in q's shape and dtype.  The f32 workspace
+    (``split_plan(...).workspace_floats``) is allocated here unless given:
+    a caller that pre-fills it can read which split blocks wrote it."""
     _check(q, k_pages, v_pages, block_tables, context_lens, k_scales,
            v_scales)
-    B, Q, H, D = q.shape
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    Q = q.shape[1] if q.dim() == 4 else 1
     _, page_size, KVH, _ = k_pages.shape
     S = block_tables.shape[1]
     if scale is None:
@@ -200,55 +189,7 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, k_scales,
     quant = k_scales is not None
     lib = _kernel_lib()
     dt = _DTYPES[q.dtype]
-    smem = lib.paged_attention_smem_bytes((H // KVH) * Q, D, dt)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{H // KVH} q heads per kv head x {Q} query rows "
-                         f"need {smem} bytes of shared memory (limit "
-                         f"{_SMEM_LIMIT})")
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.paged_attention_fwd(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_scales.data_ptr() if quant else None,
-            v_scales.data_ptr() if quant else None,
-            block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            B, Q, H, KVH, D, page_size, S, float(scale), dt, int(quant),
-            stream)
-    if err:
-        raise RuntimeError("paged_attention kernel launch failed: "
-                           + lib.paddle_cuda_error_string(err).decode())
-    return out
-
-
-@functools.lru_cache(maxsize=64)
-def _mq_plan(B, Q, H, KVH, D, page_size, S, dt, quant):
-    """:func:`split_plan` for a call's shapes, after the shared-memory
-    check; cached, since the engine repeats the same shapes every layer."""
-    smem = _mq_kernel_lib().paged_attention_mq_smem_bytes(D, dt, quant)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"the split-K kernel at head_dim {D} needs {smem} "
-                         f"bytes of shared memory (limit {_SMEM_LIMIT})")
-    return split_plan(B, Q, H, KVH, D, page_size, S)
-
-
-def _launch_mq(q, k_pages, v_pages, block_tables, context_lens, k_scales,
-               v_scales, scale, workspace=None):
-    """Check, then launch K7 / K7q's split kernel and its combine on q
-    [B, Q, H, D]; returns out in q's shape and dtype.  The f32 workspace
-    (``split_plan(...).workspace_floats``) is allocated here unless given:
-    a caller that pre-fills it can read which split blocks wrote it."""
-    _check(q, k_pages, v_pages, block_tables, context_lens, k_scales,
-           v_scales)
-    B, Q, H, D = q.shape
-    _, page_size, KVH, _ = k_pages.shape
-    S = block_tables.shape[1]
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    quant = k_scales is not None
-    lib = _mq_kernel_lib()
-    dt = _DTYPES[q.dtype]
-    plan = _mq_plan(B, Q, H, KVH, D, page_size, S, dt, int(quant))
+    plan = _plan(B, Q, H, KVH, D, page_size, S)
     ws = workspace
     if ws is None:
         ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
@@ -260,7 +201,7 @@ def _launch_mq(q, k_pages, v_pages, block_tables, context_lens, k_scales,
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.paged_attention_mq_fwd(
+        err = lib.paged_attention_fwd(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scales.data_ptr() if quant else None,
             v_scales.data_ptr() if quant else None,
@@ -268,7 +209,7 @@ def _launch_mq(q, k_pages, v_pages, block_tables, context_lens, k_scales,
             out.data_ptr(), B, Q, H, KVH, D, page_size, S,
             plan.split, plan.n_splits, float(scale), dt, int(quant), stream)
     if err:
-        raise RuntimeError("paged_attention_multiquery kernel launch failed: "
+        raise RuntimeError("paged attention kernel launch failed: "
                            + lib.paddle_cuda_error_string(err).decode())
     return out
 
@@ -291,8 +232,10 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     returns            [B, H, D] in q's dtype
 
     CPU tensors take :func:`paged_attention_ref`; CUDA tensors launch K5
-    (pages in q's dtype) or K6 (int8 pages) — float32 or bfloat16 q, head_dim
-    64 or 128, any page size, any H % KVH == 0 — or raise."""
+    (pages in q's dtype) or K6 (int8 pages) — float32 or bfloat16 q, any
+    head_dim % 16 == 0 from 16 to 256, any page size, any H % KVH == 0 —
+    split over the token range (:func:`split_plan`), or raise.  The
+    counters count calls: one a call, for its two launches."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    context_lens, k_scales=k_scales,
@@ -301,8 +244,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     if q.dim() != 3:
         raise ValueError(f"paged_attention takes q [B, H, D], got "
                          f"{tuple(q.shape)}")
-    out = _launch(q[:, None], k_pages, v_pages, block_tables, context_lens,
-                  k_scales, v_scales, scale)[:, 0]
+    out = _launch(q, k_pages, v_pages, block_tables, context_lens, k_scales,
+                  v_scales, scale)
     if k_scales is None:
         paged_attention.launches += 1
     else:
@@ -332,8 +275,8 @@ def paged_attention_multiquery(q, k_pages, v_pages, block_tables,
 
     CPU tensors take :func:`paged_attention_multiquery_ref`; CUDA tensors
     launch K7 (pages in q's dtype) or K7q (int8 pages) — float32 or
-    bfloat16 q, head_dim 64 or 128, any page size, any H % KVH == 0 and
-    any Q — which read q in place and stream each page once for all Q
+    bfloat16 q, any head_dim % 16 == 0 from 16 to 256, any page size, any
+    H % KVH == 0 and any Q — which read q in place and stream each page once for all Q
     rows, split over the token range (:func:`split_plan`), or raise.  The
     counters count calls: one a call, for its two launches."""
     if q.device.type == "cpu":
@@ -344,8 +287,8 @@ def paged_attention_multiquery(q, k_pages, v_pages, block_tables,
     if q.dim() != 4:
         raise ValueError(f"paged_attention_multiquery takes q [B, Q, H, D], "
                          f"got {tuple(q.shape)}")
-    out = _launch_mq(q, k_pages, v_pages, block_tables, context_lens,
-                     k_scales, v_scales, scale)
+    out = _launch(q, k_pages, v_pages, block_tables, context_lens, k_scales,
+                  v_scales, scale)
     if k_scales is None:
         paged_attention_multiquery.launches += 1
     else:
@@ -373,8 +316,9 @@ def paged_attention_multiquery_ref(q, k_pages, v_pages, block_tables,
                                    v_scales=None, scale=None):
     """Plain PyTorch version of the multi-query kernels (dense gather, f32
     scores, per-row causal horizon ctx + j, NEG_INF mask, softmax, cast back
-    to q's dtype) — the golden K7 / K7q are held against, and the path CPU
-    tensors take.  Int8 pages dequantize in float32, as the reference's jnp
+    to q's dtype) — the golden K7 / K7q (and, through
+    :func:`paged_attention_ref`, K5 / K6) are held against, and the path
+    CPU tensors take.  Int8 pages dequantize in float32, as the reference's jnp
     version does (the kernels round to q's dtype first, as the TPU kernels
     do).  Out-of-range table entries are clamped, as JAX's gather clamps
     them, and V at positions no row sees is zeroed, so what pages past the
@@ -407,7 +351,8 @@ def paged_attention_multiquery_split_ref(q, k_pages, v_pages, block_tables,
                                          context_lens, *, split_tokens=None,
                                          k_scales=None, v_scales=None,
                                          scale=None):
-    """Plain version of K7 / K7q's split-K numerics, for tests: the table's
+    """Plain version of the kernels' split-K numerics (K5 / K6 at Q = 1),
+    for tests: the table's
     S * page tokens cut into splits of ``split_tokens`` (None: one split);
     per split and row, f32 scores over the split's visible tokens, m = their
     max (NEG_INF if none), P = exp(s - m) rounded to the working dtype, l =

@@ -133,3 +133,58 @@ def test_stream_matches_result(models):
     eng.run_until_done()
     assert streamed == list(eng.result(rids[0]))
     assert all(eng.ttft(r) is not None for r in rids)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the paged kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+# engine knobs of the card runs: the default path (K5), int8 pages (K6),
+# speculative decoding with n-gram drafts (K5 + K7), and both (K6 + K7q)
+CARD_KNOBS = {"default": {}, "int8": dict(kv_cache_dtype="int8"),
+              "spec": dict(spec=True),
+              "int8_spec": dict(kv_cache_dtype="int8", spec=True)}
+
+
+def _tiny_pair(head_dim):
+    """``LlamaConfig.tiny()`` (head_dim 16) or its head_dim-64 variant
+    (hidden 256), from the JAX model's seeded weights, on the CPU and on
+    the card."""
+    kw = {} if head_dim == 16 else dict(hidden_size=256,
+                                        intermediate_size=512)
+    pt.seed(0)
+    jm = JaxLlama(JaxConfig.tiny(**kw))
+    jm.eval()
+    state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
+    cfg = LlamaConfig.tiny(**kw)
+    assert cfg.hidden_size // cfg.num_attention_heads == head_dim
+    return (llama_from_numpy(state, cfg, device="cpu"),
+            llama_from_numpy(state, cfg, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", sorted(CARD_KNOBS))
+@pytest.mark.parametrize("head_dim", [16, 64])
+def test_cuda_engine_tokens_match_cpu_engine(cuda_device, head_dim, knobs):
+    """On the card, ``LlamaConfig.tiny()`` (head_dim 16) and a head_dim-64
+    tiny model serve through the paged kernels (K5 / K6, and K7 / K7q when
+    drafts are verified), greedy tokens identical to the same engine on the
+    CPU (float32, TF32 off)."""
+    from paddle_tpu_torch.inference.serving import SpecConfig
+    from paddle_tpu_torch.ops.paged_attention import paged_attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_model, card_model = _tiny_pair(head_dim)
+    prompts = _prompts(13, (5, 16, 21))
+    prompts.append(np.asarray(list(prompts[0][:4]) * 4, np.int32))
+    kw = dict(CARD_KNOBS[knobs])
+    if kw.pop("spec", False):
+        kw["spec_decode"] = SpecConfig(max_draft=4)
+    kw.update(max_batch=2, max_len=64, page_size=8, prefill_chunk=8)
+    before = paged_attention.launches + paged_attention.launches_int8
+    got = _serve(LLMEngine(card_model, device=cuda_device, **kw), prompts, 8)
+    assert paged_attention.launches + paged_attention.launches_int8 > before
+    want = _serve(LLMEngine(cpu_model, device="cpu", **kw), prompts, 8)
+    assert got == want

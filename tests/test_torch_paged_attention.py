@@ -18,16 +18,20 @@ from paddle_tpu_torch.ops.paged_attention import (paged_attention,
 
 B, H, KVH, D, PAGE, S, P = 4, 8, 2, 128, 16, 4, 33
 TRASH = P - 1
+# the engine's head_dim 128 and 64, and the edges of what the kernels take:
+# 16 (LlamaConfig.tiny()), 80 (a half of D that is not whole 16-deep k
+# steps) and 256
+HEAD_DIMS = (16, 64, 80, 128, 256)
 # the context lengths of the reference's page-boundary test, plus a row
 # pointed at the trash page with ctx 1 (an inactive engine slot)
 LENS = ([1, 16, 17, 1], [15, 32, 48, 1], [64, 64, 64, 1])
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, d=D):
     rng = np.random.RandomState(seed)
-    q = rng.randn(B, H, D).astype(np.float32)
-    kp = rng.randn(P, PAGE, KVH, D).astype(np.float32)
-    vp = rng.randn(P, PAGE, KVH, D).astype(np.float32)
+    q = rng.randn(B, H, d).astype(np.float32)
+    kp = rng.randn(P, PAGE, KVH, d).astype(np.float32)
+    vp = rng.randn(P, PAGE, KVH, d).astype(np.float32)
     bt = rng.choice(P - 1, (B, S), replace=False).astype(np.int32)
     bt[-1] = TRASH
     return q, kp, vp, bt
@@ -42,8 +46,12 @@ def _jax(fn, dtype, q, kp, vp, bt, cl):
 @pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
                                         ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("lens", LENS, ids=lambda l: "-".join(map(str, l)))
-def test_plain_version_matches_jax_kernel_and_reference(dtype, atol, lens):
-    q, kp, vp, bt = _inputs()
+@pytest.mark.parametrize("head_dim", HEAD_DIMS, ids=lambda d: f"d{d}")
+def test_plain_version_matches_jax_kernel_and_reference(head_dim, dtype,
+                                                        atol, lens):
+    """K5's plain version against the JAX kernel ``_kernel`` (interpret
+    mode) and its jnp reference, at every head_dim of HEAD_DIMS."""
+    q, kp, vp, bt = _inputs(d=head_dim)
     cl = np.asarray(lens, np.int32)
     tdt = getattr(torch, dtype)
     before = paged_attention.launches
@@ -52,7 +60,7 @@ def test_plain_version_matches_jax_kernel_and_reference(dtype, atol, lens):
                           torch.from_numpy(vp).to(tdt),
                           torch.from_numpy(bt), torch.from_numpy(cl))
     assert paged_attention.launches == before    # CPU never launches
-    assert out.dtype == tdt and tuple(out.shape) == (B, H, D)
+    assert out.dtype == tdt and tuple(out.shape) == (B, H, head_dim)
     got = out.float().numpy()
     assert np.isfinite(got).all()
     jdt = getattr(jnp, dtype)
@@ -93,16 +101,17 @@ def test_scale_defaults_to_inverse_sqrt_head_dim():
                                ref, atol=2e-5)
 
 
-def _bad_inputs(case):
-    q, kp, vp, bt = (torch.from_numpy(a) for a in _inputs(4))
+def _bad_inputs(case, head_dim=D):
+    if case == "head_dim_272":             # past 256
+        head_dim = 272
+    q, kp, vp, bt = (torch.from_numpy(a) for a in _inputs(4, head_dim))
     cl = torch.tensor([5, 20, 33, 1], dtype=torch.int32)
     if case == "float16":
         q, kp, vp = q.half(), kp.half(), vp.half()
     elif case == "mixed_dtypes":
         kp = kp.bfloat16()
-    elif case == "head_dim_96":
-        q, kp, vp = q[..., :96], kp[..., :96].contiguous(), vp[..., :96]
-        q, vp = q.contiguous(), vp.contiguous()
+    elif case == "head_dim_72":            # not a multiple of 16
+        q, kp, vp = (t[..., :72].contiguous() for t in (q, kp, vp))
     elif case == "heads_not_a_multiple":
         q = q[:, :7].contiguous()
     elif case == "int64_tables":
@@ -116,7 +125,8 @@ def _bad_inputs(case):
 
 @pytest.mark.parametrize("case,err", [
     ("float16", TypeError), ("mixed_dtypes", TypeError),
-    ("head_dim_96", ValueError), ("heads_not_a_multiple", ValueError),
+    ("head_dim_72", ValueError), ("head_dim_272", ValueError),
+    ("heads_not_a_multiple", ValueError),
     ("int64_tables", TypeError), ("strided_q", ValueError),
     ("batch_mismatch", ValueError)])
 def test_kernel_input_checks_raise(case, err):
@@ -128,6 +138,14 @@ def test_kernel_input_checks_raise(case, err):
         _check(*_bad_inputs(case))
 
 
+@pytest.mark.parametrize("head_dim", range(16, 257, 16))
+def test_kernel_input_checks_take_every_head_dim_to_256(head_dim):
+    """Every multiple of 16 from 16 to 256 passes the checks (and so
+    reaches the launcher on CUDA tensors)."""
+    from paddle_tpu_torch.ops.paged_attention import _check
+    _check(*_bad_inputs("none", head_dim))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -136,11 +154,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version(cuda_device):
+@pytest.mark.parametrize("head_dim", HEAD_DIMS, ids=lambda d: f"d{d}")
+def test_cuda_kernel_matches_plain_version(cuda_device, head_dim):
     """On the card, the kernel against its plain version at the engine's
-    GQA shape (float32, TF32 off)."""
+    GQA shape (float32, TF32 off, 2e-5), and in bf16 (2e-2), bitwise the
+    same on a second run, at every head_dim of HEAD_DIMS."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    q, kp, vp, bt = _inputs(3)
+    q, kp, vp, bt = _inputs(3, head_dim)
     cl = torch.tensor([1, 16, 17, 64], dtype=torch.int32)
     t = [torch.from_numpy(a).to(cuda_device) for a in (q, kp, vp, bt)]
     before = paged_attention.launches
@@ -149,3 +169,9 @@ def test_cuda_kernel_matches_plain_version(cuda_device):
     assert paged_attention.launches == before + 1
     ref = paged_attention_ref(*t, cl.to(cuda_device))
     torch.testing.assert_close(out, ref, rtol=0, atol=2e-5)
+    t[:3] = [x.bfloat16() for x in t[:3]]
+    out = paged_attention(*t, cl.to(cuda_device))
+    assert torch.equal(out, paged_attention(*t, cl.to(cuda_device)))
+    torch.testing.assert_close(
+        out.float(), paged_attention_ref(*t, cl.to(cuda_device)).float(),
+        rtol=0, atol=2e-2)

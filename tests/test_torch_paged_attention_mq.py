@@ -24,18 +24,25 @@ from paddle_tpu_torch.ops.paged_attention import (
     paged_attention_ref, quantize_kv, split_plan)
 
 # (B, P, page, KVH, H, D, S, Q, row-0 contexts): the reference's multi-query
-# test shape, and the engine's head_dim 128 at a max_draft=4 verify width
-# with one row whose last position runs past the table (60 + 7 > 4 * 16)
+# test shape (head_dim 16), the engine's head_dim 128 at a max_draft=4
+# verify width with one row whose last position runs past the table (60 + 7
+# > 4 * 16), and head_dim 64, 80 (a half of D that is not whole 16-deep k
+# steps) and 256
 SHAPES = {
     "reference": (2, 9, 8, 2, 4, 16, 4, 3, (13, 22)),
     "d128_q8": (3, 13, 16, 2, 8, 128, 4, 8, (1, 40, 60)),
+    "d64": (2, 13, 16, 2, 8, 64, 4, 4, (9, 50)),
+    "d80": (2, 13, 16, 2, 8, 80, 4, 4, (30, 60)),
+    "d256": (2, 13, 16, 2, 4, 256, 4, 3, (5, 61)),
 }
 # The split-K cases (page 8, S * page = 64 tokens): ctx0, contexts of 0 (row
 # 0 sees nothing); split_edge, horizons ctx + j ending on 8- and 16-token
 # split edges (13 + 3, 16 + 0, 29 + 3); unseen_split, a sequence whose
 # splits past the first no row sees (2 + 3 = 5 tokens); capped, rows past
 # the table (62 + 3 > 64); int8, int8 pages; gq12 and gq64, G Q = 12 rows
-# (not a multiple of 16) and 64; d128, the engine's head_dim.
+# (not a multiple of 16) and 64; d128, the engine's head_dim; q1_*, one
+# query row a sequence (K5 / K6's numerics) at head_dim 16, 80 and 256, and
+# with int8 pages at 80.
 SPLIT_SHAPES = {
     "ctx0": (3, 25, 8, 2, 4, 16, 8, 4, (0, 5, 0)),
     "split_edge": (3, 25, 8, 2, 4, 16, 8, 4, (13, 16, 29)),
@@ -45,6 +52,10 @@ SPLIT_SHAPES = {
     "gq12": (2, 17, 8, 2, 8, 16, 8, 3, (21, 50)),
     "gq64": (2, 17, 8, 2, 16, 16, 8, 8, (21, 50)),
     "d128": (2, 17, 8, 2, 8, 128, 8, 8, (7, 49)),
+    "q1_d16": (3, 25, 8, 2, 4, 16, 8, 1, (1, 40, 64)),
+    "q1_d80": (2, 17, 8, 2, 8, 80, 8, 1, (7, 49)),
+    "q1_d256": (2, 17, 8, 2, 4, 256, 8, 1, (30, 64)),
+    "q1_int8_d80": (3, 25, 8, 2, 4, 80, 8, 1, (13, 40, 57)),
 }
 SPLITS = {"one_page": 8, "two_pages": 16, "one_split": None}
 TOLS = {"float32": (2e-5, 2e-3), "bfloat16": (2e-2, 2e-2)}
@@ -270,16 +281,21 @@ def test_int8_and_multiquery_input_checks_raise(case, err):
 
 @functools.lru_cache(maxsize=None)
 def _split_case(shape, dtype):
-    """Inputs of a split-K case (int8 pages for "int8"), with the JAX
-    kernel's output in interpret mode and the plain twin's, computed once
-    for every split size."""
+    """Inputs of a split-K case (int8 pages where the name says so), with
+    the JAX kernel's output in interpret mode (at one query row the
+    single-query kernel's, ``_kernel`` / ``_kernel_q``) and the plain
+    twin's, computed once for every split size."""
     q, kp, vp, bt, cl = _inputs(shape, seed=5)
     scales = None
-    if shape == "int8":
+    if "int8" in shape:
         kp, vp, ks, vs = _quant(kp, vp)
         scales = (ks, vs)
     args = (q, kp, vp, bt, cl)
-    want = _jax(jpa.paged_attention_multiquery, dtype, *args, scales)
+    if q.shape[1] == 1:
+        want = _jax(jpa.paged_attention, dtype, np.ascontiguousarray(q[:, 0]),
+                    *args[1:], scales)[:, None]
+    else:
+        want = _jax(jpa.paged_attention_multiquery, dtype, *args, scales)
     twin = _torch(paged_attention_multiquery_ref, dtype, *args, scales)
     return args, scales, want, twin
 
@@ -288,10 +304,10 @@ def _split_case(shape, dtype):
 @pytest.mark.parametrize("dtype", sorted(TOLS))
 @pytest.mark.parametrize("shape", sorted(SPLIT_SHAPES))
 def test_split_ref_matches_jax_kernel_and_twin(shape, dtype, split):
-    """K7 / K7q's split-K numerics (per-split m, l, acc in f32, combined in
-    split order) at splits of one page, two pages and one split: against
-    the JAX kernel in interpret mode and the plain twin, at the file's
-    tolerances.  A split no row sees (unseen_split, ctx0, capped) leaves
+    """The kernels' split-K numerics (per-split m, l, acc in f32, combined
+    in split order; K5 / K6 at one query row, K7 / K7q at several) at
+    splits of one page, two pages and one split: against the JAX kernel in
+    interpret mode and the plain twin, at the file's tolerances.  A split no row sees (unseen_split, ctx0, capped) leaves
     the rows unchanged."""
     args, scales, want, twin = _split_case(shape, dtype)
     tol_ref, tol_kernel = TOLS[dtype]
@@ -312,6 +328,10 @@ def test_split_ref_matches_jax_kernel_and_twin(shape, dtype, split):
 
 
 @pytest.mark.parametrize("page,ctx,Q,H,KVH,want", [
+    # the decode shape of chip_smoke.py (K5 / K6): 34 live splits x 8 kv
+    # heads, 4 rows
+    (16, (1, 16, 17, 600, 1024, 300, 1000, 800), 1, 32, 8,
+     dict(split=128, n_splits=8, rows=4, row_groups=1, live_blocks=272)),
     # the verify shape of chip_smoke.py: 34 live splits x 8 kv heads
     (16, (1, 17, 600, 1020, 300, 1000, 64, 800), 8, 32, 8,
      dict(split=128, n_splits=8, rows=32, row_groups=1, live_blocks=272)),
@@ -349,13 +369,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["d128_q8"] + sorted(SPLIT_SHAPES))
+@pytest.mark.parametrize("shape", sorted(SHAPES) + sorted(SPLIT_SHAPES))
 @pytest.mark.parametrize("quant", [False, True])
 def test_cuda_multiquery_kernels_match_plain_version(cuda_device, quant,
                                                      shape):
-    """On the card, K7 / K7q and K6 against their plain versions at the
-    d128_q8 shape and the split-K cases (float32, TF32 off); K7 / K7q also
-    in bf16 (2e-2), and bitwise the same on a second run."""
+    """On the card, K7 / K7q and K5 / K6 against their plain versions at
+    every shape of this file (head_dim 16 to 256; float32, TF32 off); K7 /
+    K7q also in bf16 (2e-2), and bitwise the same on a second run."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, kp, vp, bt, cl = (torch.from_numpy(a).to(cuda_device)
                          for a in _inputs(shape))
