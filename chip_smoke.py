@@ -25,16 +25,24 @@ Phases (any failure raises and the script exits non-zero):
    issue, beside SDPA's), by the profiler's device time of its two
    launches and by the host's time per call, piece by piece; its split
    blocks that pass the early exit are counted on the card.
-   Then the flash-attention kernels of training,
-   K1 (forward), K2 (dQ) and K3 (dK / dV), against their plain versions at
+   Then the flash-attention kernels of training: first the bf16
+   forward's tile plan at head_dim 64-256 as the card's library compiled
+   it, held to the one ``ops/flash_attention.py`` records (no spills, no
+   setmaxnreg ignored; each body's ptxas report printed); then K1
+   (forward), K2 (dQ) and K3 (dK / dV) against their plain versions at
    the GPT-2 bench shape (B16 S1024 H12 D64, causal, bf16), the
    Llama-shaped one (B8 S1024 H16 KVH4 D128, GQA), head_dim 192, 256 and
-   512, a non-causal case and six float32 cases (TF32 off); and K4, the
-   layout-direct bodies of the ``FLAGS_flash_layout_direct`` path, against
-   theirs at GPT-2's shape, MHA at head_dim 256 and 512, a non-causal case
-   and three float32 cases.  Each is then timed at the GPT-2, head_dim-256
-   and head_dim-512 shapes (K1-K3 also at the Llama one) beside its plain
-   version, SDPA's forward / backward and its bound.  head_dim 320, 384 and
+   512, a non-causal case, S 128 and 384, Sk != Sq, GQA 8:1, q / k / v as
+   views of one fused projection, and six float32 cases (TF32 off); and
+   K4, the layout-direct bodies of the ``FLAGS_flash_layout_direct``
+   path, against theirs at GPT-2's shape, MHA at head_dim 128, 192, 256
+   and 512, a non-causal case, S 128 and 384, fused views and three
+   float32 cases; every case run twice and bitwise the same.  Each is
+   then timed at the GPT-2, head_dim-256 and head_dim-512 shapes (K1-K3
+   also at the Llama one) beside its plain version, SDPA's forward /
+   backward and its bound: ``ms``, ``held_ms``, profiler device time,
+   host microseconds a call, TFLOP/s and share of the bound, SDPA's on
+   the same readings.  head_dim 320, 384 and
    512 run forward and backward through ``flash_attention_bshd`` on the
    card (K1-K3, and K4 with the flag), one launch each, held to the plain
    versions; 576 is refused before any launch.
@@ -68,7 +76,9 @@ Phases (any failure raises and the script exits non-zero):
    model with the reference's dense attention) and timed steps on one
    repeated batch, with K1 = layers x forwards and K2 = K3 = layers x
    backwards, the loss falling; step ms, tokens/s, MFU, peak memory and a
-   profiled step's device time are printed.  Between the two, the same
+   profiled step's device time are printed, with each flash kernel's
+   launches as the profiler counts them beside its launch counter's.
+   Between the two, the same
    GPT-2 from the same seed trains with ``FLAGS_flash_layout_direct`` set
    (K4's path), its first step held to the default path's, with K4's three
    bodies launched layers x steps times each and K1-K3 never.
@@ -258,9 +268,10 @@ class Timer:
         torch.cuda.synchronize()
         return dt / n * 1e6
 
-    def device_ms(self, fn, match, n=20):
+    def device_ms(self, fn, match=None, n=20, exclude=()):
         """Device time per call of fn's kernels whose names contain one of
-        ``match`` (torch.profiler, L2 flushed before each call)."""
+        ``match`` (every kernel where it is None) and none of ``exclude``
+        (torch.profiler, L2 flushed before each call)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -272,7 +283,8 @@ class Timer:
             torch.cuda.synchronize()
         return sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
-                   and any(m in e.key for m in match)) / 1e3 / n
+                   and (match is None or any(m in e.key for m in match))
+                   and not any(x in e.key for x in exclude)) / 1e3 / n
 
 
 # --------------------------------------------------------- phase 2: kernels
@@ -635,9 +647,13 @@ FLASH_KERNELS = [
 ]
 ROLE_KERNEL = {(role, direct): kern
                for _, kern, role, direct, _ in FLASH_KERNELS}
-# (tag, B, S, H, KVH, D, causal, dtype): K1-K3 at the two training shapes,
-# head_dim 192, 256 and 512 (the column-chunked bodies), one non-causal
-# case, and float32 (TF32 off)
+# (tag, B, S, H, KVH, D, causal, dtype[, options]): K1-K3 at the two
+# training shapes, head_dim 192, 256 and 512 (the column-chunked bodies),
+# one non-causal case, and float32 (TF32 off).  For the forward's ring and
+# tensor maps (D <= 256 in bf16): S 128 (one q tile, one diagonal k tile),
+# S 384 (three q tiles), Sk != Sq without the mask, GQA 8:1 and q, k and v
+# as views of one [B, S, 3, H, D] projection (row stride 3 H D).  Options:
+# Sk (keys, when not S), fused (the views).
 FLASH_CASES = [
     ("gpt2", 16, 1024, 12, 12, 64, True, torch.bfloat16),
     ("llama", 8, 1024, 16, 4, 128, True, torch.bfloat16),
@@ -645,6 +661,12 @@ FLASH_CASES = [
     ("d256", 4, 1024, 8, 4, 256, True, torch.bfloat16),
     ("d512", 4, 1024, 8, 4, 512, True, torch.bfloat16),
     ("non-causal", 4, 512, 12, 4, 64, False, torch.bfloat16),
+    ("s128", 4, 128, 12, 12, 64, True, torch.bfloat16),
+    ("s384", 2, 384, 8, 4, 128, True, torch.bfloat16),
+    ("sk768", 2, 256, 8, 4, 64, False, torch.bfloat16, {"Sk": 768}),
+    ("gqa8", 2, 1024, 32, 4, 128, True, torch.bfloat16),
+    ("fused-qkv", 4, 512, 12, 12, 64, True, torch.bfloat16,
+     {"fused": True}),
     ("f32 mha", 1, 256, 2, 2, 128, True, torch.float32),
     ("f32 gqa", 1, 256, 4, 1, 64, True, torch.float32),
     ("f32 d192", 1, 256, 2, 2, 192, True, torch.float32),
@@ -652,18 +674,38 @@ FLASH_CASES = [
     ("f32 d320", 1, 256, 4, 2, 320, True, torch.float32),
     ("f32 d512", 1, 256, 2, 2, 512, False, torch.float32),
 ]
-# K4 (MHA only): GPT-2's shape, head_dim 256 and 512, non-causal, float32
+# K4 (MHA only): GPT-2's shape, head_dim 128, 192, 256 and 512,
+# non-causal, S 128 and 384, fused-qkv views, float32
 K4_CASES = [
     ("gpt2", 16, 1024, 12, 12, 64, True, torch.bfloat16),
+    ("d128", 4, 1024, 8, 8, 128, True, torch.bfloat16),
+    ("d192", 4, 1024, 8, 8, 192, True, torch.bfloat16),
     ("d256", 4, 1024, 8, 8, 256, True, torch.bfloat16),
     ("d512", 4, 1024, 8, 8, 512, True, torch.bfloat16),
     ("non-causal", 4, 512, 12, 12, 64, False, torch.bfloat16),
+    ("s128", 4, 128, 12, 12, 256, True, torch.bfloat16),
+    ("s384", 2, 384, 8, 8, 192, True, torch.bfloat16),
+    ("fused-qkv", 4, 512, 12, 12, 64, True, torch.bfloat16,
+     {"fused": True}),
     ("f32 d64", 1, 256, 2, 2, 64, True, torch.float32),
     ("f32 d256", 1, 256, 2, 2, 256, True, torch.float32),
     ("f32 d512", 1, 256, 2, 2, 512, True, torch.float32),
 ]
 FLASH_TIMED = {False: ("gpt2", "llama", "d256", "d512"),
                True: ("gpt2", "d256", "d512")}
+# the device kernels of each role's bodies (every width and both paths)
+FLASH_BODIES = {"fwd": ("fwd_bf16",), "dq": ("dq_bf16",),
+                "dkv": ("dkv_bf16",)}
+FWD_DESIGN = ("up to head_dim 256 in bf16: a persistent grid (one block of "
+              "384 threads an SM) over 128-row q tiles, head by head, in "
+              "snake rounds; one producer thread's TMA ring of K / V tiles "
+              "(4-D tensor maps over the tensors' own strides, 128-byte "
+              "swizzle) under full / empty mbarriers; two consumer "
+              "warpgroups of 64 rows: wgmma S = q K^T (both from shared "
+              "memory) and O += P V (P from registers, V MN-major), the "
+              "softmax of tile j under P V of tile j - 1, the two "
+              "warpgroups ping-ponging their products; setmaxnreg 232 / 40. "
+              "Above 256: the mma.sync body")
 # forward (o and lse, absolute) and gradient tolerances, those of
 # tests/test_pallas_kernels.py: float32 absolute; bf16 gradients at 2e-2 of
 # the largest reference magnitude (they scale with the inputs)
@@ -684,19 +726,32 @@ def layout_direct(on):
 
 
 class FlashCase:
-    """One attention problem: q / dO [B, S, H, D], k / v [B, S, KVH, D],
-    standard-normal from the seeded generator; ``direct`` for K4's
-    bodies and twins (the layout-direct path) instead of K1-K3's."""
+    """One attention problem: q / dO [B, S, H, D], k / v [B, Sk, KVH, D]
+    (Sk = S unless given), standard-normal from the seeded generator; with
+    ``fused``, q, k and v are views of one [B, S, 3, H, D] tensor (KVH =
+    H); ``direct`` for K4's bodies and twins (the layout-direct path)
+    instead of K1-K3's."""
 
     def __init__(self, tag, B, S, H, KVH_, D_, causal, dtype, gen, dev,
-                 direct=False):
+                 direct=False, Sk=None, fused=False):
         self.tag, self.causal, self.dtype = tag, causal, dtype
-        self.direct = direct
+        self.direct, self.fused = direct, fused
+        Sk = Sk or S
         self.shape = (B, S, H, KVH_, D_)
-        self.q, self.do = (torch.randn(B, S, H, D_, generator=gen,
-                                       device=dev).to(dtype) for _ in "qd")
-        self.k, self.v = (torch.randn(B, S, KVH_, D_, generator=gen,
-                                      device=dev).to(dtype) for _ in "kv")
+        self.Sk = Sk
+        self.qkv = None
+        if fused:
+            self.qkv = torch.randn(B, S, 3, H, D_, generator=gen,
+                                   device=dev).to(dtype)
+            self.q, self.k, self.v = self.qkv.unbind(2)
+        else:
+            self.q = torch.randn(B, S, H, D_, generator=gen,
+                                 device=dev).to(dtype)
+            self.k, self.v = (torch.randn(B, Sk, KVH_, D_, generator=gen,
+                                          device=dev).to(dtype)
+                              for _ in "kv")
+        self.do = torch.randn(B, S, H, D_, generator=gen,
+                              device=dev).to(dtype)
         self.scale = D_ ** -0.5
 
     def refs(self):
@@ -706,34 +761,56 @@ class FlashCase:
 
     def describe(self):
         B, S, H, KVH_, D_ = self.shape
-        return (f"{self.tag} {str(self.dtype)[6:]} B={B} S={S} H={H} "
-                f"KVH={KVH_} D={D_} causal={self.causal}")
+        views = " (q, k, v: views of one [B, S, 3, H, D])"
+        return (f"{self.tag} {str(self.dtype)[6:]} B={B} S={S}"
+                f"{f' Sk={self.Sk}' if self.Sk != S else ''} H={H} "
+                f"KVH={KVH_} D={D_} causal={self.causal}"
+                f"{views if self.fused else ''}")
+
+    def _run(self):
+        """One forward and backward through ``flash_attention_bshd`` (the
+        flag set for K4): o, the three gradients, the LSE of a direct
+        forward launch and the launches each kernel made."""
+        from paddle_tpu_torch.ops import flash_attention as fa
+        if self.fused:
+            leaf = self.qkv.clone().requires_grad_()
+            ins = leaf.unbind(2)
+        else:
+            ins = [t.clone().requires_grad_() for t in (self.q, self.k,
+                                                        self.v)]
+        with layout_direct(self.direct):
+            before = launch_counts()
+            o = fa.flash_attention_bshd(*ins, causal=self.causal)
+            o.backward(self.do)
+            after = launch_counts()
+        grads = leaf.grad.unbind(2) if self.fused else [x.grad for x in ins]
+        _, lse = fa._launch_fwd(self.q, self.k, self.v, self.causal,
+                                self.scale, self.direct)
+        torch.cuda.synchronize()
+        return (o, lse, grads,
+                {n: after[n] - before[n] for n in FLASH_COUNTERS})
 
     def check(self):
         """Kernels against their plain versions, the forward's through
         ``flash_attention_bshd`` and its autograd (with the flag set for
-        K4, which must then launch K4's bodies and no others); returns the
-        errors of o (and the LSE), dq and dk / dv by kernel, gradients
-        relative to the largest reference magnitude in bf16."""
-        from paddle_tpu_torch.ops import flash_attention as fa
+        K4, which must then launch K4's bodies and no others), run twice
+        and bitwise the same; returns the errors of o (and the LSE), dq and
+        dk / dv by kernel, gradients relative to the largest reference
+        magnitude in bf16."""
         q, k, v, do = self.q, self.k, self.v, self.do
         fwd_ref, bwd_ref = self.refs()
         o_ref, lse_ref = fwd_ref(q, k, v, self.causal)
         g_ref = bwd_ref(q, k, v, o_ref, lse_ref, do, self.causal)
-        _, lse = fa._launch_fwd(q, k, v, self.causal, self.scale, self.direct)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        with layout_direct(self.direct):
-            before = launch_counts()
-            o = fa.flash_attention_bshd(*leaves, causal=self.causal)
-            o.backward(do)
-            after = launch_counts()
-        torch.cuda.synchronize()
-        ran = {n: after[n] - before[n] for n in FLASH_COUNTERS}
+        o, lse, grads, ran = self._run()
+        o2, lse2, grads2, _ = self._run()
+        same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
         kern = {role: ROLE_KERNEL[(role, self.direct)]
                 for role in ("fwd", "dq", "dkv")}
         check(ran == {n: int(n in kern.values()) for n in FLASH_COUNTERS},
               f"flash {self.describe()}: launched {ran}, expected one each "
               f"of {sorted(kern.values())}")
+        check(same, f"flash {self.describe()}: two runs differ")
         f_tol, g_tol = FLASH_TOL[self.dtype]
 
         def err(a, b, grad):
@@ -743,47 +820,55 @@ class FlashCase:
             return e
         errs = {kern["fwd"]: max(err(o, o_ref, False),
                                  err(lse, lse_ref, False)),
-                kern["dq"]: err(leaves[0].grad, g_ref[0], True),
-                kern["dkv"]: max(err(leaves[1].grad, g_ref[1], True),
-                                 err(leaves[2].grad, g_ref[2], True))}
+                kern["dq"]: err(grads[0], g_ref[0], True),
+                kern["dkv"]: max(err(grads[1], g_ref[1], True),
+                                 err(grads[2], g_ref[2], True))}
         finite = all(bool(torch.isfinite(t).all())
-                     for t in [o, lse] + [x.grad for x in leaves])
+                     for t in [o, lse, *grads])
         for name, e in errs.items():
             fwd = name == kern["fwd"]
             tol = f_tol if fwd else g_tol
             ok = finite and e <= tol
             print(f"flash {name} {self.describe()}: err {e:.3e}"
                   f"{' (of max)' if not fwd and self.dtype == torch.bfloat16 else ''} "
-                  f"tol {tol:.0e} {'ok' if ok else 'FAIL'}", flush=True)
-            check(ok, f"flash {name} {self.describe()}: error {e} over {tol}")
+                  f"tol {tol:.0e}, run twice: bitwise equal "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"flash {self.describe()}: {name} error {e} over {tol}")
         return errs
 
-    def bound(self, role):
-        """Least time (ms) and what sets it: the bytes of each input read
-        once and each output written once over the memory rate, or the
-        flops of the causal (or full) score pairs over the peak for the
-        type; the larger of the two.  fwd: q k^T and P V (4 D flops a
-        pair); dq: q k^T, dO v^T, dS k (6 D); dkv: q k^T, dO v^T, P^T dO,
-        dS^T q (8 D).  The dq body writes delta, the dkv body reads it
-        instead of o (K4 as K2 / K3)."""
+    def work(self, role):
+        """(flops, bytes) of a role: the flops of the causal (or full)
+        score pairs, fwd: q k^T and P V (4 D a pair); dq: q k^T, dO v^T,
+        dS k (6 D); dkv: q k^T, dO v^T, P^T dO, dS^T q (8 D); the bytes of
+        each input read once and each output written once (the dq body
+        writes delta, the dkv body reads it instead of o; K4 as K2 /
+        K3)."""
         B, S, H, KVH_, D_ = self.shape
         el = self.q.element_size()
-        pairs = B * H * (S * (S + 1) // 2 if self.causal else S * S)
-        qb, kvb, rowb = B * S * H * D_ * el, B * S * KVH_ * D_ * el, B * H * S * 4
-        flops, nbytes = {
-            "fwd": (4 * D_ * pairs, 2 * qb + 2 * kvb + rowb),
-            "dq": (6 * D_ * pairs, 4 * qb + 2 * kvb + 2 * rowb),
-            "dkv": (8 * D_ * pairs, 2 * qb + 4 * kvb + 2 * rowb)}[role]
+        pairs = B * H * (S * (S + 1) // 2 if self.causal else S * self.Sk)
+        qb, kvb = B * S * H * D_ * el, B * self.Sk * KVH_ * D_ * el
+        rowb = B * H * S * 4
+        return {"fwd": (4 * D_ * pairs, 2 * qb + 2 * kvb + rowb),
+                "dq": (6 * D_ * pairs, 4 * qb + 2 * kvb + 2 * rowb),
+                "dkv": (8 * D_ * pairs, 2 * qb + 4 * kvb + 2 * rowb)}[role]
+
+    def bound(self, role):
+        """Least time (ms) and what sets it: the bytes over the memory
+        rate, or the flops over the peak for the type; the larger."""
+        flops, nbytes = self.work(role)
         peak = BF16_FLOPS if self.dtype == torch.bfloat16 else F32_FLOPS
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                            else "operations")
 
     def times(self, timer):
-        """Device ms of each kernel (by role), the plain forward and
-        backward, and SDPA's forward and backward (the library yardstick,
-        never called by the port), after checking SDPA agrees with the
-        forward kernel."""
+        """Each kernel (by role), the plain forward and backward, and
+        SDPA's forward and backward (the library yardstick, never called by
+        the port), after checking SDPA agrees with the forward kernel:
+        ``ms`` (events after an L2 flush) of all; then for the kernels and
+        SDPA ``held_ms`` (the card held, so the device's span), the
+        profiler's device time (``device_ms``) and the host's microseconds
+        a call (``host_us``), after every event time."""
         from paddle_tpu_torch.ops import flash_attention as fa
         q, k, v, do, c, s, d = (self.q, self.k, self.v, self.do, self.causal,
                                 self.scale, self.direct)
@@ -802,60 +887,151 @@ class FlashCase:
         check(lib_err.item() <= FLASH_TOL[self.dtype][0],
               f"flash {self.tag}: SDPA disagrees with the forward kernel by "
               f"{lib_err.item()}")
-        return {
-            "fwd": timer.ms(lambda: fa._launch_fwd(q, k, v, c, s, d)),
-            "dq": timer.ms(lambda: fa._launch_dq(q, k, v, o, lse, do, c, s,
-                                                 d)),
-            "dkv": timer.ms(lambda: fa._launch_dkv(q, k, v, o, lse, do, delta,
-                                                   c, s, d)),
-            "plain_fwd": timer.ms(lambda: fwd_ref(q, k, v, c), n=5),
-            "plain_bwd": timer.ms(lambda: bwd_ref(q, k, v, o, lse, do, c),
-                                  n=5),
-            "library_fwd": timer.ms(sdpa),
-            "library_bwd": timer.ms(lambda: torch.autograd.grad(
-                lib_o, (qt, kt, vt), dot, retain_graph=True)),
+        fns = {
+            "fwd": lambda: fa._launch_fwd(q, k, v, c, s, d),
+            "dq": lambda: fa._launch_dq(q, k, v, o, lse, do, c, s, d),
+            "dkv": lambda: fa._launch_dkv(q, k, v, o, lse, do, delta, c, s,
+                                          d),
+            "library_fwd": sdpa,
+            "library_bwd": lambda: torch.autograd.grad(
+                lib_o, (qt, kt, vt), dot, retain_graph=True),
         }
+        t = {name: timer.ms(fn) for name, fn in fns.items()}
+        t["plain_fwd"] = timer.ms(lambda: fwd_ref(q, k, v, c), n=5)
+        t["plain_bwd"] = timer.ms(lambda: bwd_ref(q, k, v, o, lse, do, c),
+                                  n=5)
+        for name, fn in fns.items():
+            t[f"{name}_held"] = timer.held_ms(fn)
+            t[f"{name}_host_us"] = timer.host_us(fn)
+        for name, fn in fns.items():        # the profiler last
+            t[f"{name}_device"] = timer.device_ms(
+                fn, FLASH_BODIES.get(name), exclude=("FillFunctor",))
+        return t
+
+
+def _ptxas_bodies(log, name):
+    """{(D, direct): (registers, spill line)} of the kernel ``name`` from
+    nvcc's -Xptxas -v report."""
+    import re
+    out, lines = {}, log.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(rf"Compiling entry function '\S*{name}ILi(\d+)ELb(\d)E",
+                      line)
+        if not m:
+            continue
+        regs = spill = None
+        for nxt in lines[i + 1:i + 8]:
+            if "Compiling entry function" in nxt:
+                break
+            spill = spill or (nxt.strip() if "spill" in nxt else None)
+            r = re.search(r"Used (\d+) registers", nxt)
+            regs = regs or (int(r.group(1)) if r else None)
+        out[(int(m.group(1)), bool(int(m.group(2))))] = (regs, spill)
+    return out
+
+
+def fwd_plan_check():
+    """The bf16 forward's tile plan at every head_dim it takes, as the
+    card's library compiled it (``flash_fwd_plan``), against the one
+    ``ops/flash_attention.py`` records; no local memory (spills), and no
+    setmaxnreg ignored by ptxas.  Prints each body's ptxas report; returns
+    the plan at GPT-2's head_dim 64."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    log = _build.LOGS.get("flash_attention", "")
+    if log:
+        check("C7508" not in log and "setmaxnreg ignored" not in log,
+              "ptxas ignored setmaxnreg in flash_attention.cu")
+    ptxas = _ptxas_bodies(log, "fwd_bf16_sm90")
+    plans = {}
+    for D in sorted(fa.FWD_PLAN):
+        want = fa.fwd_plan(D)
+        check(want["smem"] <= fa.SMEM_PER_BLOCK,
+              f"the forward's plan at D={D} takes {want['smem']} bytes")
+        for direct in (False, True):
+            got = fa.compiled_fwd_plan(D, direct)
+            check(all(got[k] == v for k, v in want.items()),
+                  f"forward plan D={D} direct={direct}: compiled {got}, "
+                  f"recorded {want}")
+            check(got["local_bytes"] == 0,
+                  f"forward D={D} direct={direct} uses {got['local_bytes']} "
+                  f"bytes of local memory (spills)")
+            regs, spill = ptxas.get((D, direct), (None, None))
+            report = (f"registers {regs}, {spill}" if spill else
+                      "no report" if log else
+                      "not in this process (library from the build cache)")
+            print(f"flash forward fwd_bf16_sm90<{D}, {str(direct).lower()}> "
+                  f"({'K4-fwd' if direct else 'K1'}): BQ {got['bq']} x BK "
+                  f"{got['bk']}, {got['stages']} stages, {got['threads']} "
+                  f"threads, dynamic shared memory {got['smem']} of "
+                  f"{fa.SMEM_PER_BLOCK} bytes, static {got['static_smem']}; "
+                  f"registers {got['registers']} a thread at entry "
+                  f"(setmaxnreg: consumers 232, producer 40), local "
+                  f"{got['local_bytes']} bytes; ptxas: {report}", flush=True)
+            plans[(D, direct)] = got
+    return plans[(64, False)]
 
 
 def flash_kernel_phase(dev, timer):
-    """K1-K3 against their plain versions in every case of FLASH_CASES and
-    K4 in every case of K4_CASES, then timed at the FLASH_TIMED shapes.
-    Returns the six kernels' lines (launches filled in by the training
-    phase)."""
+    """The forward's plan, then K1-K3 against their plain versions in every
+    case of FLASH_CASES and K4 in every case of K4_CASES, then timed at the
+    FLASH_TIMED shapes.  Returns the six kernels' lines (launches filled in
+    by the training phase)."""
+    plan = fwd_plan_check()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs, timed = {}, {}
     for direct, cases in ((False, FLASH_CASES), (True, K4_CASES)):
         for case in cases:
-            c = FlashCase(*case, gen, dev, direct=direct)
+            c = FlashCase(*case[:8], gen, dev, direct=direct,
+                          **(case[8] if len(case) > 8 else {}))
             for kern, e in c.check().items():
                 errs.setdefault((kern, c.dtype), []).append(e)
             if c.tag in FLASH_TIMED[direct]:
-                timed[(direct, c.tag)] = (c.shape, c.bound, c.times(timer))
-            del c
+                timed[(direct, c.tag)] = (c, c.times(timer))
+            else:
+                del c
             torch.cuda.empty_cache()
     lines = []
     for name, kern, role, direct, replaces in FLASH_KERNELS:
         row = {}
-        for tag in FLASH_TIMED[direct]:
-            shape, bound, t = timed[(direct, tag)]
-            fwd = role == "fwd"
-            plain = t["plain_fwd" if fwd else "plain_bwd"]
-            lib = t["library_fwd" if fwd else "library_bwd"]
-            bound_ms, bound_by = bound(role)
-            row[tag] = dict(ms=t[role], plain_ms=plain, library_ms=lib,
-                            bound_ms=bound_ms, bound_by=bound_by)
-            B, S, H, KVH_, D_ = shape
-            print(f"{name} ({kern}) {tag} bf16 B={B} S={S} H={H} KVH={KVH_} "
-                  f"D={D_} causal: kernel {t[role]:.4f} ms, plain {plain:.4f} "
-                  f"ms{'' if fwd else ' (dq + dk/dv together)'}, "
-                  f"library {lib:.4f} ms "
-                  f"({'SDPA forward' if fwd else 'SDPA backward, dq + dk/dv together'}), "
-                  f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-        g = row.pop("gpt2")
         fwd = role == "fwd"
+        lib = "library_fwd" if fwd else "library_bwd"
+        for tag in FLASH_TIMED[direct]:
+            c, t = timed[(direct, tag)]
+            bound_ms, bound_by = c.bound(role)
+            flops = c.work(role)[0]
+            r = dict(ms=t[role], held_ms=t[f"{role}_held"],
+                     device_ms=t[f"{role}_device"],
+                     host_us=t[f"{role}_host_us"],
+                     tflops=flops / t[f"{role}_held"] / 1e9,
+                     bound_share=bound_ms / t[f"{role}_held"],
+                     plain_ms=t["plain_fwd" if fwd else "plain_bwd"],
+                     library_ms=t[lib], library_held_ms=t[f"{lib}_held"],
+                     library_device_ms=t[f"{lib}_device"],
+                     library_host_us=t[f"{lib}_host_us"],
+                     bound_ms=bound_ms, bound_by=bound_by)
+            if fwd:
+                r["library_tflops"] = flops / t[f"{lib}_held"] / 1e9
+            row[tag] = r
+            B, S, H, KVH_, D_ = c.shape
+            print(f"{name} ({kern}) {tag} bf16 B={B} S={S} H={H} KVH={KVH_} "
+                  f"D={D_} causal: kernel {r['ms']:.4f} ms, held "
+                  f"{r['held_ms']:.4f}, device {r['device_ms']:.4f} "
+                  f"(profiler), host {r['host_us']:.2f} us a call, "
+                  f"{r['tflops']:.1f} TFLOP/s (held), "
+                  f"{100 * r['bound_share']:.1f}% of the bound "
+                  f"{bound_ms:.4f} ms ({bound_by}); plain "
+                  f"{r['plain_ms']:.4f} ms{'' if fwd else ' (dq + dk/dv together)'}; "
+                  f"{'SDPA forward' if fwd else 'SDPA backward (dq, dk, dv together)'} "
+                  f"{r['library_ms']:.4f} ms, held {r['library_held_ms']:.4f}"
+                  f", device {r['library_device_ms']:.4f}, host "
+                  f"{r['library_host_us']:.2f} us"
+                  + (f", {r['library_tflops']:.1f} TFLOP/s" if fwd else ""),
+                  flush=True)
+        g = row.pop("gpt2")
         plain = ("bshd_fwd_ref" if direct else "flash_fwd_ref") if fwd else (
             f"{'bshd' if direct else 'flash'}_bwd_ref (dq, dk, dv together)")
-        lines.append({
+        line = {
             "name": name, "kernel": kern, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces, "launches": None,
@@ -866,15 +1042,26 @@ def flash_kernel_phase(dev, timer):
             "error_of": ("o and lse, absolute" if fwd else
                          "gradients; bf16 relative to the largest reference "
                          "magnitude, f32 absolute"),
-            "ms": g["ms"], "plain_ms": g["plain_ms"],
-            "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
-            "library_ms": g["library_ms"],
+            **g,
             "library": ("SDPA forward" if fwd else
                         "SDPA backward (dq, dk, dv together)"),
             "plain": plain,
             "shape": "GPT-2 bench: bf16 B=16 S=1024 H=12 D=64 causal",
+            "readings": ("ms: events after an L2 flush; held_ms: the same "
+                         "with the card held in a spin first (the device's "
+                         "span); device_ms: profiler kernel time (SDPA: every "
+                         "kernel but the flush's fill); host_us: host time a "
+                         "call; tflops and bound_share from held_ms"),
             **row,
-        })
+        }
+        if fwd:
+            line["design"] = FWD_DESIGN
+            line["plan"] = {k: plan[k] for k in ("bq", "bk", "stages",
+                                                 "smem", "threads",
+                                                 "registers")}
+        lines.append(line)
+    timed.clear()
+    torch.cuda.empty_cache()
     return lines
 
 
@@ -1561,27 +1748,44 @@ def profile_step(model, opt, x, y, tag, kernels=("K1", "K2", "K3")):
     """One more step under torch.profiler: the device's busy share (kernel
     time over the profiled wall) and the kernels that take the most device
     time, with the flash kernels' share (``kernels``: the forward, dq and
-    dk / dv bodies the path runs)."""
+    dk / dv bodies the path runs) and each one's launches as the profiler
+    counts them beside its launch counter's.  The window opens with a
+    small kernel, synchronised, before the step: CUPTI may miss launches
+    at the very start of a session, and this puts any it misses outside the
+    step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    warm = torch.zeros(1, device=x.device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        warm += 1
+        torch.cuda.synchronize()
+        before = launch_counts()
         t0 = time.perf_counter()
         train_step(model, opt, x, y)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy = sum(ms for _, _, ms in rows)
+    pats = dict(zip(kernels, ("fwd_bf16", "dq_bf16", "dkv_bf16")))
     share = {k: sum(ms for key, _, ms in rows if pat in key)
-             for k, pat in zip(kernels, ("fwd_bf16", "dq_bf16", "dkv_bf16"))}
+             for k, pat in pats.items()}
+    counted = {k: sum(n for key, n, _ in rows if pat in key)
+               for k, pat in pats.items()}
     pct = (lambda ms: 100 * ms / busy) if busy else (lambda ms: 0.0)
     print(f"profile train {tag}: 1 step in {wall:.1f} ms (profiled), device "
           f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%); "
           + ", ".join(f"{k} {ms:.2f} ms ({pct(ms):.1f}%)"
                       for k, ms in share.items()), flush=True)
+    print(f"profile train {tag}: launches by the profiler / by the launch "
+          f"counters: "
+          + ", ".join(f"{k} {counted[k]} / {after[k] - before[k]}"
+                      f"{'' if counted[k] == after[k] - before[k] else ' (differ)'}"
+                      for k in kernels), flush=True)
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:12]:
         print(f"profile train {tag}:   {ms:9.3f} ms {pct(ms):5.1f}%  "
               f"x{count:<5d} {key[:90]}")

@@ -50,8 +50,43 @@
 // K2 computes delta for its q tile (as _dq_kernel does) and also stores it,
 // [B * H, Sq] f32, so K3 reads it instead of reading O again.
 //
-// bf16 runs on the tensor cores: mma.sync m16n8k16 (bf16 x bf16 -> f32),
-// each warp owning 16 rows (K1, K2: queries; K3: keys).  The products whose
+// The bf16 forward up to D = 256 (K1 and K4-fwd: fwd_bf16_sm90) is built
+// for Hopper.  A persistent grid, one block of 384 threads an SM, walks
+// the (b * H + h, 128-row q tile) items: two consumer warpgroups of 64 q
+// rows each and one producer warpgroup, of which one thread issues every
+// load.  The producer copies an item's q tile and its K / V tiles into a
+// ring of STAGES stages with TMA (4-D tensor maps over [B, S, H, D] with
+// the tensors' own strides, so fused-qkv views and GQA K / V are read in
+// place; each D-wide tile is D / 64 boxes of 64 columns, 128-byte
+// swizzled), each stage guarded by full barriers (K, V: the bytes landed)
+// and an empty one (all 256 consumer threads are done with it); the next
+// item's q lands once both warpgroups have issued their last q K^T, and
+// its K / V as stages free, so one item's tail overlaps the next one's
+// loads.  Each consumer computes S = q K^T with wgmma m64nBKk16 (both
+// operands K-major in shared memory) and O += P V with wgmma m64nDk16, P
+// from registers (the accumulator layout of S is the A layout of the next
+// product) and V read MN-major (the transpose bit), so nothing is
+// transposed.  Each tile's softmax overlaps the P V product of the tile
+// before (S_j and P_(j-1) V_(j-1) issued together, the scores awaited
+// first), and the two warpgroups take turns to issue their products (named
+// barriers), so one's softmax runs under the other's wgmma.  setmaxnreg
+// gives the consumers 232 registers (O is D / 2 f32 a thread), the
+// producer 40.  K1 scales its q rows in place in shared memory once they
+// land (q * scale * log2 e rounded to bf16, the TPU's rounding), then
+// fences the async proxy before the first wgmma.  Causal: k tiles above
+// the diagonal are never loaded and only tiles that cross the diagonal
+// are masked.  Items go head by head, each head's heaviest q tile first
+// (a head's K / V stays in L2 while its q tiles run), in rounds of one
+// item a block, every other round walked backwards, which balances the
+// blocks' causal work as well as a heaviest-first order does.
+// Tiles (BQ x BK, stages): D 64 and 128: 128 x 128, 3; D 192: 128 x 64, 3;
+// D 256: 128 x 64, 2 (at most 197,760 of 232,448 bytes of shared memory;
+// 230,528 at D 128).  Every barrier wait is bounded: a wait of more than
+// 2^32 clocks traps, so a phase bug is a launch error, not a hang.
+//
+// The other bf16 bodies run on the tensor cores with mma.sync m16n8k16
+// (bf16 x bf16 -> f32), each warp owning 16 rows (the forward above D =
+// 256 and K2: queries; K3: keys).  The products whose
 // A operand is a score tile (P V, dS K, P^T dO, dS^T q) take it straight
 // from the accumulator registers of the product before (the m16n8 C layout
 // of two n-blocks is the m16k16 A layout), so the score tiles never touch
@@ -59,7 +94,7 @@
 // rows are padded by 16 bytes so every fragment load is free of bank
 // conflicts.  Fixed Hopper tiles (no autotune), four warps a block except
 // K3 above D = 128:
-//   K1: 64 q rows x 64 keys (x 32 keys above D = 192);
+//   K1 above D = 256: 64 q rows x 32 keys;
 //   K2: 64 q rows x 64 keys (D = 64) or x 32 keys (D >= 128);
 //   K3: 64 keys x 64 q rows (D = 64), x 32 q rows (D 128 - 256) or x 16
 //       q rows (above 256).
@@ -97,15 +132,15 @@
 // O(S D) bytes.  At GPT-2's D = 64 and S = 1024, K1 and K2 sit just under
 // the card's ~295 flop/byte bf16 ridge (bound by bytes, about 0.03 and
 // 0.05 ms); K3, and all three at D >= 128, sit above it (bound by the 989
-// TFLOP/s of the tensor cores).  Either way the bound is about a tenth of
-// what these kernels take: how fast synchronous loads feed mma.sync sets
-// their time, not the card's limits.  What this simple design
-// leaves on the table: mma.sync reaches a fraction of what wgmma does;
-// tiles are loaded synchronously (no cp.async / TMA ring overlapping the
-// next tile with the current product); causal blocks do unequal work (the
-// last q tile walks S / 64 k tiles, the first one), with no balancing or
-// persistent scheduling; and K3 reloads each q tile and recomputes P and
-// dP, as K2 does.
+// TFLOP/s of the tensor cores).  The mma.sync bodies take about ten times
+// their bound: how fast synchronous loads feed mma.sync sets their time,
+// not the card's limits.  What they leave on the table, and the forward
+// up to D = 256 takes back: mma.sync reaches a fraction of what wgmma
+// does; tiles are loaded synchronously (no ring overlapping the next tile
+// with the current product); causal blocks do unequal work (the last q
+// tile walks S / 64 k tiles, the first one), with no balancing.  K3 also
+// reloads each q tile and recomputes P and dP, as K2 does.
+#include <cuda.h>            // CUtensorMap and its enums (no -lcuda)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -253,22 +288,668 @@ __device__ __forceinline__ void load_tile(bf16* t, const bf16* src,
   }
 }
 
+// ---------------------------------------- bf16 forward on Hopper, D <= 256
+// (fwd_bf16_sm90: K1 and K4-fwd; the design is in the note at the top.)
+template <int D>
+struct Sm90Fwd {
+  static constexpr int BQ = 128;               // two consumer warpgroups
+  static constexpr int BK = D <= 128 ? 128 : 64;
+  static constexpr int STAGES = D == 256 ? 2 : 3;
+  static constexpr int kThreads = 384;         // and one producer warpgroup
+  static constexpr int kPanels = D / 64;       // 64-column, 128-byte boxes
+  static constexpr uint32_t QBYTES = BQ * D * 2, TBYTES = BK * D * 2;
+  // 1024 bytes to align the base (the swizzle repeats every 8 rows of 128
+  // bytes), the q tile, STAGES x (K, V) and 128 bytes of barriers
+  static constexpr size_t smem = 1024 + QBYTES + 2 * STAGES * TBYTES + 128;
+  static_assert(D % 64 == 0 && D <= 256, "the sm90 forward takes D <= 256");
+  static_assert(smem <= 232448, "over the shared memory a block may use");
+};
+
+struct FwdArgs {
+  CUtensorMap q, k, v;   // 4-D {D, S, H, B}, innermost first, bf16
+  bf16* o;               // [B, Sq, H, D] contiguous
+  float* lse;            // [B * H, Sq]
+  int H, rep, Sq, Sk, causal;
+  int nq, items;         // q tiles a head; items = B * H * nq
+  float qscale;
+};
+
+constexpr long long kWaitClocks = 1ll << 32;   // far beyond any real wait
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed; trap after
+// kWaitClocks, so a phase bug fails the launch instead of hanging it.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, P1;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > kWaitClocks) __trap();
+  }
+}
+
+// One box of a 4-D tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::
+          "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// 2^x in one MUFU op: exp2f's handling of results under 2^-126 costs three
+// more instructions an element, for probabilities that small.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers that an asynchronous wgmma writes or reads: pinned here, so the
+// compiler neither reads them before the wait nor reuses them during it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// S (+)= A B^T, m64n64k16: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// S (+)= A B^T, m64n128k16: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// O += A B, m64n64k16: A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1));
+}
+
+// O += A B, m64n128k16: A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1));
+}
+
+// O += A B, m64n192k16: A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[96],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1));
+}
+
+// O += A B, m64n256k16: A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1));
+}
+// The work item `item` of the persistent grid: a q tile of (b * H + h) =
+// bh, and the k tiles it reads.  Items go head by head (a head's K / V
+// stays in L2 while its q tiles run; GQA groups are neighbours), each
+// head's heaviest q tile first.
+struct FwdItem {
+  int bh, q0, nk;
+};
+
+// The block's item in round r of the persistent grid: rounds of gridDim.x
+// items, every other one walked backwards, so a block that took a heavy
+// item in one round takes a light one in the next.
+__device__ __forceinline__ int snake_item(int r) {
+  const int b = r & 1 ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  return r * (int)gridDim.x + b;
+}
+
+template <int BQ, int BK>
+__device__ __forceinline__ FwdItem fwd_item(const FwdArgs& p, int item) {
+  FwdItem it;
+  it.bh = item / p.nq;
+  it.q0 = (p.nq - 1 - item % p.nq) * BQ;
+  it.nk = p.Sk / BK;
+  if (p.causal) it.nk = min(it.nk, (it.q0 + BQ - 1) / BK + 1);
+  return it;
+}
+
+// A consumer warpgroup of fwd_bf16_sm90: of each item's q tile, rows r0 ..
+// r0 + 63, of which this thread holds row0 and row0 + 8 (the wgmma
+// accumulator layout).
+template <int D, bool kDirect>
+__device__ __forceinline__ void fwd_consumer(const FwdArgs& p, uint32_t sQ,
+                                             uint4* gQ, uint32_t sKV,
+                                             uint32_t bars, int wg) {
+  using C = Sm90Fwd<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES;
+  constexpr uint32_t TB = C::TBYTES;
+  const uint32_t fullQ = bars, emptyQ = bars + 8, fullK = bars + 16;
+  const uint32_t fullV = fullK + 8 * ST, empty = fullV + 8 * ST;
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const uint32_t qa = sQ + wg * 64 * 128;     // this warpgroup's q rows
+
+  float o[D / 2], s[BK / 2];
+  uint32_t pf[BK / 16][4];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 16; ++i) pf[i][0] = pf[i][1] = pf[i][2] = pf[i][3] = 0u;
+  float m[2], l[2], corr[2];
+  int r0 = 0, row0 = 0, ring = 0;   // ring: k tiles consumed so far
+
+  // stage and phase parity of the item's k tile j in the ring
+  auto stage = [&](int j) { return (ring + j) % ST; };
+  auto parity = [&](int j) { return (uint32_t)(((ring + j) / ST) & 1); };
+  // S = q K_j^T: D / 16 steps of 16 columns (32 bytes) of both operands
+  auto issue_s = [&](int j) {
+    const uint32_t k_s = sKV + 2 * stage(j) * TB;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s,
+               sw128_desc(qa + (kk >> 2) * BQ * 128 + (kk & 3) * 32, 16, 1024),
+               sw128_desc(k_s + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16,
+                          1024),
+               kk > 0);
+  };
+  // O += P_j V_j: BK / 16 steps of 16 keys (2048 bytes of every panel of
+  // V); the panels are BK * 128 bytes apart
+  auto issue_pv = [&](int j) {
+    const uint32_t v_s = sKV + (2 * stage(j) + 1) * TB;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(o, pf[kk], sw128_desc(v_s + kk * 2048, BK * 128, 1024));
+  };
+  // mask, online softmax of S_j in place (the f32 P), corr = the rescale of
+  // the rows' earlier O and l
+  auto softmax = [&](int j) {
+    const int k0 = j * BK;
+    if constexpr (kDirect) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] *= p.qscale;
+    }
+    if (p.causal && k0 + BK - 1 > r0) {          // the tile crosses the rows
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        if (k0 + (i >> 2) * 8 + 2 * tq + (i & 1) > row0 + ((i >> 1) & 1) * 8)
+          s[i] = kNegInf;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[r] = exp2f(m[r] - mx);
+      m[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        s[4 * n + 2 * r] = ex2(s[4 * n + 2 * r] - mx);
+        s[4 * n + 2 * r + 1] = ex2(s[4 * n + 2 * r + 1] - mx);
+        sum += s[4 * n + 2 * r] + s[4 * n + 2 * r + 1];
+      }
+      l[r] = l[r] * corr[r] + sum;               // this thread's columns
+    }
+  };
+  auto rescale = [&]() {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[4 * n] *= corr[0];
+      o[4 * n + 1] *= corr[0];
+      o[4 * n + 2] *= corr[1];
+      o[4 * n + 3] *= corr[1];
+    }
+  };
+  auto to_p = [&]() {                            // P rounded to V's dtype
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pf[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+
+  // Ping-pong: the two warpgroups take turns to issue their products
+  // (named barrier 3 + wg is this one's turn), so one's softmax runs under
+  // the other's wgmma.  Both take the same turns: nk + 1 an item.
+  auto turn_wait = [&]() {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory");
+  };
+  auto turn_pass = [&]() {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - wg) : "memory");
+  };
+  if (wg == 1) turn_pass();                      // warpgroup 0 goes first
+  for (int n = 0, rd = 0; rd * (int)gridDim.x < p.items; ++rd) {
+    const int item = snake_item(rd);
+    if (item >= p.items) continue;
+    const FwdItem w = fwd_item<BQ, BK>(p, item);
+    r0 = w.q0 + 64 * wg;
+    row0 = r0 + 16 * warp + g;
+    // both warpgroups walk all nk tiles (they take the same turns); a tile
+    // wholly above one's rows is masked to P = 0
+    const int nk = w.nk;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+
+    mbar_wait(fullQ, n & 1);   // n: the items this block has consumed
+    if constexpr (!kDirect) {   // K1: q * scale * log2 e, rounded to bf16
+      // this warpgroup's 64 rows are 8 KB (512 chunks of 16 bytes) a panel
+      for (int i = t; i < 64 * D / 8; i += 128) {
+        uint4* a = gQ + (i >> 9) * (BQ * 8) + wg * 512 + (i & 511);
+        uint4 u = *a;
+        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h2[e]);
+          h2[e] = __floats2bfloat162_rn(f.x * p.qscale, f.y * p.qscale);
+        }
+        *a = u;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
+
+    if (nk > 0) {
+      mbar_wait(fullK + 8 * stage(0), parity(0));
+      turn_wait();
+      wg_fence();
+      issue_s(0);
+      wg_commit();
+      turn_pass();
+      wg_wait<0>();
+      pin(s);
+      if (nk == 1) mbar_arrive(emptyQ);          // q is read: the next
+      softmax(0);                                // item's may land
+      to_p();
+      for (int j = 1; j < nk; ++j) {
+        mbar_wait(fullK + 8 * stage(j), parity(j));
+        mbar_wait(fullV + 8 * stage(j - 1), parity(j - 1));
+        turn_wait();
+        wg_fence();
+        issue_s(j);
+        wg_commit();
+        issue_pv(j - 1);
+        wg_commit();
+        turn_pass();
+        wg_wait<1>();                            // S_j; P V still running
+        pin(s);
+        if (j == nk - 1) mbar_arrive(emptyQ);
+        softmax(j);
+        wg_wait<0>();
+        pin(o);
+        pin(pf);
+        mbar_arrive(empty + 8 * stage(j - 1));   // its stage is free
+        rescale();
+        to_p();
+      }
+      mbar_wait(fullV + 8 * stage(nk - 1), parity(nk - 1));
+      turn_wait();
+      wg_fence();
+      issue_pv(nk - 1);
+      wg_commit();
+      turn_pass();
+      wg_wait<0>();
+      pin(o);
+      pin(pf);
+      mbar_arrive(empty + 8 * stage(nk - 1));
+    } else {
+      mbar_arrive(emptyQ);
+    }
+    ring += nk;
+    ++n;
+
+    const int b = w.bh / p.H, h = w.bh % p.H;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const float lc = fmaxf(lr, 1e-30f), inv = 1.f / lc;
+      const int row = row0 + 8 * r;
+      bf16* orow = p.o + ((long long)(b * p.Sq + row) * p.H + h) * D;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * tq) =
+            pack_bf16(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
+      if (tq == 0)
+        p.lse[(long long)w.bh * p.Sq + row] = (m[r] + log2f(lc)) * kLn2;
+    }
+  }
+  if (wg == 0) turn_wait();                      // warpgroup 1's last pass
+}
+
+// K1 / K4-fwd in bf16 up to D = 256: a persistent grid (one block an SM)
+// over the items (q tiles); warpgroups 0 and 1 consume, warpgroup 2
+// produces: the next item's q and K / V tiles load while the consumers
+// finish the current one.
+template <int D, bool kDirect>
+__global__ void __launch_bounds__(384, 1)
+    fwd_bf16_sm90(const __grid_constant__ FwdArgs p) {
+  using C = Sm90Fwd<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES, NP = C::kPanels;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023) & ~1023u;
+  const uint32_t sKV = sQ + C::QBYTES;           // stage s: K, then V
+  // fullQ, emptyQ, fullK[ST], fullV[ST], empty[ST]
+  const uint32_t bars = sKV + 2 * ST * C::TBYTES;
+  const uint32_t fullQ = bars, emptyQ = bars + 8, fullK = bars + 16;
+  const uint32_t fullV = fullK + 8 * ST, empty = fullV + 8 * ST;
+  if (threadIdx.x == 0) {
+    mbar_init(fullQ, 1);
+    mbar_init(emptyQ, 256);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(fullK + 8 * s, 1);
+      mbar_init(fullV + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      int ring = 0;                              // k tiles loaded so far
+      for (int n = 0, rd = 0; rd * (int)gridDim.x < p.items; ++rd) {
+        const int item = snake_item(rd);
+        if (item >= p.items) continue;
+        const FwdItem w = fwd_item<BQ, BK>(p, item);
+        const int b = w.bh / p.H, h = w.bh % p.H, hk = h / p.rep;
+        if (n > 0) mbar_wait(emptyQ, (n - 1) & 1);
+        ++n;
+        mbar_expect_tx(fullQ, C::QBYTES);
+        for (int c = 0; c < NP; ++c)
+          tma_load(sQ + c * BQ * 128, &p.q, fullQ, 64 * c, w.q0, h, b);
+        for (int j = 0; j < w.nk; ++j, ++ring) {
+          const int s = ring % ST;
+          if (ring >= ST) mbar_wait(empty + 8 * s, (ring / ST - 1) & 1);
+          const uint32_t k_s = sKV + 2 * s * C::TBYTES, v_s = k_s + C::TBYTES;
+          mbar_expect_tx(fullK + 8 * s, C::TBYTES);
+          for (int c = 0; c < NP; ++c)
+            tma_load(k_s + c * BK * 128, &p.k, fullK + 8 * s, 64 * c,
+                     j * BK, hk, b);
+          mbar_expect_tx(fullV + 8 * s, C::TBYTES);
+          for (int c = 0; c < NP; ++c)
+            tma_load(v_s + c * BK * 128, &p.v, fullV + 8 * s, 64 * c,
+                     j * BK, hk, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    fwd_consumer<D, kDirect>(
+        p, sQ, reinterpret_cast<uint4*>(smem_raw + (sQ - raw)), sKV, bars,
+        wg);
+  }
+}
+
+// The mma.sync forward, above D = 256 only (fwd_bf16_sm90 takes the rest).
 template <int D>
 struct FwdTile {
-  static constexpr int BQ = 64, BK = D <= 192 ? 64 : 32, LD = D + 8;
-  static constexpr bool kHold = D <= 128;      // q fragments in registers
-  static constexpr int NC = D > 256 ? 2 : 1;   // column chunks (grid z)
+  static_assert(D > 256, "D <= 256 runs fwd_bf16_sm90");
+  static constexpr int BQ = 64, BK = 32, LD = D + 8;
+  static constexpr int NC = 2;                 // column chunks (grid z)
   static constexpr int DC = D / NC;            // O columns a block owns
   static constexpr size_t smem = (size_t)(BQ + 2 * BK) * LD * sizeof(bf16);
 };
 
-// K1 / K4-fwd.  Block: 64 q rows of one (b, h) and O columns c0 .. c0 +
-// DC - 1 (all of them up to D = 256); warp w owns rows 16w .. 16w + 15.
+// K1 / K4-fwd above D = 256.  Block: 64 q rows of one (b, h) and O columns
+// c0 .. c0 + DC - 1; warp w owns rows 16w .. 16w + 15.
 template <int D, bool kDirect>
 __global__ void __launch_bounds__(kThreads) fwd_bf16(const Params p) {
   using C = FwdTile<D>;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, DC = C::DC;
-  constexpr bool kHold = C::kHold;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + BQ * LD;
@@ -282,14 +963,6 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16(const Params p) {
 
   load_tile<BQ, D, !kDirect>(sQ, head_ptr<bf16>(p.q, p.sq, b, h) + q0 * p.sq.s,
                              p.sq.s, p.qscale, tid);
-  __syncthreads();
-  uint32_t qf[kHold ? D / 16 : 1][4];
-  if constexpr (kHold) {
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      frag_a(qf[kc], sQ, LD, warp * 16, kc * 16, g, tq);
-  }
-
   float acc[DC / 8][4];
 #pragma unroll
   for (int nb = 0; nb < DC / 8; ++nb)
@@ -312,7 +985,7 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16(const Params p) {
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc) {
       uint32_t a[4];
-      row_frag<kHold>(a, qf, sQ, LD, warp * 16, kc, g, tq);
+      frag_a(a, sQ, LD, warp * 16, kc * 16, g, tq);
 #pragma unroll
       for (int nb = 0; nb < BK / 8; ++nb) {
         uint32_t bf[2];
@@ -379,7 +1052,8 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16(const Params p) {
     for (int nb = 0; nb < DC / 8; ++nb)
       *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * tq) =
           pack_bf16(acc[nb][2 * r] / lc, acc[nb][2 * r + 1] / lc);
-    if (tq == 0 && blockIdx.z == 0) p.lse[(long long)bh * p.Sq + row] = (m[r] + log2f(lc)) * kLn2;
+    if (tq == 0 && blockIdx.z == 0)
+      p.lse[(long long)bh * p.Sq + row] = (m[r] + log2f(lc)) * kLn2;
   }
 }
 
@@ -925,6 +1599,81 @@ __global__ void __launch_bounds__(kThreads) dkv_f32(const Params p) {
 }
 
 // ------------------------------------------------------------------ launch
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(f)
+                                            : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a bf16 [B, S, H, D] tensor with element strides `st`, read in
+// boxes of 64 columns x `rows` rows (one head, one batch).  A dimension of
+// size 1 is never stepped, so it gets the row stride, which is legal.
+bool tensor_map(CUtensorMap* map, const void* base, const Strides& st, int B,
+                int S, int H, int D, int rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  const cuuint64_t row = (cuuint64_t)st.s * 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {row, H > 1 ? (cuuint64_t)st.h * 2 : row,
+                                 B > 1 ? (cuuint64_t)st.b * 2 : row};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc && enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                    const_cast<void*>(base), dims, strides, box, unit,
+                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool kDirect>
+cudaError_t launch_fwd_sm90(const Params& p, cudaStream_t st) {
+  using C = Sm90Fwd<D>;
+  if (p.Sq % C::BQ || p.Sk % C::BK) return cudaErrorInvalidValue;
+  if (!encode_tiled()) return cudaErrorNotSupported;
+  FwdArgs a;
+  if (!tensor_map(&a.q, p.q, p.sq, p.B, p.Sq, p.H, D, C::BQ) ||
+      !tensor_map(&a.k, p.k, p.sk, p.B, p.Sk, p.Hk, D, C::BK) ||
+      !tensor_map(&a.v, p.v, p.sv, p.B, p.Sk, p.Hk, D, C::BK))
+    return cudaErrorInvalidValue;
+  a.o = static_cast<bf16*>(p.out);
+  a.lse = p.lse;
+  a.H = p.H; a.rep = p.H / p.Hk; a.Sq = p.Sq; a.Sk = p.Sk;
+  a.causal = p.causal; a.qscale = p.qscale;
+  a.nq = p.Sq / C::BQ;
+  a.items = p.B * p.H * a.nq;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  auto kern = fwd_bf16_sm90<D, kDirect>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)C::smem);
+  if (e != cudaSuccess) return e;
+  kern<<<min(a.items, sms), C::kThreads, C::smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename K>
 cudaError_t launch(K kern, dim3 grid, int threads, size_t smem,
                    cudaStream_t st, const Params& p) {
@@ -944,10 +1693,14 @@ cudaError_t dispatch(Which w, int dtype, const Params& p, cudaStream_t st) {
   const int BH = p.B * p.H, BHk = p.B * p.Hk;
   if (dtype == 1) {
     if (w == kFwd) {
-      using C = FwdTile<D>;
-      if (p.Sq % C::BQ || p.Sk % C::BK) return cudaErrorInvalidValue;
-      return launch(fwd_bf16<D, kDirect>, dim3(p.Sq / C::BQ, BH, C::NC), kThreads,
-                    C::smem, st, p);
+      if constexpr (D <= 256) {
+        return launch_fwd_sm90<D, kDirect>(p, st);
+      } else {
+        using C = FwdTile<D>;
+        if (p.Sq % C::BQ || p.Sk % C::BK) return cudaErrorInvalidValue;
+        return launch(fwd_bf16<D, kDirect>, dim3(p.Sq / C::BQ, BH, C::NC),
+                      kThreads, C::smem, st, p);
+      }
     }
     if (w == kDq) {
       using C = DqTile<D>;
@@ -984,6 +1737,32 @@ cudaError_t by_dim(Which w, int D, int dtype, const Params& p,
     case 384: return dispatch<384, kDirect>(w, dtype, p, st);
     case 448: return dispatch<448, kDirect>(w, dtype, p, st);
     case 512: return dispatch<512, kDirect>(w, dtype, p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 forward's plan at head_dim D <= 256 as compiled (see
+// flash_fwd_plan).
+template <int D, bool kDirect>
+cudaError_t fwd_plan(int* out) {
+  using C = Sm90Fwd<D>;
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, fwd_bf16_sm90<D, kDirect>);
+  if (e != cudaSuccess) return e;
+  const int v[9] = {C::BQ, C::BK, C::STAGES, (int)C::smem, C::kThreads,
+                    fa.numRegs, (int)fa.localSizeBytes,
+                    (int)fa.sharedSizeBytes, fa.maxThreadsPerBlock};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return cudaSuccess;
+}
+
+template <bool kDirect>
+cudaError_t fwd_plan_by_dim(int D, int* out) {
+  switch (D) {
+    case 64: return fwd_plan<64, kDirect>(out);
+    case 128: return fwd_plan<128, kDirect>(out);
+    case 192: return fwd_plan<192, kDirect>(out);
+    case 256: return fwd_plan<256, kDirect>(out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1031,6 +1810,16 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
   return run(kFwd, direct, q, k, v, nullptr, nullptr, o, nullptr, lse,
              nullptr, strides, B, H, Hk, Sq, Sk, D, scale, qscale, causal,
              dtype, stream);
+}
+
+// The bf16 forward's tile plan at head_dim D (64, 128, 192 or 256), as
+// compiled: out[0..8] = BQ, BK, stages, dynamic shared bytes, threads a
+// block, and from cudaFuncGetAttributes the body's registers a thread (at
+// entry, before setmaxnreg), local (spill) bytes, static shared bytes and
+// largest block.  `direct` picks K4's body.
+int flash_fwd_plan(int D, int direct, int* out) {
+  return (int)(direct ? fwd_plan_by_dim<true>(D, out)
+                      : fwd_plan_by_dim<false>(D, out));
 }
 
 // K2 / K4-dq: dq from q, k, v, o, dO and lse; also writes delta.

@@ -30,7 +30,10 @@ and ``.launches_direct_dkv`` (K4).
 
 The LSE is ``[B * H, Sq]`` float32 (the TPU kernels broadcast it over 128
 lanes).  There is no block autotuning: the kernels use one tile choice per
-head_dim, recorded in the source.
+head_dim, recorded in the source; the bf16 forward's (K1 and K4-fwd up to
+head_dim 256: a producer warp's TMA ring feeding two wgmma consumer
+warpgroups) is also recorded here, :data:`FWD_PLAN`, and
+``flash_fwd_plan`` reports the compiled one on the card.
 """
 from __future__ import annotations
 
@@ -44,8 +47,8 @@ from . import _build
 from ..core.flags import flag
 
 __all__ = ["flash_attention_bshd", "flash_fwd_ref", "flash_bwd_ref",
-           "bshd_fwd_ref", "bshd_bwd_ref", "supported", "BQ", "BK",
-           "NEG_INF"]
+           "bshd_fwd_ref", "bshd_bwd_ref", "supported", "fwd_plan", "BQ",
+           "BK", "NEG_INF", "FWD_PLAN"]
 
 BQ = 128
 BK = 128
@@ -56,6 +59,11 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = tuple(range(64, 513, 64))      # 64, 128, ..., 512
 _B_BQ, _B_BK = 512, 512
+# The bf16 forward's tiles at head_dim <= 256 (``Sm90Fwd`` in the source):
+# head_dim -> (q rows a block, keys a K / V tile, ring stages)
+FWD_PLAN = {64: (128, 128, 3), 128: (128, 128, 3), 192: (128, 64, 3),
+            256: (128, 64, 2)}
+SMEM_PER_BLOCK = 232448                     # what a Hopper block may use
 _lib = None
 
 
@@ -71,6 +79,8 @@ def _kernel_lib():
         lib.flash_bwd_dkv.argtypes = [vp] * 9 + tail
         for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
             fn.restype = ci
+        lib.flash_fwd_plan.argtypes = [ci, ci, vp]
+        lib.flash_fwd_plan.restype = ci
         lib.paddle_cuda_error_string.argtypes = [ci]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -99,6 +109,30 @@ def supported(q_shape, kv_shape=None, dtype=None) -> bool:
         Sk, Hk = kv_shape[1], kv_shape[2]
         ok = ok and (Sk % BK == 0) and (Hk > 0) and (H % Hk == 0)
     return ok
+
+
+def fwd_plan(D):
+    """The bf16 forward's tile plan at head_dim ``D`` (64, 128, 192 or 256)
+    as this module records it: q rows a block (two consumer warpgroups of
+    64), keys a tile, ring stages, threads (and one producer warpgroup) and
+    the dynamic shared memory a block takes: 1024 bytes to align the
+    128-byte swizzle, the q tile, a K and a V tile a stage, 128 bytes of
+    barriers."""
+    bq, bk, stages = FWD_PLAN[D]
+    return {"bq": bq, "bk": bk, "stages": stages, "threads": 384,
+            "smem": 1024 + 2 * bq * D + stages * 2 * (2 * bk * D) + 128}
+
+
+def compiled_fwd_plan(D, direct=False):
+    """The same plan as the card's library compiled it
+    (``flash_fwd_plan``), with the body's registers a thread at entry,
+    local (spill) bytes, static shared bytes and largest block."""
+    out = (ctypes.c_int * 9)()
+    err = _kernel_lib().flash_fwd_plan(D, int(direct), out)
+    _raise_on(err, "forward plan")
+    keys = ("bq", "bk", "stages", "smem", "threads", "registers",
+            "local_bytes", "static_smem", "max_threads")
+    return dict(zip(keys, out))
 
 
 def _scale(D, scale):
@@ -246,13 +280,20 @@ def _bshd_config(B, Sq, Sk, H, D, dtype):
 
 # ------------------------------------------------------------------- kernels
 def _strided(t):
-    """``t`` as the bf16 kernels read it — unit last stride, 16-byte
-    aligned base and strides — or a contiguous copy when it is not."""
-    unit = 16 // t.element_size()
+    """``t`` where the kernels can read it in place, else a contiguous
+    copy.  In place needs a unit last stride and what a TMA tensor map
+    needs of the rest (the bf16 forward reads q, k and v through one): a
+    16-byte aligned base, and every other stride of a dimension longer
+    than 1 a positive multiple of 16 bytes under 2**40 (the map never steps
+    a dimension of size 1, and gets a legal stride for it).  A copy, never
+    ``t.contiguous()``, which returns a contiguous tensor on a misaligned
+    base as it is."""
+    el = t.element_size()
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(st % unit == 0 for st in t.stride()[:-1])):
+            and all(n == 1 or (0 < st * el < 2 ** 40 and st * el % 16 == 0)
+                    for n, st in zip(t.shape[:-1], t.stride()[:-1]))):
         return t
-    return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _check(q, k, v):

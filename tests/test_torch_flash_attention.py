@@ -182,3 +182,102 @@ def test_kernels_refuse_head_dims_they_lack(monkeypatch):
         x = torch.zeros(1, 128, 2, d)
         flash_attention_bshd(x, x, x)
     assert reached == list(dims)
+
+
+@pytest.mark.parametrize("D", sorted(tfa.FWD_PLAN))
+def test_forward_tile_plan_fits_the_card_and_every_supported_shape(D):
+    """The bf16 forward's tiles at each head_dim up to 256, as the wrapper
+    records them (``chip_smoke.py`` holds the card's compiled plan to the
+    same numbers): two consumer warpgroups of 64 q rows, wgmma widths (a
+    multiple of 8 up to 256) for the keys of a tile, at least two ring
+    stages, and shared memory within what a Hopper block may use.  Every
+    sequence length that ``supported()`` accepts (a multiple of 128)
+    divides into q and k tiles."""
+    plan = tfa.fwd_plan(D)
+    bq, bk, stages = plan["bq"], plan["bk"], plan["stages"]
+    assert (bq, bk, stages) == tfa.FWD_PLAN[D]
+    assert bq % 64 == 0 and bq // 64 == 2
+    assert bk % 8 == 0 and bk <= 256 and stages >= 2
+    assert plan["threads"] == 384
+    tiles = 2 * bq * D + stages * 2 * 2 * bk * D
+    assert plan["smem"] == 1024 + tiles + 128
+    assert plan["smem"] <= tfa.SMEM_PER_BLOCK == 232448
+    for S in range(128, 8193, 128):
+        assert supported((1, S, 2, D), (1, S, 1, D))
+        assert S % bq == 0 and S % bk == 0
+
+
+def _strides_legal(t):
+    """What a TMA tensor map needs of a tensor the kernels read in place:
+    a 16-byte aligned base, a unit last stride, every other stride of a
+    dimension longer than 1 a positive multiple of 16 bytes."""
+    el = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and all(n == 1 or (st > 0 and st * el % 16 == 0)
+                    for n, st in zip(t.shape[:-1], t.stride()[:-1])))
+
+
+@pytest.mark.parametrize("case", ["fused-qkv", "gqa-kv", "misaligned",
+                                  "broadcast", "odd-row-stride"])
+def test_strided_hands_the_kernels_tma_legal_strides(case):
+    """``_strided`` passes q, k and v through untouched when their layout
+    is legal for TMA (fused-qkv views with row stride 3 H D, GQA K / V) and
+    copies them when it is not (a view one element off a 16-byte boundary,
+    a broadcast head axis with stride 0, a row stride of 40 bytes)."""
+    B, S, H, D = 2, 128, 4, 64
+    base = torch.zeros(B * S * 3 * H * D + 8, dtype=torch.bfloat16)
+    assert base.data_ptr() % 16 == 0
+    if case == "fused-qkv":
+        t = base[:B * S * 3 * H * D].view(B, S, 3, H, D)[:, :, 1]
+        want_copy = False
+    elif case == "gqa-kv":
+        t = base[:B * S * 1 * D].view(B, S, 1, D)
+        want_copy = False
+    elif case == "misaligned":
+        t = base[1:1 + B * S * H * D].view(B, S, H, D)
+        want_copy = True
+    elif case == "broadcast":
+        t = base[:B * S * D].view(B, S, 1, D).expand(B, S, H, D)
+        want_copy = True
+    else:
+        t = base[:B * S * 20].view(B, S, 20)[..., :16].unsqueeze(2)
+        want_copy = True
+    got = tfa._strided(t)
+    assert (got.data_ptr() != t.data_ptr()) == want_copy
+    assert _strides_legal(got)
+    assert torch.equal(got, t)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", sorted(tfa.FWD_PLAN), ids=lambda d: f"d{d}")
+def test_cuda_bf16_forward_matches_plain_versions(cuda_device, D):
+    """On the card, the bf16 forward (K1 on GQA, K4 on MHA) against its
+    plain versions at 2e-2, bitwise the same on a second run, causal over
+    three q tiles and on q / k / v views of one fused projection; the
+    compiled tile plan is the recorded one."""
+    for direct in (False, True):
+        got = tfa.compiled_fwd_plan(D, direct)
+        assert {k: got[k] for k in tfa.fwd_plan(D)} == tfa.fwd_plan(D)
+        assert got["local_bytes"] == 0
+    q, k, v, _ = _inputs(5, 2, 384, 4, 2, D)
+    qkv = np.random.RandomState(6).randn(2, 256, 3, 4, D).astype(np.float32)
+    fused = torch.from_numpy(qkv).to(cuda_device).bfloat16().unbind(2)
+    for direct, args in ((False, (q, k, v)), (True, (q, q, q)),
+                         (False, fused), (True, fused)):
+        t = [x if torch.is_tensor(x) else
+             torch.from_numpy(x).to(cuda_device).bfloat16() for x in args]
+        s = 1.0 / np.sqrt(D)
+        o, lse = tfa._launch_fwd(*t, True, s, direct)
+        o2, lse2 = tfa._launch_fwd(*t, True, s, direct)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        ref = tfa.bshd_fwd_ref if direct else flash_fwd_ref
+        ro, rl = ref(*t, True, s)
+        torch.testing.assert_close(o.float(), ro.float(), rtol=0, atol=2e-2)
+        torch.testing.assert_close(lse, rl, rtol=0, atol=2e-2)
