@@ -651,9 +651,10 @@ ROLE_KERNEL = {(role, direct): kern
 # training shapes, head_dim 192, 256 and 512 (the column-chunked bodies),
 # one non-causal case, and float32 (TF32 off).  For the forward's ring and
 # tensor maps (D <= 256 in bf16): S 128 (one q tile, one diagonal k tile),
-# S 384 (three q tiles), Sk != Sq without the mask, GQA 8:1 and q, k and v
-# as views of one [B, S, 3, H, D] projection (row stride 3 H D).  Options:
-# Sk (keys, when not S), fused (the views).
+# S 384 (three q tiles), Sk != Sq without the mask, GQA 8:1 (at S 384 a
+# K3 ring crosses from head to head with a ragged causal q range) and q, k
+# and v as views of one [B, S, 3, H, D] projection (row stride 3 H D).
+# Options: Sk (keys, when not S), fused (the views).
 FLASH_CASES = [
     ("gpt2", 16, 1024, 12, 12, 64, True, torch.bfloat16),
     ("llama", 8, 1024, 16, 4, 128, True, torch.bfloat16),
@@ -665,6 +666,7 @@ FLASH_CASES = [
     ("s384", 2, 384, 8, 4, 128, True, torch.bfloat16),
     ("sk768", 2, 256, 8, 4, 64, False, torch.bfloat16, {"Sk": 768}),
     ("gqa8", 2, 1024, 32, 4, 128, True, torch.bfloat16),
+    ("gqa8 s384", 2, 384, 32, 4, 128, True, torch.bfloat16),
     ("fused-qkv", 4, 512, 12, 12, 64, True, torch.bfloat16,
      {"fused": True}),
     ("f32 mha", 1, 256, 2, 2, 128, True, torch.float32),
@@ -706,6 +708,25 @@ FWD_DESIGN = ("up to head_dim 256 in bf16: a persistent grid (one block of "
               "softmax of tile j under P V of tile j - 1, the two "
               "warpgroups ping-ponging their products; setmaxnreg 232 / 40. "
               "Above 256: the mma.sync body")
+BWD_DESIGN = ("up to head_dim 256 in bf16, on the forward's skeleton: "
+              "persistent grids of 384-thread blocks in head-major snake "
+              "rounds, one producer thread's TMA ring under full / empty "
+              "mbarriers, two consumer warpgroups on wgmma (K2's taking "
+              "turns), setmaxnreg 232 / 40.  K2 (dq_bf16_sm90): items of 128 "
+              "q rows; "
+              "q and dO an item, K / V tiles in the ring; each warpgroup "
+              "computes delta for its 64 rows, scales q in place, then per "
+              "k tile S = q2 K^T and dP = dO V^T (both from shared memory) "
+              "issued with dQ += dS K of the tile before (dS from registers, "
+              "K read MN-major).  K3 (dkv_bf16_sm90): items of keys; K / V "
+              "an item, then q, dO, LSE and delta rows of each q tile of the "
+              "GQA group's heads in the ring; three producer warps write q2 "
+              "= q * scale * log2 e into a q2 buffer; S^T = K q2^T, dP^T = V "
+              "dO^T, then dV += P^T dO and dK += dS^T q (dO and q MN-major), "
+              "dK and dV summed over the group in registers, no atomics; "
+              "above head_dim 128 warpgroup 0 holds dV and warpgroup 1 dK of "
+              "the same 64 keys, each computing S^T.  K4-dq / K4-dkv, head_dim "
+              "320-512 and f32: the mma.sync bodies")
 # forward (o and lse, absolute) and gradient tolerances, those of
 # tests/test_pallas_kernels.py: float32 absolute; bf16 gradients at 2e-2 of
 # the largest reference magnitude (they scale with the inputs)
@@ -911,12 +932,13 @@ class FlashCase:
 
 def _ptxas_bodies(log, name):
     """{(D, direct): (registers, spill line)} of the kernel ``name`` from
-    nvcc's -Xptxas -v report."""
+    nvcc's -Xptxas -v report (a body without the ``direct`` parameter
+    counts as not direct)."""
     import re
     out, lines = {}, log.splitlines()
     for i, line in enumerate(lines):
-        m = re.search(rf"Compiling entry function '\S*{name}ILi(\d+)ELb(\d)E",
-                      line)
+        m = re.search(rf"Compiling entry function '\S*{name}ILi(\d+)E"
+                      rf"(?:Lb(\d)E)?", line)
         if not m:
             continue
         regs = spill = None
@@ -926,7 +948,7 @@ def _ptxas_bodies(log, name):
             spill = spill or (nxt.strip() if "spill" in nxt else None)
             r = re.search(r"Used (\d+) registers", nxt)
             regs = regs or (int(r.group(1)) if r else None)
-        out[(int(m.group(1)), bool(int(m.group(2))))] = (regs, spill)
+        out[(int(m.group(1)), bool(int(m.group(2) or 0)))] = (regs, spill)
     return out
 
 
@@ -972,12 +994,61 @@ def fwd_plan_check():
     return plans[(64, False)]
 
 
+def bwd_plan_check():
+    """The bf16 backward's tile plans (K2: dq_bf16_sm90, K3:
+    dkv_bf16_sm90) at every head_dim they take, as the card's library
+    compiled them (``flash_bwd_plan``), against the ones
+    ``ops/flash_attention.py`` records; no local memory (spills), and no
+    setmaxnreg ignored by ptxas.  Prints each body's ptxas report; returns
+    the plans at GPT-2's head_dim 64."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    log = _build.LOGS.get("flash_attention", "")
+    if log:
+        check("C7508" not in log and "setmaxnreg ignored" not in log,
+              "ptxas ignored setmaxnreg in flash_attention.cu")
+    plans = {}
+    for D in sorted(fa.BWD_PLAN):
+        want, got = fa.bwd_plan(D), fa.compiled_bwd_plan(D)
+        for role, kern, body in (("dq", "K2", "dq_bf16_sm90"),
+                                 ("dkv", "K3", "dkv_bf16_sm90")):
+            w, g = want[role], got[role]
+            check(w["smem"] <= fa.SMEM_PER_BLOCK,
+                  f"the {kern} plan at D={D} takes {w['smem']} bytes")
+            check(all(g[k] == v for k, v in w.items()),
+                  f"{kern} plan D={D}: compiled {g}, recorded {w}")
+            check(g["local_bytes"] == 0,
+                  f"{kern} D={D} uses {g['local_bytes']} bytes of local "
+                  f"memory (spills)")
+            regs, spill = _ptxas_bodies(log, body).get((D, False),
+                                                       (None, None))
+            report = (f"registers {regs}, {spill}" if spill else
+                      "no report" if log else
+                      "not in this process (library from the build cache)")
+            tiles = (f"{g['bq']} q rows x {g['bk']} keys a k tile" if
+                     role == "dq" else
+                     f"{g['bk']} keys x {g['bq']} q rows a q tile, "
+                     f"{g['q2']} q2 buffers, "
+                     f"{'split dV / dK' if g['split'] else 'dK and dV'} "
+                     f"a warpgroup")
+            print(f"flash backward {body}<{D}> ({kern}): {tiles}, "
+                  f"{g['stages']} stages, {g['threads']} threads, dynamic "
+                  f"shared memory {g['smem']} of {fa.SMEM_PER_BLOCK} bytes, "
+                  f"static {g['static_smem']}; registers {g['registers']} a "
+                  f"thread at entry (setmaxnreg: consumers 232, producer "
+                  f"40), local {g['local_bytes']} bytes; ptxas: {report}",
+                  flush=True)
+        plans[D] = got
+    return plans[64]
+
+
 def flash_kernel_phase(dev, timer):
     """The forward's plan, then K1-K3 against their plain versions in every
     case of FLASH_CASES and K4 in every case of K4_CASES, then timed at the
     FLASH_TIMED shapes.  Returns the six kernels' lines (launches filled in
     by the training phase)."""
     plan = fwd_plan_check()
+    bplan = bwd_plan_check()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs, timed = {}, {}
     for direct, cases in ((False, FLASH_CASES), (True, K4_CASES)):
@@ -1059,6 +1130,11 @@ def flash_kernel_phase(dev, timer):
             line["plan"] = {k: plan[k] for k in ("bq", "bk", "stages",
                                                  "smem", "threads",
                                                  "registers")}
+        elif not direct:
+            line["design"] = BWD_DESIGN
+            line["plan"] = {k: v for k, v in bplan[role].items()
+                            if k not in ("local_bytes", "static_smem",
+                                         "max_threads")}
         lines.append(line)
     timed.clear()
     torch.cuda.empty_cache()

@@ -84,29 +84,83 @@
 // 230,528 at D 128).  Every barrier wait is bounded: a wait of more than
 // 2^32 clocks traps, so a phase bug is a launch error, not a hang.
 //
-// The other bf16 bodies run on the tensor cores with mma.sync m16n8k16
-// (bf16 x bf16 -> f32), each warp owning 16 rows (the forward above D =
-// 256 and K2: queries; K3: keys).  The products whose
+// The bf16 backward up to D = 256 (K2: dq_bf16_sm90, K3: dkv_bf16_sm90)
+// keeps that skeleton: a persistent grid of 384-thread blocks in the same
+// head-major snake rounds, one producer thread's TMA ring (the same 4-D
+// maps, so fused-qkv views, GQA K / V and dO are read in place) under
+// bounded full / empty barriers, two consumer warpgroups on wgmma,
+// setmaxnreg 232 / 40.  Every product is one of the forward's two forms:
+// both operands K-major in shared memory, or A from registers (an
+// accumulator rounded to bf16) and B read MN-major.  Each product's
+// operand descriptors are made where it is issued, from a base the
+// compiler cannot see through (`fresh`): hoisted out of the loops, K2's
+// 32 q and dO descriptors at D 256 spilled.
+//   K2: an item is 128 q rows of one head; the producer loads q and dO an
+//   item, K / V a k tile.  Each consumer computes delta = rowsum(dO * O)
+//   for its 64 rows (dO from the swizzled tile, O from device memory),
+//   stores it, and scales its q rows in place (q2, as K1).  Per k tile, S =
+//   q2 K^T and dP = dO V^T are issued together with dQ += dS K of the tile
+//   before (K MN-major, no transposed copy), and P and dS of this tile are
+//   computed under that product; the warpgroups take turns to issue, as
+//   K1's do.  Registers a consumer thread: dQ D / 2, S and dP BK / 2 each,
+//   dS's fragments BK / 4, which sets BK: 128 at D 64 (192), 64 at D 128
+//   and 192 (144, 176), 32 at D 256 (168), where q and dO alone take 128
+//   KB of shared memory.
+//   K3: an item is a key tile of one kv head; the producer loads K / V an
+//   item, then for each of the GQA group's heads each q tile that sees the
+//   keys (causal: from the key tile's start on) q, dO and the tile's LSE
+//   and delta rows (1-D bulk copies) into a stage under one full barrier,
+//   so the ring runs on from one head to the next.  K3 needs q twice: q2
+//   for S^T and the unscaled q for dK.  Three more producer warps write q2
+//   from each landed q tile into a q2 buffer (Q2 of them), fence the async
+//   proxy and arrive on its barrier, so q is loaded once and neither
+//   consumer waits for the other.  Per q tile: S^T = K q2^T (then q2 is
+//   released) and dP^T = V dO^T, then P^T and dS^T in registers, then dV
+//   += P^T dO and dK += dS^T q (dO and q MN-major).  The warpgroups issue
+//   freely: on the H100, turns made K3 slower at D 192 and 256, and
+//   issuing a tile's S^T with the dV / dK of the tile before slower from D
+//   128 on, neither faster at D 64.  dK and dV sum over the group in
+//   registers, with no atomics (dQ and dK / dV each belong to one block,
+//   so every gradient is bitwise repeatable; K2 and K3 stay two kernels
+//   for that).  Up to D
+//   128 each warpgroup takes 64 of a block's 128 keys and holds both dK
+//   and dV (D f32 registers a thread); above it they do not fit beside the
+//   score tiles, so both warpgroups take the same 64 keys, warpgroup 0
+//   holding dV and warpgroup 1 dK, and each computes S^T for itself: 10 D
+//   flops a pair instead of 8 D (the mma.sync body's eight warps cost 12
+//   D).  Passing P^T through shared memory instead would save the product
+//   but make warpgroup 0 wait on warpgroup 1's elementwise work each tile.
+// Tiles (K2: BQ x BK, stages; K3: keys x BQ, stages, q2 buffers): D 64:
+// 128 x 128, 3 and 128 x 64, 3, 2; D 128: 128 x 64, 3 and 128 x 64, 3, 2;
+// D 192: 128 x 64, 2 and 64 x 64, 2, 2 (split); D 256: 128 x 32, 3 and 64 x
+// 64, 2, 1 (split; 231,552 bytes of shared memory, the most of any body).
+//
+// The other bf16 bodies (the forward above D = 256; K4-dq and K4-dkv at
+// every D; K2 and K3 above D = 256) run on the tensor cores with mma.sync
+// m16n8k16 (bf16 x bf16 -> f32), each warp owning 16 rows (the forward
+// and dQ: queries; dK / dV: keys).  The products whose
 // A operand is a score tile (P V, dS K, P^T dO, dS^T q) take it straight
 // from the accumulator registers of the product before (the m16n8 C layout
 // of two n-blocks is the m16k16 A layout), so the score tiles never touch
 // shared memory.  Tiles are staged in shared memory with 16-byte loads;
 // rows are padded by 16 bytes so every fragment load is free of bank
 // conflicts.  Fixed Hopper tiles (no autotune), four warps a block except
-// K3 above D = 128:
-//   K1 above D = 256: 64 q rows x 32 keys;
-//   K2: 64 q rows x 64 keys (D = 64) or x 32 keys (D >= 128);
-//   K3: 64 keys x 64 q rows (D = 64), x 32 q rows (D 128 - 256) or x 16
-//       q rows (above 256).
+// the dK / dV body above D = 128:
+//   forward above D = 256: 64 q rows x 32 keys;
+//   dQ (K4-dq; K2 above 256): 64 q rows x 64 keys (D = 64) or x 32 keys
+//       (D >= 128);
+//   dK / dV (K4-dkv; K3 above 256): 64 keys x 64 q rows (D = 64), x 32 q
+//       rows (D 128 - 256) or x 16 q rows (above 256).
 // Registers set the tiles: a warp's 16-row f32 accumulator is D / 2
 // registers a thread (128 at D = 256), of 255.  Up to D = 128 the q (and
 // dO) fragments are held in registers for the whole k loop; above it they
-// are read again from shared memory at each 16-wide k step.  K3's dK and
-// dV together are D f32 registers a thread, too many above D = 128, so
-// there K3 runs eight warps: warps w and w + 4 own the same 16 keys, each
-// recomputes their S^T and dP^T tiles over the full D and accumulates dK
-// and dV for its half of the columns (96 or 128).  That costs K3 1.5x the
-// products of one warp a key group (12 D flops instead of 8 D a pair), but
+// are read again from shared memory at each 16-wide k step.  dK and dV
+// together are D f32 registers a thread, too many above D = 128, so there
+// the dK / dV body runs eight warps: warps w and w + 4 own the same 16
+// keys, each recomputes their S^T and dP^T tiles over the full D and
+// accumulates dK and dV for its half of the columns (96 or 128).  That
+// costs it 1.5x the products of one warp a key group (12 D flops instead
+// of 8 D a pair), but
 // needs no shared-memory accumulators and no exchange of P between warps.
 // Above D = 256 (320 - 512, every multiple of 64) no accumulator fits a
 // warp, so the output columns are split over a third grid dimension of NC
@@ -134,12 +188,10 @@
 // 0.05 ms); K3, and all three at D >= 128, sit above it (bound by the 989
 // TFLOP/s of the tensor cores).  The mma.sync bodies take about ten times
 // their bound: how fast synchronous loads feed mma.sync sets their time,
-// not the card's limits.  What they leave on the table, and the forward
-// up to D = 256 takes back: mma.sync reaches a fraction of what wgmma
-// does; tiles are loaded synchronously (no ring overlapping the next tile
-// with the current product); causal blocks do unequal work (the last q
-// tile walks S / 64 k tiles, the first one), with no balancing.  K3 also
-// reloads each q tile and recomputes P and dP, as K2 does.
+// not the card's limits (tiles loaded synchronously with no ring, causal
+// blocks of unequal work, K3 loading each q tile twice).  The sm90 bodies
+// answer each of these: wgmma, a TMA ring overlapping the next tile with
+// the current products, a persistent grid in snake order, q loaded once.
 #include <cuda.h>            // CUtensorMap and its enums (no -lcuda)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -364,12 +416,58 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// into shared memory; completes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Eight bf16 values times `mul` in f32, rounded back to bf16.
+__device__ __forceinline__ uint4 scale_chunk(uint4 u, float mul) {
+  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h2[e]);
+    h2[e] = __floats2bfloat162_rn(f.x * mul, f.y * mul);
+  }
+  return u;
+}
+
+// A consumer warpgroup's 64 rows of a landed R-row, D-column tile (D / 64
+// panels of R x 128 bytes) times `mul` in place, rounded to bf16 (the
+// TPU's q * scale * log2 e), then the async proxy fenced for the wgmma
+// that reads them; the caller syncs the warpgroup.  A panel's 64 rows are
+// 512 chunks of 16 bytes, whose swizzled order does not matter here.
+template <int R, int D>
+__device__ __forceinline__ void scale_rows(uint4* tile, int wg, int t,
+                                           float mul) {
+  for (int i = t; i < 64 * D / 8; i += 128) {
+    uint4* a = tile + (i >> 9) * (R * 8) + wg * 512 + (i & 511);
+    *a = scale_chunk(*a, mul);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
 // address, leading and stride byte offsets.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// The descriptor `d`, opaque to the compiler: the k steps' descriptors,
+// `d` plus constants, are then computed where the products are issued,
+// not hoisted out of the loops into registers (at D 256, K2's 32 of them
+// spilled).
+__device__ __forceinline__ uint64_t fresh(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
 }
 
 // 2^x in one MUFU op: exp2f's handling of results under 2^-126 costs three
@@ -404,6 +502,23 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// S (+)= A B^T, m64n32k16: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
 }
 
 // S (+)= A B^T, m64n64k16: A and B K-major in shared memory
@@ -647,8 +762,8 @@ __device__ __forceinline__ int snake_item(int r) {
   return r * (int)gridDim.x + b;
 }
 
-template <int BQ, int BK>
-__device__ __forceinline__ FwdItem fwd_item(const FwdArgs& p, int item) {
+template <int BQ, int BK, typename A>   // FwdArgs, or BwdArgs (K2)
+__device__ __forceinline__ FwdItem fwd_item(const A& p, int item) {
   FwdItem it;
   it.bh = item / p.nq;
   it.q0 = (p.nq - 1 - item % p.nq) * BQ;
@@ -783,19 +898,7 @@ __device__ __forceinline__ void fwd_consumer(const FwdArgs& p, uint32_t sQ,
 
     mbar_wait(fullQ, n & 1);   // n: the items this block has consumed
     if constexpr (!kDirect) {   // K1: q * scale * log2 e, rounded to bf16
-      // this warpgroup's 64 rows are 8 KB (512 chunks of 16 bytes) a panel
-      for (int i = t; i < 64 * D / 8; i += 128) {
-        uint4* a = gQ + (i >> 9) * (BQ * 8) + wg * 512 + (i & 511);
-        uint4 u = *a;
-        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h2[e]);
-          h2[e] = __floats2bfloat162_rn(f.x * p.qscale, f.y * p.qscale);
-        }
-        *a = u;
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      scale_rows<BQ, D>(gQ, wg, t, p.qscale);
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     }
 
@@ -931,6 +1034,625 @@ __global__ void __launch_bounds__(384, 1)
     fwd_consumer<D, kDirect>(
         p, sQ, reinterpret_cast<uint4*>(smem_raw + (sQ - raw)), sKV, bars,
         wg);
+  }
+}
+
+// ----------------------------------------- bf16 backward on Hopper, D <= 256
+// (dq_bf16_sm90: K2, dkv_bf16_sm90: K3; the design is in the note at the
+// top.)  Both keep the forward's skeleton: a persistent grid of 384-thread
+// blocks, one producer thread's TMA ring under full / empty mbarriers, two
+// consumer warpgroups on wgmma (K2's taking turns to issue), setmaxnreg
+// 232 / 40.
+
+// A f32 accumulator of a 64 x (2 N) wgmma tile as the bf16 A fragments of
+// the next product (the accumulator layout is the A layout), rounded.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&f)[N / 8][4],
+                                         const float (&s)[N]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+template <int D>
+struct Sm90Dq {
+  static constexpr int BQ = 128;               // two consumer warpgroups
+  // dQ (D / 2), S and dP (BK / 2 each) and dS's fragments (BK / 4) are
+  // the registers a consumer thread holds
+  static constexpr int BK = D == 64 ? 128 : D == 256 ? 32 : 64;
+  static constexpr int STAGES = D == 192 ? 2 : 3;
+  static constexpr int kPanels = D / 64;
+  static constexpr uint32_t QBYTES = BQ * D * 2, TBYTES = BK * D * 2;
+  // align, q and dO, STAGES x (K, V), barriers
+  static constexpr size_t smem = 1024 + 2 * QBYTES + 2 * STAGES * TBYTES + 128;
+  static_assert(D % 64 == 0 && D <= 256, "the sm90 backward takes D <= 256");
+  static_assert(smem <= 232448, "over the shared memory a block may use");
+};
+
+template <int D>
+struct Sm90Dkv {
+  // above D = 128, dK and dV do not fit one warpgroup's registers: both
+  // warpgroups take the same 64 keys, warpgroup 0 dV and warpgroup 1 dK
+  static constexpr bool kSplit = D > 128;
+  static constexpr int BN = kSplit ? 64 : 128;  // keys an item
+  static constexpr int BQ = 64;                 // q rows a ring stage
+  static constexpr int STAGES = D <= 128 ? 3 : 2;
+  static constexpr int Q2 = D == 256 ? 1 : 2;   // buffers of q * scale * log2 e
+  static constexpr int kPanels = D / 64;
+  static constexpr uint32_t KVBYTES = BN * D * 2, QBYTES = BQ * D * 2;
+  static constexpr uint32_t ROWBYTES = BQ * 4;  // lse or delta of a q tile
+  // align, K, V, STAGES x (q, dO), Q2 x q2, STAGES x (lse, delta), barriers
+  static constexpr size_t smem = 1024 + 2 * KVBYTES + 2 * STAGES * QBYTES +
+                                 Q2 * QBYTES + 2 * STAGES * ROWBYTES + 128;
+  static_assert(D % 64 == 0 && D <= 256, "the sm90 backward takes D <= 256");
+  static_assert(smem <= 232448, "over the shared memory a block may use");
+};
+
+struct BwdArgs {
+  CUtensorMap q, k, v, dout;   // 4-D {D, S, H, B}, innermost first, bf16
+  const bf16* o;               // K2: the forward's output
+  Strides so;
+  bf16* out;                   // K2: dq; K3: dk   (contiguous)
+  bf16* out2;                  // K3: dv
+  const float* lse;            // [B * H, Sq], natural log
+  float* delta;                // [B * H, Sq]: written by K2, read by K3
+  int H, Hk, rep, Sq, Sk, causal;
+  int nq, nk, items;   // K2: 128-row q tiles a head; K3: q tiles a head and
+                       // key tiles a kv head; the grid's items
+  float scale, qscale;
+};
+
+// A consumer warpgroup of dq_bf16_sm90: of each item's q tile, rows r0 ..
+// r0 + 63, of which this thread holds row0 and row0 + 8.  Per k tile j: S
+// = q2 K^T and dP = dO V^T (both from shared memory), issued with dQ +=
+// dS_(j-1) K_(j-1) (dS from registers, K read MN-major); P and dS of tile
+// j are computed under that product.
+template <int D>
+__device__ __forceinline__ void dq_consumer(const BwdArgs& p, uint32_t sQ,
+                                            uint4* gQ, const uint4* gDO,
+                                            uint32_t sKV, uint32_t bars,
+                                            int wg) {
+  using C = Sm90Dq<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES;
+  constexpr uint32_t TB = C::TBYTES;
+  const uint32_t fullQ = bars, emptyQ = bars + 8, full = bars + 16;
+  const uint32_t empty = full + 8 * ST;
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const uint32_t qa = sQ + wg * 64 * 128;      // this warpgroup's q rows
+  const uint32_t da = qa + C::QBYTES;          // and dO rows
+
+  float dq[D / 2], s[BK / 2], dp[BK / 2];
+  uint32_t dsf[BK / 16][4];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 16; ++i)
+    dsf[i][0] = dsf[i][1] = dsf[i][2] = dsf[i][3] = 0u;
+  float lse2[2], dl[2];
+  int r0 = 0, row0 = 0, ring = 0;   // ring: k tiles consumed so far
+
+  auto stage = [&](int j) { return (ring + j) % ST; };
+  auto parity = [&](int j) { return (uint32_t)(((ring + j) / ST) & 1); };
+  // S = q2 K_j^T and dP = dO V_j^T: D / 16 steps of 16 columns each
+  // (descriptor offsets are in 16-byte units)
+  auto issue_sdp = [&](int j) {
+    const uint32_t k_s = sKV + 2 * stage(j) * TB;
+    const uint64_t qd = fresh(sw128_desc(qa, 16, 1024));
+    const uint64_t kd = fresh(sw128_desc(k_s, 16, 1024));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, qd + ((kk >> 2) * BQ * 8 + (kk & 3) * 2),
+               kd + ((kk >> 2) * BK * 8 + (kk & 3) * 2), kk > 0);
+    const uint64_t dd = fresh(sw128_desc(da, 16, 1024));
+    const uint64_t vd = fresh(sw128_desc(k_s + TB, 16, 1024));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, dd + ((kk >> 2) * BQ * 8 + (kk & 3) * 2),
+               vd + ((kk >> 2) * BK * 8 + (kk & 3) * 2), kk > 0);
+  };
+  // dQ += dS_j K_j: BK / 16 steps of 16 keys; K's panels BK * 128 bytes apart
+  auto issue_dq = [&](int j) {
+    const uint64_t kd =
+        fresh(sw128_desc(sKV + 2 * stage(j) * TB, BK * 128, 1024));
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(dq, dsf[kk], kd + kk * 128);
+  };
+  // dS = P (dP - delta) in s, P = exp2(S - lse * log2 e) masked, in f32
+  auto grad = [&](int j) {
+    const int k0 = j * BK;
+    const bool crosses = p.causal && k0 + BK - 1 > r0;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      float x = s[i];
+      if (crosses && k0 + (i >> 2) * 8 + 2 * tq + (i & 1) > row0 + 8 * r)
+        x = kNegInf;
+      s[i] = ex2(x - lse2[r]) * (dp[i] - dl[r]);
+    }
+  };
+
+  // the forward's ping-pong: nk + 1 turns an item for both warpgroups
+  auto turn_wait = [&]() {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory");
+  };
+  auto turn_pass = [&]() {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - wg) : "memory");
+  };
+  if (wg == 1) turn_pass();                      // warpgroup 0 goes first
+  for (int n = 0, rd = 0; rd * (int)gridDim.x < p.items; ++rd) {
+    const int item = snake_item(rd);
+    if (item >= p.items) continue;
+    const FwdItem w = fwd_item<BQ, BK>(p, item);
+    const int nk = w.nk, b = w.bh / p.H, h = w.bh % p.H;
+    r0 = w.q0 + 64 * wg;
+    row0 = r0 + 16 * warp + g;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      lse2[r] = p.lse[(long long)w.bh * p.Sq + row0 + 8 * r] * kLog2e;
+
+    mbar_wait(fullQ, n & 1);
+    // delta = rowsum(dO * O) in f32 for rows row0 and row0 + 8: this
+    // thread's quarter of the 16-byte chunks (dO swizzled in shared memory,
+    // O from device memory), summed over the row's four threads; above
+    // D = 128 one row at a time, so the loads in flight stay few
+    auto delta_row = [&](int r) {
+      const int rt = 64 * wg + 16 * warp + g + 8 * r, row = w.q0 + rt;
+      const bf16* orow = p.o + (long long)b * p.so.b + (long long)row * p.so.s +
+                         (long long)h * p.so.h;
+      float sum = 0.f;
+#pragma unroll
+      for (int m = 0; m < D / 32; ++m) {
+        const int c = tq + 4 * m;
+        uint4 ud = gDO[(c >> 3) * (BQ * 8) + rt * 8 + ((c & 7) ^ g)];
+        uint4 uo = *reinterpret_cast<const uint4*>(orow + 8 * c);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&ud);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&uo);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 fd = __bfloat1622float2(d2[e]);
+          const float2 fo = __bfloat1622float2(o2[e]);
+          sum += fd.x * fo.x + fd.y * fo.y;
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (tq == 0) p.delta[(long long)w.bh * p.Sq + row] = sum;
+      return sum;
+    };
+    if constexpr (D <= 128) {
+      dl[0] = delta_row(0);
+      dl[1] = delta_row(1);
+    } else {
+#pragma unroll 1
+      for (int r = 0; r < 2; ++r) {
+        const float d = delta_row(r);
+        if (r == 0) dl[0] = d;
+        else dl[1] = d;
+      }
+    }
+    scale_rows<BQ, D>(gQ, wg, t, p.qscale);       // q2, in place
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    if (nk > 0) {
+      mbar_wait(full + 8 * stage(0), parity(0));
+      turn_wait();
+      wg_fence();
+      issue_sdp(0);
+      wg_commit();
+      turn_pass();
+      wg_wait<0>();
+      pin(s);
+      pin(dp);
+      if (nk == 1) mbar_arrive(emptyQ);          // q and dO are read
+      grad(0);
+      acc_to_a(dsf, s);                          // dS rounded to K's dtype
+      for (int j = 1; j < nk; ++j) {
+        mbar_wait(full + 8 * stage(j), parity(j));
+        turn_wait();
+        wg_fence();
+        issue_sdp(j);
+        wg_commit();
+        issue_dq(j - 1);
+        wg_commit();
+        turn_pass();
+        wg_wait<1>();                            // S_j, dP_j; dQ still running
+        pin(s);
+        pin(dp);
+        if (j == nk - 1) mbar_arrive(emptyQ);
+        grad(j);
+        wg_wait<0>();
+        pin(dq);
+        pin(dsf);
+        mbar_arrive(empty + 8 * stage(j - 1));   // its stage is free
+        acc_to_a(dsf, s);
+      }
+      turn_wait();
+      wg_fence();
+      issue_dq(nk - 1);
+      wg_commit();
+      turn_pass();
+      wg_wait<0>();
+      pin(dq);
+      pin(dsf);
+      mbar_arrive(empty + 8 * stage(nk - 1));
+    } else {
+      mbar_arrive(emptyQ);
+    }
+    ring += nk;
+    ++n;
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      bf16* orow = p.out + ((long long)(b * p.Sq + row0 + 8 * r) * p.H + h) * D;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * tq) = pack_bf16(
+            dq[4 * c + 2 * r] * p.scale, dq[4 * c + 2 * r + 1] * p.scale);
+    }
+  }
+  if (wg == 0) turn_wait();                      // warpgroup 1's last pass
+}
+
+// K2 in bf16 up to D = 256: a persistent grid over the items (b * H + h,
+// 128-row q tile); warpgroups 0 and 1 consume, one thread of warpgroup 2
+// loads q and dO an item and K / V a k tile into the ring.
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    dq_bf16_sm90(const __grid_constant__ BwdArgs p) {
+  using C = Sm90Dq<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES, NP = C::kPanels;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023) & ~1023u;
+  const uint32_t sDO = sQ + C::QBYTES;
+  const uint32_t sKV = sDO + C::QBYTES;          // stage s: K, then V
+  // fullQ, emptyQ, full[ST], empty[ST]
+  const uint32_t bars = sKV + 2 * ST * C::TBYTES;
+  const uint32_t fullQ = bars, emptyQ = bars + 8, full = bars + 16;
+  const uint32_t empty = full + 8 * ST;
+  if (threadIdx.x == 0) {
+    mbar_init(fullQ, 1);
+    mbar_init(emptyQ, 256);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      int ring = 0;                              // k tiles loaded so far
+      for (int n = 0, rd = 0; rd * (int)gridDim.x < p.items; ++rd) {
+        const int item = snake_item(rd);
+        if (item >= p.items) continue;
+        const FwdItem w = fwd_item<BQ, BK>(p, item);
+        const int b = w.bh / p.H, h = w.bh % p.H, hk = h / p.rep;
+        if (n > 0) mbar_wait(emptyQ, (n - 1) & 1);
+        ++n;
+        mbar_expect_tx(fullQ, 2 * C::QBYTES);
+        for (int c = 0; c < NP; ++c) {
+          tma_load(sQ + c * BQ * 128, &p.q, fullQ, 64 * c, w.q0, h, b);
+          tma_load(sDO + c * BQ * 128, &p.dout, fullQ, 64 * c, w.q0, h, b);
+        }
+        for (int j = 0; j < w.nk; ++j, ++ring) {
+          const int s = ring % ST;
+          if (ring >= ST) mbar_wait(empty + 8 * s, (ring / ST - 1) & 1);
+          const uint32_t k_s = sKV + 2 * s * C::TBYTES, v_s = k_s + C::TBYTES;
+          mbar_expect_tx(full + 8 * s, 2 * C::TBYTES);
+          for (int c = 0; c < NP; ++c) {
+            tma_load(k_s + c * BK * 128, &p.k, full + 8 * s, 64 * c, j * BK,
+                     hk, b);
+            tma_load(v_s + c * BK * 128, &p.v, full + 8 * s, 64 * c, j * BK,
+                     hk, b);
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    dq_consumer<D>(p, sQ, reinterpret_cast<uint4*>(smem_raw + (sQ - raw)),
+                   reinterpret_cast<const uint4*>(smem_raw + (sDO - raw)),
+                   sKV, bars, wg);
+  }
+}
+
+// A K3 item: a key tile of (b * Hk + hk) = bhk at k0, and the q tiles that
+// see it, i0 .. nq - 1 of each of the group's rep heads (tiles = rep *
+// per), heaviest (first) key tile of a kv head first.
+struct DkvItem {
+  int bhk, k0, i0, per, tiles;
+};
+
+template <int BN, int BQ>
+__device__ __forceinline__ DkvItem dkv_item(const BwdArgs& p, int item) {
+  DkvItem it;
+  it.bhk = item / p.nk;
+  it.k0 = (item % p.nk) * BN;
+  it.i0 = p.causal ? it.k0 / BQ : 0;
+  it.per = max(0, p.nq - it.i0);
+  it.tiles = p.rep * it.per;
+  return it;
+}
+
+// A consumer warpgroup of dkv_bf16_sm90.  Rows are keys: kw0 .. kw0 + 63
+// (this thread: key0 and key0 + 8), columns the q rows of a tile.  Per q
+// tile: S^T = K q2^T and dP^T = V dO^T (from shared memory), P^T and dS^T
+// in registers, then dV += P^T dO and dK += dS^T q (A from registers, dO
+// and q read MN-major).  kSplit: both warpgroups take the same 64 keys,
+// warpgroup 0 computes S^T and dV, warpgroup 1 S^T, dP^T and dK.
+template <int D>
+__device__ __forceinline__ void dkv_consumer(const BwdArgs& p, uint32_t sK,
+                                             uint32_t sStages, uint32_t sQ2,
+                                             const float* rows, uint32_t bars,
+                                             int wg) {
+  using C = Sm90Dkv<D>;
+  constexpr int BN = C::BN, BQ = C::BQ, ST = C::STAGES, Q2 = C::Q2;
+  constexpr bool kSplit = C::kSplit;
+  constexpr uint32_t QB = C::QBYTES;
+  const uint32_t fullKV = bars, emptyKV = bars + 8, full = bars + 16;
+  const uint32_t empty = full + 8 * ST, q2full = empty + 8 * ST;
+  const uint32_t q2empty = q2full + 8 * Q2;
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const bool doK = !kSplit || wg == 1;           // dP^T and dS^T needed
+  const uint32_t ka = sK + (kSplit ? 0 : wg * 64 * 128);   // this one's keys
+  const uint32_t va = ka + C::KVBYTES;
+
+  // joint: acc = dV, acc2 = dK; kSplit: acc = dV (wg 0) or dK (wg 1)
+  float acc[D / 2], acc2[kSplit ? 1 : D / 2];
+  float s[BQ / 2], dp[BQ / 2];
+  uint32_t fa[BQ / 16][4], fb[kSplit ? 1 : BQ / 16][4];
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+  acc2[0] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQ / 16; ++i) fa[i][0] = fa[i][1] = fa[i][2] = fa[i][3] = 0u;
+  fb[0][0] = fb[0][1] = fb[0][2] = fb[0][3] = 0u;
+  int ring = 0;                                  // q tiles consumed so far
+
+  // S^T = K q2^T (and dP^T = V dO^T): D / 16 steps of 16 columns
+  // (descriptor offsets are in 16-byte units); S^T and dP^T are two
+  // commit groups, so q2 is released as soon as S^T is done
+  auto issue_a = [&](uint32_t q2_s, uint32_t do_s) {
+    const uint64_t kd = fresh(sw128_desc(ka, 16, 1024));
+    const uint64_t qd = fresh(sw128_desc(q2_s, 16, 1024));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, kd + ((kk >> 2) * BN * 8 + (kk & 3) * 2),
+               qd + ((kk >> 2) * BQ * 8 + (kk & 3) * 2), kk > 0);
+    wg_commit();
+    if (doK) {
+      const uint64_t vd = fresh(sw128_desc(va, 16, 1024));
+      const uint64_t dd = fresh(sw128_desc(do_s, 16, 1024));
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dp, vd + ((kk >> 2) * BN * 8 + (kk & 3) * 2),
+                 dd + ((kk >> 2) * BQ * 8 + (kk & 3) * 2), kk > 0);
+    }
+  };
+  // dV += P^T dO, dK += dS^T q: BQ / 16 steps of 16 q rows (2048 bytes);
+  // the panels of dO and q are BQ * 128 bytes apart
+  auto issue_b = [&](uint32_t q_s, uint32_t do_s) {
+    if constexpr (kSplit) {
+      const uint64_t bd =
+          fresh(sw128_desc(wg == 0 ? do_s : q_s, BQ * 128, 1024));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(acc, fa[kk], bd + kk * 128);
+    } else {
+      const uint64_t dd = fresh(sw128_desc(do_s, BQ * 128, 1024));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(acc, fa[kk], dd + kk * 128);
+      const uint64_t qd = fresh(sw128_desc(q_s, BQ * 128, 1024));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(acc2, fb[kk], qd + kk * 128);
+    }
+  };
+  // P^T = exp2(S^T - lse * log2 e) masked (key > query) into s, dS^T =
+  // P^T (dP^T - delta) into dp, in f32
+  auto grads = [&](const float* lse, int q0, int kw0) {
+    const float* dlt = lse + BQ;
+    const int key0 = kw0 + 16 * warp + g;
+    const bool crosses = p.causal && q0 < kw0 + 63;
+#pragma unroll
+    for (int nb = 0; nb < BQ / 8; ++nb) {
+      const float2 l = *reinterpret_cast<const float2*>(lse + 8 * nb + 2 * tq);
+      const float2 d = *reinterpret_cast<const float2*>(dlt + 8 * nb + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * nb + e;
+        float x = s[i];
+        if (crosses && key0 + 8 * (e >> 1) > q0 + 8 * nb + 2 * tq + (e & 1))
+          x = kNegInf;
+        const float pr = ex2(x - (e & 1 ? l.y : l.x) * kLog2e);
+        s[i] = pr;
+        dp[i] = pr * (dp[i] - (e & 1 ? d.y : d.x));
+      }
+    }
+  };
+  // the A fragments of dV += P^T dO and dK += dS^T q, rounded
+  auto to_frags = [&]() {
+    if constexpr (kSplit) {
+      if (wg == 0) acc_to_a(fa, s);              // P rounded to dO's dtype
+      else acc_to_a(fa, dp);                     // dS rounded to q's dtype
+    } else {
+      acc_to_a(fa, s);
+      acc_to_a(fb, dp);
+    }
+  };
+  auto store = [&](bf16* base, const float (&a)[D / 2], float mul, int key0,
+                   int b, int hk) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      bf16* orow = base + ((long long)(b * p.Sk + key0 + 8 * r) * p.Hk + hk) * D;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * tq) = pack_bf16(
+            a[4 * c + 2 * r] * mul, a[4 * c + 2 * r + 1] * mul);
+    }
+  };
+
+  for (int n = 0, rd = 0; rd * (int)gridDim.x < p.items; ++rd) {
+    const int item = snake_item(rd);
+    if (item >= p.items) continue;
+    const DkvItem w = dkv_item<BN, BQ>(p, item);
+    const int b = w.bhk / p.Hk, hk = w.bhk % p.Hk;
+    const int kw0 = w.k0 + (kSplit ? 0 : 64 * wg);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    if constexpr (!kSplit) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc2[i] = 0.f;
+    }
+    mbar_wait(fullKV, n & 1);                    // n: items consumed
+    if (w.tiles == 0) mbar_arrive(emptyKV);
+    for (int tt = 0; tt < w.tiles; ++tt, ++ring) {
+      const int q0 = (w.i0 + tt % w.per) * BQ;
+      const int st = ring % ST, slot = ring % Q2;
+      const uint32_t q_s = sStages + 2 * st * QB, do_s = q_s + QB;
+      mbar_wait(full + 8 * st, (ring / ST) & 1);
+      mbar_wait(q2full + 8 * slot, (ring / Q2) & 1);
+      wg_fence();
+      issue_a(sQ2 + slot * QB, do_s);
+      wg_commit();
+      wg_wait<1>();                              // S^T: q2 is read
+      pin(s);
+      mbar_arrive(q2empty + 8 * slot);
+      wg_wait<0>();
+      pin(dp);
+      if (tt == w.tiles - 1) mbar_arrive(emptyKV);   // K and V are read
+      grads(rows + 2 * st * BQ, q0, kw0);
+      to_frags();
+      wg_fence();
+      issue_b(q_s, do_s);
+      wg_commit();
+      wg_wait<0>();
+      pin(acc);
+      pin(acc2);
+      pin(fa);
+      pin(fb);
+      mbar_arrive(empty + 8 * st);
+    }
+    ++n;
+    const int key0 = kw0 + 16 * warp + g;
+    if constexpr (kSplit) {
+      if (wg == 0) store(p.out2, acc, 1.f, key0, b, hk);
+      else store(p.out, acc, p.scale, key0, b, hk);
+    } else {
+      store(p.out2, acc, 1.f, key0, b, hk);
+      store(p.out, acc2, p.scale, key0, b, hk);
+    }
+  }
+}
+
+// K3 in bf16 up to D = 256: a persistent grid over the items (b * Hk + hk,
+// key tile).  Warpgroups 0 and 1 consume.  In warpgroup 2, one thread
+// loads an item's K / V, then q, dO, and the q tile's LSE and delta rows
+// into the ring (for each of the group's heads, each q tile that sees the
+// keys); warps 9-11 write q2 = q * scale * log2 e from each landed q tile
+// into a q2 buffer for S^T, since dK takes the unscaled q.
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    dkv_bf16_sm90(const __grid_constant__ BwdArgs p) {
+  using C = Sm90Dkv<D>;
+  constexpr int BN = C::BN, BQ = C::BQ, ST = C::STAGES, Q2 = C::Q2;
+  constexpr int NP = C::kPanels;
+  constexpr uint32_t QB = C::QBYTES, RB = C::ROWBYTES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023) & ~1023u;
+  const uint32_t sV = sK + C::KVBYTES;
+  const uint32_t sStages = sV + C::KVBYTES;      // stage s: q, then dO
+  const uint32_t sQ2 = sStages + 2 * ST * QB;
+  const uint32_t sRows = sQ2 + Q2 * QB;          // stage s: lse, then delta
+  // fullKV, emptyKV, full[ST], empty[ST], q2full[Q2], q2empty[Q2]
+  const uint32_t bars = sRows + 2 * ST * RB;
+  const uint32_t fullKV = bars, emptyKV = bars + 8, full = bars + 16;
+  const uint32_t empty = full + 8 * ST, q2full = empty + 8 * ST;
+  const uint32_t q2empty = q2full + 8 * Q2;
+  if (threadIdx.x == 0) {
+    mbar_init(fullKV, 1);
+    mbar_init(emptyKV, 256);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
+    }
+    for (int s = 0; s < Q2; ++s) {
+      mbar_init(q2full + 8 * s, 96);
+      mbar_init(q2empty + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {                    // the loads
+      int ring = 0;                              // q tiles loaded so far
+      for (int n = 0, rd = 0; rd * (int)gridDim.x < p.items; ++rd) {
+        const int item = snake_item(rd);
+        if (item >= p.items) continue;
+        const DkvItem w = dkv_item<BN, BQ>(p, item);
+        const int b = w.bhk / p.Hk, hk = w.bhk % p.Hk;
+        if (n > 0) mbar_wait(emptyKV, (n - 1) & 1);
+        ++n;
+        mbar_expect_tx(fullKV, 2 * C::KVBYTES);
+        for (int c = 0; c < NP; ++c) {
+          tma_load(sK + c * BN * 128, &p.k, fullKV, 64 * c, w.k0, hk, b);
+          tma_load(sV + c * BN * 128, &p.v, fullKV, 64 * c, w.k0, hk, b);
+        }
+        for (int tt = 0; tt < w.tiles; ++tt, ++ring) {
+          const int h = hk * p.rep + tt / w.per;
+          const int q0 = (w.i0 + tt % w.per) * BQ;
+          const long long row = (long long)(b * p.H + h) * p.Sq + q0;
+          const int s = ring % ST;
+          if (ring >= ST) mbar_wait(empty + 8 * s, (ring / ST - 1) & 1);
+          const uint32_t q_s = sStages + 2 * s * QB, r_s = sRows + 2 * s * RB;
+          mbar_expect_tx(full + 8 * s, 2 * QB + 2 * RB);
+          for (int c = 0; c < NP; ++c) {
+            tma_load(q_s + c * BQ * 128, &p.q, full + 8 * s, 64 * c, q0, h, b);
+            tma_load(q_s + QB + c * BQ * 128, &p.dout, full + 8 * s, 64 * c,
+                     q0, h, b);
+          }
+          bulk_load(r_s, p.lse + row, RB, full + 8 * s);
+          bulk_load(r_s + RB, p.delta + row, RB, full + 8 * s);
+        }
+      }
+    } else if (threadIdx.x >= 288) {             // q2 from each landed q
+      const int ct = threadIdx.x - 288;
+      const uint4* gStages =
+          reinterpret_cast<const uint4*>(smem_raw + (sStages - raw));
+      uint4* gQ2 = reinterpret_cast<uint4*>(smem_raw + (sQ2 - raw));
+      int ring = 0;
+      for (int rd = 0; rd * (int)gridDim.x < p.items; ++rd) {
+        const int item = snake_item(rd);
+        if (item >= p.items) continue;
+        const DkvItem w = dkv_item<BN, BQ>(p, item);
+        for (int tt = 0; tt < w.tiles; ++tt, ++ring) {
+          const int s = ring % ST, slot = ring % Q2;
+          mbar_wait(full + 8 * s, (ring / ST) & 1);
+          if (ring >= Q2) mbar_wait(q2empty + 8 * slot, (ring / Q2 - 1) & 1);
+          const uint4* src = gStages + 2 * s * (QB / 16);
+          uint4* dst = gQ2 + slot * (QB / 16);
+          for (int i = ct; i < (int)(QB / 16); i += 96)
+            dst[i] = scale_chunk(src[i], p.qscale);
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_arrive(q2full + 8 * slot);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    dkv_consumer<D>(p, sK, sStages, sQ2,
+                    reinterpret_cast<const float*>(smem_raw + (sRows - raw)),
+                    bars, wg);
   }
 }
 
@@ -1645,11 +2367,39 @@ bool tensor_map(CUtensorMap* map, const void* base, const Strides& st, int B,
                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The current device's primary context made current on this thread
+// before a tensor map is encoded: the encoder is a driver call and needs
+// one, and autograd runs the backward on a thread of its own, where none
+// may be current yet (the map then fails to encode).
+cudaError_t bind_context() {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  return e == cudaSuccess ? cudaSetDevice(dev) : e;
+}
+
+// One block of 384 threads an SM (or an item), `smem` dynamic bytes.
+template <typename A>
+cudaError_t launch_persistent(void (*kern)(A), int items, size_t smem,
+                              cudaStream_t st, const A& a) {
+  if (items == 0) return cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<min(items, sms), 384, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 template <int D, bool kDirect>
 cudaError_t launch_fwd_sm90(const Params& p, cudaStream_t st) {
   using C = Sm90Fwd<D>;
   if (p.Sq % C::BQ || p.Sk % C::BK) return cudaErrorInvalidValue;
   if (!encode_tiled()) return cudaErrorNotSupported;
+  if (const cudaError_t e = bind_context()) return e;
   FwdArgs a;
   if (!tensor_map(&a.q, p.q, p.sq, p.B, p.Sq, p.H, D, C::BQ) ||
       !tensor_map(&a.k, p.k, p.sk, p.B, p.Sk, p.Hk, D, C::BK) ||
@@ -1661,17 +2411,54 @@ cudaError_t launch_fwd_sm90(const Params& p, cudaStream_t st) {
   a.causal = p.causal; a.qscale = p.qscale;
   a.nq = p.Sq / C::BQ;
   a.items = p.B * p.H * a.nq;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  auto kern = fwd_bf16_sm90<D, kDirect>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)C::smem);
-  if (e != cudaSuccess) return e;
-  kern<<<min(a.items, sms), C::kThreads, C::smem, st>>>(a);
-  return cudaGetLastError();
+  return launch_persistent(fwd_bf16_sm90<D, kDirect>, a.items, C::smem, st, a);
+}
+
+// K2 (w == kDq) or K3 in bf16 up to D = 256: the sm90 bodies.  q and dO
+// are read in tiles of `qrows` rows, K and V of `krows`.
+BwdArgs bwd_args(const Params& p, int D, int qrows, int krows, bool* ok) {
+  BwdArgs a;
+  *ok = tensor_map(&a.q, p.q, p.sq, p.B, p.Sq, p.H, D, qrows) &&
+        tensor_map(&a.dout, p.dout, p.sdo, p.B, p.Sq, p.H, D, qrows) &&
+        tensor_map(&a.k, p.k, p.sk, p.B, p.Sk, p.Hk, D, krows) &&
+        tensor_map(&a.v, p.v, p.sv, p.B, p.Sk, p.Hk, D, krows);
+  a.o = static_cast<const bf16*>(p.o);
+  a.so = p.so;
+  a.out = static_cast<bf16*>(p.out);
+  a.out2 = static_cast<bf16*>(p.out2);
+  a.lse = p.lse;
+  a.delta = p.delta;
+  a.H = p.H; a.Hk = p.Hk; a.rep = p.H / p.Hk; a.Sq = p.Sq; a.Sk = p.Sk;
+  a.causal = p.causal; a.scale = p.scale; a.qscale = p.qscale;
+  a.nq = p.Sq / qrows;
+  a.nk = p.Sk / krows;
+  return a;
+}
+
+template <int D>
+cudaError_t launch_dq_sm90(const Params& p, cudaStream_t st) {
+  using C = Sm90Dq<D>;
+  if (p.Sq % C::BQ || p.Sk % C::BK) return cudaErrorInvalidValue;
+  if (!encode_tiled()) return cudaErrorNotSupported;
+  if (const cudaError_t e = bind_context()) return e;
+  bool ok = false;
+  BwdArgs a = bwd_args(p, D, C::BQ, C::BK, &ok);
+  if (!ok) return cudaErrorInvalidValue;
+  a.items = p.B * p.H * a.nq;
+  return launch_persistent(dq_bf16_sm90<D>, a.items, C::smem, st, a);
+}
+
+template <int D>
+cudaError_t launch_dkv_sm90(const Params& p, cudaStream_t st) {
+  using C = Sm90Dkv<D>;
+  if (p.Sq % C::BQ || p.Sk % C::BN) return cudaErrorInvalidValue;
+  if (!encode_tiled()) return cudaErrorNotSupported;
+  if (const cudaError_t e = bind_context()) return e;
+  bool ok = false;
+  BwdArgs a = bwd_args(p, D, C::BQ, C::BN, &ok);
+  if (!ok) return cudaErrorInvalidValue;
+  a.items = p.B * p.Hk * a.nk;
+  return launch_persistent(dkv_bf16_sm90<D>, a.items, C::smem, st, a);
 }
 
 template <typename K>
@@ -1702,16 +2489,20 @@ cudaError_t dispatch(Which w, int dtype, const Params& p, cudaStream_t st) {
                       kThreads, C::smem, st, p);
       }
     }
-    if (w == kDq) {
-      using C = DqTile<D>;
+    if constexpr (D <= 256 && !kDirect) {        // K2, K3
+      return w == kDq ? launch_dq_sm90<D>(p, st) : launch_dkv_sm90<D>(p, st);
+    } else {                                     // K4-dq, K4-dkv; D > 256
+      if (w == kDq) {
+        using C = DqTile<D>;
+        if (p.Sq % C::BQ || p.Sk % C::BK) return cudaErrorInvalidValue;
+        return launch(dq_bf16<D, kDirect>, dim3(p.Sq / C::BQ, BH, C::NC),
+                      kThreads, C::smem, st, p);
+      }
+      using C = DkvTile<D, kDirect>;
       if (p.Sq % C::BQ || p.Sk % C::BK) return cudaErrorInvalidValue;
-      return launch(dq_bf16<D, kDirect>, dim3(p.Sq / C::BQ, BH, C::NC), kThreads,
-                    C::smem, st, p);
+      return launch(dkv_bf16<D, kDirect>, dim3(p.Sk / C::BK, BHk, C::NC),
+                    C::NT, C::smem, st, p);
     }
-    using C = DkvTile<D, kDirect>;
-    if (p.Sq % C::BQ || p.Sk % C::BK) return cudaErrorInvalidValue;
-    return launch(dkv_bf16<D, kDirect>, dim3(p.Sk / C::BK, BHk, C::NC), C::NT,
-                  C::smem, st, p);
   }
   using C = F32Tile<D, kDirect>;
   if (p.Sq % C::T || p.Sk % C::T) return cudaErrorInvalidValue;
@@ -1763,6 +2554,36 @@ cudaError_t fwd_plan_by_dim(int D, int* out) {
     case 128: return fwd_plan<128, kDirect>(out);
     case 192: return fwd_plan<192, kDirect>(out);
     case 256: return fwd_plan<256, kDirect>(out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 backward's plans at head_dim D <= 256 as compiled (see
+// flash_bwd_plan): K2 (dkv = false) or K3.
+template <int D>
+cudaError_t bwd_plan(bool dkv, int* out) {
+  using Q = Sm90Dq<D>;
+  using K = Sm90Dkv<D>;
+  cudaFuncAttributes fa;
+  const cudaError_t e = dkv ? cudaFuncGetAttributes(&fa, dkv_bf16_sm90<D>)
+                            : cudaFuncGetAttributes(&fa, dq_bf16_sm90<D>);
+  if (e != cudaSuccess) return e;
+  const int v[11] = {dkv ? K::BQ : Q::BQ, dkv ? K::BN : Q::BK,
+                     dkv ? K::STAGES : Q::STAGES, dkv ? K::Q2 : 0,
+                     dkv ? (int)K::kSplit : 0,
+                     (int)(dkv ? K::smem : Q::smem), 384, fa.numRegs,
+                     (int)fa.localSizeBytes, (int)fa.sharedSizeBytes,
+                     fa.maxThreadsPerBlock};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
+  return cudaSuccess;
+}
+
+cudaError_t bwd_plan_by_dim(int D, bool dkv, int* out) {
+  switch (D) {
+    case 64: return bwd_plan<64>(dkv, out);
+    case 128: return bwd_plan<128>(dkv, out);
+    case 192: return bwd_plan<192>(dkv, out);
+    case 256: return bwd_plan<256>(dkv, out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1820,6 +2641,17 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
 int flash_fwd_plan(int D, int direct, int* out) {
   return (int)(direct ? fwd_plan_by_dim<true>(D, out)
                       : fwd_plan_by_dim<false>(D, out));
+}
+
+// The bf16 backward's tile plan at head_dim D (64, 128, 192 or 256), as
+// compiled, of K2 (dkv = 0) or K3 (dkv = 1): out[0..10] = q rows (K2: a
+// block; K3: a ring stage), keys (K2: a ring stage; K3: a block), stages,
+// q2 buffers (K3), split (K3: 1 if the two consumer warpgroups hold dV and
+// dK of the same keys), dynamic shared bytes, threads a block, and from
+// cudaFuncGetAttributes the body's registers a thread (at entry), local
+// (spill) bytes, static shared bytes and largest block.
+int flash_bwd_plan(int D, int dkv, int* out) {
+  return (int)bwd_plan_by_dim(D, dkv != 0, out);
 }
 
 // K2 / K4-dq: dq from q, k, v, o, dO and lse; also writes delta.

@@ -33,7 +33,9 @@ lanes).  There is no block autotuning: the kernels use one tile choice per
 head_dim, recorded in the source; the bf16 forward's (K1 and K4-fwd up to
 head_dim 256: a producer warp's TMA ring feeding two wgmma consumer
 warpgroups) is also recorded here, :data:`FWD_PLAN`, and
-``flash_fwd_plan`` reports the compiled one on the card.
+``flash_fwd_plan`` reports the compiled one on the card; so are the bf16
+backward's (K2 and K3 up to head_dim 256, on the forward's skeleton),
+:data:`BWD_PLAN`, reported by ``flash_bwd_plan``.
 """
 from __future__ import annotations
 
@@ -47,8 +49,8 @@ from . import _build
 from ..core.flags import flag
 
 __all__ = ["flash_attention_bshd", "flash_fwd_ref", "flash_bwd_ref",
-           "bshd_fwd_ref", "bshd_bwd_ref", "supported", "fwd_plan", "BQ",
-           "BK", "NEG_INF", "FWD_PLAN"]
+           "bshd_fwd_ref", "bshd_bwd_ref", "supported", "fwd_plan", "bwd_plan",
+           "BQ", "BK", "NEG_INF", "FWD_PLAN", "BWD_PLAN"]
 
 BQ = 128
 BK = 128
@@ -63,6 +65,15 @@ _B_BQ, _B_BK = 512, 512
 # head_dim -> (q rows a block, keys a K / V tile, ring stages)
 FWD_PLAN = {64: (128, 128, 3), 128: (128, 128, 3), 192: (128, 64, 3),
             256: (128, 64, 2)}
+# The bf16 backward's at head_dim <= 256 (``Sm90Dq`` / ``Sm90Dkv``):
+# head_dim -> ((K2: q rows a block, keys a K / V tile, ring stages),
+#              (K3: q rows a ring stage, keys a block, ring stages, q2
+#               buffers, split: the two consumer warpgroups hold dV and dK
+#               of the same 64 keys instead of both of 64 keys each))
+BWD_PLAN = {64: ((128, 128, 3), (64, 128, 3, 2, 0)),
+            128: ((128, 64, 3), (64, 128, 3, 2, 0)),
+            192: ((128, 64, 2), (64, 64, 2, 2, 1)),
+            256: ((128, 32, 3), (64, 64, 2, 1, 1))}
 SMEM_PER_BLOCK = 232448                     # what a Hopper block may use
 _lib = None
 
@@ -79,8 +90,9 @@ def _kernel_lib():
         lib.flash_bwd_dkv.argtypes = [vp] * 9 + tail
         for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
             fn.restype = ci
-        lib.flash_fwd_plan.argtypes = [ci, ci, vp]
-        lib.flash_fwd_plan.restype = ci
+        for fn in (lib.flash_fwd_plan, lib.flash_bwd_plan):
+            fn.argtypes = [ci, ci, vp]
+            fn.restype = ci
         lib.paddle_cuda_error_string.argtypes = [ci]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -133,6 +145,43 @@ def compiled_fwd_plan(D, direct=False):
     keys = ("bq", "bk", "stages", "smem", "threads", "registers",
             "local_bytes", "static_smem", "max_threads")
     return dict(zip(keys, out))
+
+
+def bwd_plan(D):
+    """The bf16 backward's tile plans at head_dim ``D`` (64, 128, 192 or
+    256) as this module records them, ``{"dq": ..., "dkv": ...}``: q rows
+    and keys of a tile (K2: 128 q rows a block over a ring of K / V tiles;
+    K3: a block of keys over a ring of q / dO tiles with their LSE and
+    delta rows), ring stages, K3's q2 buffers and split, threads (two
+    consumer warpgroups and one producer warpgroup) and the dynamic shared
+    memory a block takes: 1024 bytes to align the 128-byte swizzle, the
+    tiles, 128 bytes of barriers."""
+    (bq, bk, st), (kbq, kbk, kst, q2, split) = BWD_PLAN[D]
+    return {"dq": {"bq": bq, "bk": bk, "stages": st, "threads": 384,
+                   "smem": 1024 + 2 * (2 * bq * D) + st * 2 * (2 * bk * D)
+                   + 128},
+            "dkv": {"bq": kbq, "bk": kbk, "stages": kst, "q2": q2,
+                    "split": split, "threads": 384,
+                    "smem": 1024 + 2 * (2 * kbk * D)
+                    + kst * (2 * (2 * kbq * D) + 2 * 4 * kbq)
+                    + q2 * 2 * kbq * D + 128}}
+
+
+def compiled_bwd_plan(D):
+    """The same plans as the card's library compiled them
+    (``flash_bwd_plan``), each with the body's registers a thread at
+    entry, local (spill) bytes, static shared bytes and largest block."""
+    keys = ("bq", "bk", "stages", "q2", "split", "smem", "threads",
+            "registers", "local_bytes", "static_smem", "max_threads")
+    out = {}
+    for i, role in enumerate(("dq", "dkv")):
+        vals = (ctypes.c_int * 11)()
+        _raise_on(_kernel_lib().flash_bwd_plan(D, i, vals), "backward plan")
+        got = dict(zip(keys, vals))
+        if role == "dq":
+            del got["q2"], got["split"]
+        out[role] = got
+    return out
 
 
 def _scale(D, scale):

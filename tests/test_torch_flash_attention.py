@@ -207,6 +207,45 @@ def test_forward_tile_plan_fits_the_card_and_every_supported_shape(D):
         assert S % bq == 0 and S % bk == 0
 
 
+@pytest.mark.parametrize("D", sorted(tfa.BWD_PLAN))
+def test_backward_tile_plan_fits_the_card_and_every_supported_shape(D):
+    """The bf16 backward's tiles at each head_dim up to 256, as the wrapper
+    records them (``chip_smoke.py`` holds the card's compiled plans to the
+    same numbers).  K2: two consumer warpgroups of 64 q rows over a ring of
+    K / V tiles whose width is a wgmma width (a multiple of 8 up to 256)
+    and a whole number of 16-key steps.  K3: a ring of q tiles of such a
+    width over the keys of a block, two warpgroups of 64 keys each, or,
+    split, both on the same 64 keys where dK and dV together (D f32
+    registers a thread) would not fit beside the score tiles.  Shared
+    memory within what a Hopper block may use; every sequence length that
+    ``supported()`` accepts (a multiple of 128) divides into the tiles."""
+    plan = tfa.bwd_plan(D)
+    dq, dkv = plan["dq"], plan["dkv"]
+    assert ((dq["bq"], dq["bk"], dq["stages"]),
+            (dkv["bq"], dkv["bk"], dkv["stages"], dkv["q2"],
+             dkv["split"])) == tfa.BWD_PLAN[D]
+    assert dq["bq"] == 128 and dq["stages"] >= 2
+    assert dq["bk"] % 16 == 0 and dq["bk"] <= 256
+    assert dq["smem"] == (1024 + 2 * 2 * dq["bq"] * D
+                          + dq["stages"] * 2 * 2 * dq["bk"] * D + 128)
+    assert dkv["bq"] % 16 == 0 and dkv["bq"] <= 256
+    assert dkv["split"] == int(D > 128)
+    assert dkv["bk"] == (64 if dkv["split"] else 128)
+    assert (D // 2 if dkv["split"] else D) <= 128
+    assert dkv["stages"] >= 2 and dkv["q2"] >= 1
+    tile = 2 * dkv["bq"] * D
+    assert dkv["smem"] == (1024 + 2 * 2 * dkv["bk"] * D
+                           + dkv["stages"] * (2 * tile + 2 * 4 * dkv["bq"])
+                           + dkv["q2"] * tile + 128)
+    for p in (dq, dkv):
+        assert p["threads"] == 384
+        assert p["smem"] <= tfa.SMEM_PER_BLOCK == 232448
+    for S in range(128, 8193, 128):
+        assert supported((1, S, 2, D), (1, S, 1, D))
+        assert S % dq["bq"] == 0 and S % dq["bk"] == 0
+        assert S % dkv["bq"] == 0 and S % dkv["bk"] == 0
+
+
 def _strides_legal(t):
     """What a TMA tensor map needs of a tensor the kernels read in place:
     a 16-byte aligned base, a unit last stride, every other stride of a
@@ -281,3 +320,53 @@ def test_cuda_bf16_forward_matches_plain_versions(cuda_device, D):
         ro, rl = ref(*t, True, s)
         torch.testing.assert_close(o.float(), ro.float(), rtol=0, atol=2e-2)
         torch.testing.assert_close(lse, rl, rtol=0, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", sorted(tfa.BWD_PLAN), ids=lambda d: f"d{d}")
+def test_cuda_bf16_backward_matches_plain_versions(cuda_device, D):
+    """On the card, the bf16 backward (K2 and K3) against
+    ``flash_bwd_ref`` at 2e-2 of each gradient's largest reference
+    magnitude, and bitwise the same on a second run and through autograd
+    (whose backward runs on a thread of its own): MHA and GQA 4:1, causal
+    over three q tiles, not causal with Sk != Sq, and on q / k / v views
+    of one fused projection; the compiled tile plans are the recorded ones,
+    with no spills."""
+    got = tfa.compiled_bwd_plan(D)
+    want = tfa.bwd_plan(D)
+    for role in ("dq", "dkv"):
+        assert {k: got[role][k] for k in want[role]} == want[role]
+        assert got[role]["local_bytes"] == 0
+    s = 1.0 / np.sqrt(D)
+    rng = np.random.RandomState(7)
+
+    def card(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            cuda_device).bfloat16()
+    fused = card(2, 256, 3, 4, D).unbind(2)
+    cases = [((card(2, 384, 4, D), card(2, 384, 4, D), card(2, 384, 4, D)),
+              True),
+             ((card(2, 384, 8, D), card(2, 384, 2, D), card(2, 384, 2, D)),
+              True),
+             ((card(1, 256, 8, D), card(1, 640, 2, D), card(1, 640, 2, D)),
+              False),
+             (fused, True)]
+    for (q, k, v), causal in cases:
+        do = card(*q.shape)
+        o, lse = flash_fwd_ref(q, k, v, causal, s)
+        want = flash_bwd_ref(q, k, v, o, lse, do, causal, s)
+        runs = []
+        for _ in range(2):
+            dq, delta = tfa._launch_dq(q, k, v, o, lse, do, causal, s)
+            dk, dv = tfa._launch_dkv(q, k, v, o, lse, do, delta, causal, s)
+            runs.append((dq, dk, dv))
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        if q.is_contiguous():
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            flash_attention_bshd(*leaves, causal=causal).backward(do)
+            assert all(torch.equal(t.grad, g)
+                       for t, g in zip(leaves, runs[0]))
+        for g, w in zip(runs[0], want):
+            scale = w.float().abs().max().item()
+            torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                       atol=2e-2 * scale)
