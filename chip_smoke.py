@@ -25,10 +25,11 @@ Phases (any failure raises and the script exits non-zero):
    issue, beside SDPA's), by the profiler's device time of its two
    launches and by the host's time per call, piece by piece; its split
    blocks that pass the early exit are counted on the card.
-   Then the flash-attention kernels of training: first the bf16
-   forward's tile plan at head_dim 64-256 as the card's library compiled
-   it, held to the one ``ops/flash_attention.py`` records (no spills, no
-   setmaxnreg ignored; each body's ptxas report printed); then K1
+   Then the flash-attention kernels of training: first the bf16 tile
+   plans at head_dim 64-256 (the forward K1 / K4-fwd, the backward K2 /
+   K3 and K4-dq / K4-dkv) as the card's library compiled them, held to
+   the ones ``ops/flash_attention.py`` records (no spills, no setmaxnreg
+   ignored; each body's ptxas report printed); then K1
    (forward), K2 (dQ) and K3 (dK / dV) against their plain versions at
    the GPT-2 bench shape (B16 S1024 H12 D64, causal, bf16), the
    Llama-shaped one (B8 S1024 H16 KVH4 D128, GQA), head_dim 192, 256 and
@@ -36,14 +37,15 @@ Phases (any failure raises and the script exits non-zero):
    views of one fused projection, and six float32 cases (TF32 off); and
    K4, the layout-direct bodies of the ``FLAGS_flash_layout_direct``
    path, against theirs at GPT-2's shape, MHA at head_dim 128, 192, 256
-   and 512, a non-causal case, S 128 and 384, fused views and three
-   float32 cases; every case run twice and bitwise the same.  Each is
-   then timed at the GPT-2, head_dim-256 and head_dim-512 shapes (K1-K3
-   also at the Llama one) beside its plain version, SDPA's forward /
-   backward and its bound: ``ms``, ``held_ms``, profiler device time,
-   host microseconds a call, TFLOP/s and share of the bound, SDPA's on
-   the same readings.  head_dim 320, 384 and
-   512 run forward and backward through ``flash_attention_bshd`` on the
+   and 512, a non-causal case, Sk != Sq, S 128 and 384, fused views and
+   three float32 cases; every case run twice and bitwise the same.  Each
+   is then timed at the GPT-2, MHA head_dim-192, head_dim-256 and
+   head_dim-512 shapes (K1-K3 also at the Llama one, K4 at MHA head_dim
+   128) beside its plain version, SDPA's forward / backward and its
+   bound: ``ms``, ``held_ms``,
+   profiler device time, host microseconds a call, TFLOP/s and share of
+   the bound, SDPA's on the same readings.  head_dim 320, 384 and 512
+   run forward and backward through ``flash_attention_bshd`` on the
    card (K1-K3, and K4 with the flag), one launch each, held to the plain
    versions; 576 is refused before any launch.
 3. engine: a float32 tiny Llama bridged from seeded numpy weights serves
@@ -92,8 +94,8 @@ Phases (any failure raises and the script exits non-zero):
    the dequant formulation, F.linear on dequantized bf16 weights, and the
    library's int8 call where it runs on CUDA.
 6. the decode and verify windows' lines, the ``kernels`` JSON line (all
-   twelve kernels, each launched on its path; K5-K7q with their design and
-   split plan), the card line, and last the result line.
+   twelve kernels, each launched on its path; K1-K7q with their design and
+   tile or split plan), the card line, and last the result line.
 """
 from __future__ import annotations
 
@@ -677,7 +679,8 @@ FLASH_CASES = [
     ("f32 d512", 1, 256, 2, 2, 512, False, torch.float32),
 ]
 # K4 (MHA only): GPT-2's shape, head_dim 128, 192, 256 and 512,
-# non-causal, S 128 and 384, fused-qkv views, float32
+# non-causal, Sk != Sq without the mask, S 128 and 384, fused-qkv views,
+# float32
 K4_CASES = [
     ("gpt2", 16, 1024, 12, 12, 64, True, torch.bfloat16),
     ("d128", 4, 1024, 8, 8, 128, True, torch.bfloat16),
@@ -685,6 +688,7 @@ K4_CASES = [
     ("d256", 4, 1024, 8, 8, 256, True, torch.bfloat16),
     ("d512", 4, 1024, 8, 8, 512, True, torch.bfloat16),
     ("non-causal", 4, 512, 12, 12, 64, False, torch.bfloat16),
+    ("sk768", 2, 256, 8, 8, 64, False, torch.bfloat16, {"Sk": 768}),
     ("s128", 4, 128, 12, 12, 256, True, torch.bfloat16),
     ("s384", 2, 384, 8, 8, 192, True, torch.bfloat16),
     ("fused-qkv", 4, 512, 12, 12, 64, True, torch.bfloat16,
@@ -693,8 +697,10 @@ K4_CASES = [
     ("f32 d256", 1, 256, 2, 2, 256, True, torch.float32),
     ("f32 d512", 1, 256, 2, 2, 512, True, torch.float32),
 ]
-FLASH_TIMED = {False: ("gpt2", "llama", "d256", "d512"),
-               True: ("gpt2", "d256", "d512")}
+# GPT-2's shape and head_dim 192 (MHA) are timed on both paths: K2 / K3
+# against K4 on the same shapes
+FLASH_TIMED = {False: ("gpt2", "llama", "d192", "d256", "d512"),
+               True: ("gpt2", "d128", "d192", "d256", "d512")}
 # the device kernels of each role's bodies (every width and both paths)
 FLASH_BODIES = {"fwd": ("fwd_bf16",), "dq": ("dq_bf16",),
                 "dkv": ("dkv_bf16",)}
@@ -725,8 +731,12 @@ BWD_DESIGN = ("up to head_dim 256 in bf16, on the forward's skeleton: "
               "dO^T, then dV += P^T dO and dK += dS^T q (dO and q MN-major), "
               "dK and dV summed over the group in registers, no atomics; "
               "above head_dim 128 warpgroup 0 holds dV and warpgroup 1 dK of "
-              "the same 64 keys, each computing S^T.  K4-dq / K4-dkv, head_dim "
-              "320-512 and f32: the mma.sync bodies")
+              "the same 64 keys, each computing S^T.  K4-dq / K4-dkv: the "
+              "same two bodies with K4's numerics (kDirect): q is not scaled, "
+              "each score of the raw q K^T is multiplied by scale * log2 e in "
+              "f32, and K4-dkv takes S^T = K q^T from the ring stage's own q "
+              "tile, with no q2 buffer or writer warps.  Head_dim 320-512 and "
+              "f32: the mma.sync and CUDA-core bodies")
 # forward (o and lse, absolute) and gradient tolerances, those of
 # tests/test_pallas_kernels.py: float32 absolute; bf16 gradients at 2e-2 of
 # the largest reference magnitude (they scale with the inputs)
@@ -931,14 +941,15 @@ class FlashCase:
 
 
 def _ptxas_bodies(log, name):
-    """{(D, direct): (registers, spill line)} of the kernel ``name`` from
-    nvcc's -Xptxas -v report (a body without the ``direct`` parameter
-    counts as not direct)."""
+    """{(D, direct): (registers, spill line, serialized)} of the kernel
+    ``name`` from nvcc's -Xptxas -v report (a body without the ``direct``
+    parameter counts as not direct); ``serialized``: ptxas warned that the
+    body's wgmma instructions are serialized (C7520)."""
     import re
     out, lines = {}, log.splitlines()
     for i, line in enumerate(lines):
-        m = re.search(rf"Compiling entry function '\S*{name}ILi(\d+)E"
-                      rf"(?:Lb(\d)E)?", line)
+        m = re.search(rf"Compiling entry function '(\S*{name}ILi(\d+)E"
+                      rf"(?:Lb(\d)E)?\S*)'", line)
         if not m:
             continue
         regs = spill = None
@@ -948,8 +959,19 @@ def _ptxas_bodies(log, name):
             spill = spill or (nxt.strip() if "spill" in nxt else None)
             r = re.search(r"Used (\d+) registers", nxt)
             regs = regs or (int(r.group(1)) if r else None)
-        out[(int(m.group(1)), bool(int(m.group(2) or 0)))] = (regs, spill)
+        serialized = any("C7520" in x and m.group(1) in x for x in lines)
+        out[(int(m.group(2)), bool(int(m.group(3) or 0)))] = (regs, spill,
+                                                              serialized)
     return out
+
+
+def _ptxas_report(ptxas, key, log):
+    regs, spill, serialized = ptxas.get(key, (None, None, False))
+    if spill:
+        return (f"registers {regs}, {spill}"
+                + ("; wgmma serialized (C7520)" if serialized else ""))
+    return ("no report" if log else
+            "not in this process (library from the build cache)")
 
 
 def fwd_plan_check():
@@ -978,10 +1000,7 @@ def fwd_plan_check():
             check(got["local_bytes"] == 0,
                   f"forward D={D} direct={direct} uses {got['local_bytes']} "
                   f"bytes of local memory (spills)")
-            regs, spill = ptxas.get((D, direct), (None, None))
-            report = (f"registers {regs}, {spill}" if spill else
-                      "no report" if log else
-                      "not in this process (library from the build cache)")
+            report = _ptxas_report(ptxas, (D, direct), log)
             print(f"flash forward fwd_bf16_sm90<{D}, {str(direct).lower()}> "
                   f"({'K4-fwd' if direct else 'K1'}): BQ {got['bq']} x BK "
                   f"{got['bk']}, {got['stages']} stages, {got['threads']} "
@@ -995,51 +1014,54 @@ def fwd_plan_check():
 
 
 def bwd_plan_check():
-    """The bf16 backward's tile plans (K2: dq_bf16_sm90, K3:
-    dkv_bf16_sm90) at every head_dim they take, as the card's library
-    compiled them (``flash_bwd_plan``), against the ones
-    ``ops/flash_attention.py`` records; no local memory (spills), and no
+    """The bf16 backward's tile plans (K2 / K4-dq: dq_bf16_sm90, K3 /
+    K4-dkv: dkv_bf16_sm90, the K4 bodies with ``direct``) at every
+    head_dim they take, as the card's library compiled them
+    (``flash_bwd_plan``), against the ones ``ops/flash_attention.py``
+    records (K4-dkv with no q2 buffer); no local memory (spills), and no
     setmaxnreg ignored by ptxas.  Prints each body's ptxas report; returns
-    the plans at GPT-2's head_dim 64."""
+    the plans at GPT-2's head_dim 64, by ``direct``."""
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     log = _build.LOGS.get("flash_attention", "")
     if log:
         check("C7508" not in log and "setmaxnreg ignored" not in log,
               "ptxas ignored setmaxnreg in flash_attention.cu")
+    ptxas = {body: _ptxas_bodies(log, body)
+             for body in ("dq_bf16_sm90", "dkv_bf16_sm90")}
     plans = {}
     for D in sorted(fa.BWD_PLAN):
-        want, got = fa.bwd_plan(D), fa.compiled_bwd_plan(D)
-        for role, kern, body in (("dq", "K2", "dq_bf16_sm90"),
-                                 ("dkv", "K3", "dkv_bf16_sm90")):
-            w, g = want[role], got[role]
-            check(w["smem"] <= fa.SMEM_PER_BLOCK,
-                  f"the {kern} plan at D={D} takes {w['smem']} bytes")
-            check(all(g[k] == v for k, v in w.items()),
-                  f"{kern} plan D={D}: compiled {g}, recorded {w}")
-            check(g["local_bytes"] == 0,
-                  f"{kern} D={D} uses {g['local_bytes']} bytes of local "
-                  f"memory (spills)")
-            regs, spill = _ptxas_bodies(log, body).get((D, False),
-                                                       (None, None))
-            report = (f"registers {regs}, {spill}" if spill else
-                      "no report" if log else
-                      "not in this process (library from the build cache)")
-            tiles = (f"{g['bq']} q rows x {g['bk']} keys a k tile" if
-                     role == "dq" else
-                     f"{g['bk']} keys x {g['bq']} q rows a q tile, "
-                     f"{g['q2']} q2 buffers, "
-                     f"{'split dV / dK' if g['split'] else 'dK and dV'} "
-                     f"a warpgroup")
-            print(f"flash backward {body}<{D}> ({kern}): {tiles}, "
-                  f"{g['stages']} stages, {g['threads']} threads, dynamic "
-                  f"shared memory {g['smem']} of {fa.SMEM_PER_BLOCK} bytes, "
-                  f"static {g['static_smem']}; registers {g['registers']} a "
-                  f"thread at entry (setmaxnreg: consumers 232, producer "
-                  f"40), local {g['local_bytes']} bytes; ptxas: {report}",
-                  flush=True)
-        plans[D] = got
-    return plans[64]
+        for direct in (False, True):
+            want = fa.bwd_plan(D, direct)
+            got = fa.compiled_bwd_plan(D, direct)
+            for role, body in (("dq", "dq_bf16_sm90"),
+                               ("dkv", "dkv_bf16_sm90")):
+                kern = ROLE_KERNEL[(role, direct)]
+                w, g = want[role], got[role]
+                check(w["smem"] <= fa.SMEM_PER_BLOCK,
+                      f"the {kern} plan at D={D} takes {w['smem']} bytes")
+                check(all(g[k] == v for k, v in w.items()),
+                      f"{kern} plan D={D}: compiled {g}, recorded {w}")
+                check(g["local_bytes"] == 0,
+                      f"{kern} D={D} uses {g['local_bytes']} bytes of local "
+                      f"memory (spills)")
+                report = _ptxas_report(ptxas[body], (D, direct), log)
+                tiles = (f"{g['bq']} q rows x {g['bk']} keys a k tile" if
+                         role == "dq" else
+                         f"{g['bk']} keys x {g['bq']} q rows a q tile, "
+                         f"{g['q2']} q2 buffers, "
+                         f"{'split dV / dK' if g['split'] else 'dK and dV'} "
+                         f"a warpgroup")
+                print(f"flash backward {body}<{D}, {str(direct).lower()}> "
+                      f"({kern}): {tiles}, {g['stages']} stages, "
+                      f"{g['threads']} threads, dynamic shared memory "
+                      f"{g['smem']} of {fa.SMEM_PER_BLOCK} bytes, static "
+                      f"{g['static_smem']}; registers {g['registers']} a "
+                      f"thread at entry (setmaxnreg: consumers 232, producer "
+                      f"40), local {g['local_bytes']} bytes; ptxas: {report}",
+                      flush=True)
+            plans[(D, direct)] = got
+    return {direct: plans[(64, direct)] for direct in (False, True)}
 
 
 def flash_kernel_phase(dev, timer):
@@ -1130,9 +1152,9 @@ def flash_kernel_phase(dev, timer):
             line["plan"] = {k: plan[k] for k in ("bq", "bk", "stages",
                                                  "smem", "threads",
                                                  "registers")}
-        elif not direct:
+        else:
             line["design"] = BWD_DESIGN
-            line["plan"] = {k: v for k, v in bplan[role].items()
+            line["plan"] = {k: v for k, v in bplan[direct][role].items()
                             if k not in ("local_bytes", "static_smem",
                                          "max_threads")}
         lines.append(line)

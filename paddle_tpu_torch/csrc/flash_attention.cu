@@ -84,8 +84,8 @@
 // 230,528 at D 128).  Every barrier wait is bounded: a wait of more than
 // 2^32 clocks traps, so a phase bug is a launch error, not a hang.
 //
-// The bf16 backward up to D = 256 (K2: dq_bf16_sm90, K3: dkv_bf16_sm90)
-// keeps that skeleton: a persistent grid of 384-thread blocks in the same
+// The bf16 backward up to D = 256 (K2 and K4-dq: dq_bf16_sm90, K3 and
+// K4-dkv: dkv_bf16_sm90) keeps that skeleton: a persistent grid of 384-thread blocks in the same
 // head-major snake rounds, one producer thread's TMA ring (the same 4-D
 // maps, so fused-qkv views, GQA K / V and dO are read in place) under
 // bounded full / empty barriers, two consumer warpgroups on wgmma,
@@ -130,47 +130,45 @@
 //   flops a pair instead of 8 D (the mma.sync body's eight warps cost 12
 //   D).  Passing P^T through shared memory instead would save the product
 //   but make warpgroup 0 wait on warpgroup 1's elementwise work each tile.
-// Tiles (K2: BQ x BK, stages; K3: keys x BQ, stages, q2 buffers): D 64:
-// 128 x 128, 3 and 128 x 64, 3, 2; D 128: 128 x 64, 3 and 128 x 64, 3, 2;
-// D 192: 128 x 64, 2 and 64 x 64, 2, 2 (split); D 256: 128 x 32, 3 and 64 x
-// 64, 2, 1 (split; 231,552 bytes of shared memory, the most of any body).
+//   K4 (kDirect) changes the numerics only: K4-dq leaves its q rows as
+//   they landed, and K4-dkv takes S^T = K q^T from the ring stage's own q
+//   tile, so it has no q2 buffers, no q2 barriers and no q2 writer warps;
+//   both multiply each raw score by scale * log2 e in f32 before the mask
+//   and the exp2.  A third K4-dkv stage at D 192, which the freed q2 room
+//   allows, measured no faster on the H100 and was left out.
+// Tiles (K2 / K4-dq: BQ x BK, stages; K3: keys x BQ, stages, q2 buffers;
+// K4-dkv: K3's with no q2 buffer): D 64: 128 x 128, 3 and 128 x 64, 3, 2;
+// D 128: 128 x 64, 3 and 128 x 64, 3, 2; D 192: 128 x 64, 2 and 64 x 64,
+// 2, 2 (split); D 256: 128 x 32, 3 and 64 x 64, 2, 1 (split; K3 231,552
+// bytes of shared memory, the most of any body; K4-dkv 198,784).
 //
-// The other bf16 bodies (the forward above D = 256; K4-dq and K4-dkv at
-// every D; K2 and K3 above D = 256) run on the tensor cores with mma.sync
-// m16n8k16 (bf16 x bf16 -> f32), each warp owning 16 rows (the forward
-// and dQ: queries; dK / dV: keys).  The products whose
-// A operand is a score tile (P V, dS K, P^T dO, dS^T q) take it straight
-// from the accumulator registers of the product before (the m16n8 C layout
-// of two n-blocks is the m16k16 A layout), so the score tiles never touch
-// shared memory.  Tiles are staged in shared memory with 16-byte loads;
-// rows are padded by 16 bytes so every fragment load is free of bank
-// conflicts.  Fixed Hopper tiles (no autotune), four warps a block except
-// the dK / dV body above D = 128:
-//   forward above D = 256: 64 q rows x 32 keys;
-//   dQ (K4-dq; K2 above 256): 64 q rows x 64 keys (D = 64) or x 32 keys
-//       (D >= 128);
-//   dK / dV (K4-dkv; K3 above 256): 64 keys x 64 q rows (D = 64), x 32 q
-//       rows (D 128 - 256) or x 16 q rows (above 256).
-// Registers set the tiles: a warp's 16-row f32 accumulator is D / 2
-// registers a thread (128 at D = 256), of 255.  Up to D = 128 the q (and
-// dO) fragments are held in registers for the whole k loop; above it they
-// are read again from shared memory at each 16-wide k step.  dK and dV
-// together are D f32 registers a thread, too many above D = 128, so there
-// the dK / dV body runs eight warps: warps w and w + 4 own the same 16
-// keys, each recomputes their S^T and dP^T tiles over the full D and
-// accumulates dK and dV for its half of the columns (96 or 128).  That
-// costs it 1.5x the products of one warp a key group (12 D flops instead
-// of 8 D a pair), but
-// needs no shared-memory accumulators and no exchange of P between warps.
-// Above D = 256 (320 - 512, every multiple of 64) no accumulator fits a
-// warp, so the output columns are split over a third grid dimension of NC
-// = 2 blocks: each block of a pair computes the same scores (and dP) over
-// the full D from the same tiles and accumulates O (dQ; dK and dV) for its
-// half of the columns only, D / 2 <= 256, which is the D = 256 case again.
-// The pair repeats the score products (K1 6 D flops a pair instead of 4 D,
-// K2 10 D instead of 6 D, K3 20 D instead of 8 D); only the first block of
-// a pair writes the LSE (K1) and delta (K2).  This repairs a gap (the
-// reference takes any head_dim % 64 == 0); it is right, not tuned.
+// The other bf16 bodies (every path above D = 256: the forward, dQ and
+// dK / dV) run on the tensor cores with mma.sync m16n8k16 (bf16 x bf16 ->
+// f32), each warp owning 16 rows (the forward and dQ: queries; dK / dV:
+// keys).  The products whose A operand is a score tile (P V, dS K, P^T
+// dO, dS^T q) take it straight from the accumulator registers of the
+// product before (the m16n8 C layout of two n-blocks is the m16k16 A
+// layout), so the score tiles never touch shared memory.  Tiles are
+// staged in shared memory with 16-byte loads; rows are padded by 16 bytes
+// so every fragment load is free of bank conflicts, and the q (and dO)
+// fragments are read again from shared memory at each 16-wide k step.
+// Fixed Hopper tiles (no autotune): the forward 64 q rows x 32 keys and
+// dQ 64 q rows x 32 keys, four warps a block; dK / dV 64 keys x 16 q rows,
+// eight warps: dK and dV together are D f32 registers a thread, too many
+// for one warp, so warps w and w + 4 own the same 16 keys, each
+// recomputes their S^T and dP^T tiles over the full D and accumulates dK
+// and dV for its half of the block's columns, with no shared-memory
+// accumulators and no exchange of P between warps.  No accumulator of the
+// full D fits a warp (a warp's 16-row f32 accumulator is D / 2 registers
+// a thread, of 255), so the output columns are split over a third grid
+// dimension of NC = 2 blocks: each block of a pair computes the same
+// scores (and dP) over the full D from the same tiles and accumulates O
+// (dQ; dK and dV) for its half of the columns only, D / 2 <= 256.  The
+// pair repeats the score products (K1 6 D flops a pair instead of 4 D, K2
+// 10 D instead of 6 D, K3 20 D instead of 8 D); only the first block of a
+// pair writes the LSE (K1) and delta (K2).  This repairs a gap (the
+// reference takes any head_dim % 64 == 0, 320 - 512 here); it is right,
+// not tuned.
 // float32 runs on CUDA cores in full f32 (TF32 cannot meet the reference's
 // 2e-5 bar): a plain block of 128 threads over 32 x 32 tiles in shared
 // memory (16 x 16 above D = 256; K3: 32 keys x 16 q rows at D = 256, 16 x 8
@@ -186,12 +184,13 @@
 // O(S D) bytes.  At GPT-2's D = 64 and S = 1024, K1 and K2 sit just under
 // the card's ~295 flop/byte bf16 ridge (bound by bytes, about 0.03 and
 // 0.05 ms); K3, and all three at D >= 128, sit above it (bound by the 989
-// TFLOP/s of the tensor cores).  The mma.sync bodies take about ten times
-// their bound: how fast synchronous loads feed mma.sync sets their time,
-// not the card's limits (tiles loaded synchronously with no ring, causal
-// blocks of unequal work, K3 loading each q tile twice).  The sm90 bodies
-// answer each of these: wgmma, a TMA ring overlapping the next tile with
-// the current products, a persistent grid in snake order, q loaded once.
+// TFLOP/s of the tensor cores).  The mma.sync bodies took about ten times
+// their bound up to D 256: how fast synchronous loads feed mma.sync set
+// their time, not the card's limits (tiles loaded synchronously with no
+// ring, causal blocks of unequal work, K3 loading each q tile twice).  The
+// sm90 bodies answer each of these: wgmma, a TMA ring overlapping the next
+// tile with the current products, a persistent grid in snake order, q
+// loaded once.
 #include <cuda.h>            // CUtensorMap and its enums (no -lcuda)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -260,21 +259,6 @@ __device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t, int ld,
   a[1] = lds32(p + 8 * ld);
   a[2] = lds32(p + 8);
   a[3] = lds32(p + 8 * ld + 8);
-}
-
-// A fragment for k step kc of a warp's 16 rows at r0: from the registers
-// held since the tile was staged (kHold) or read again from the tile.
-template <bool kHold, int N>
-__device__ __forceinline__ void row_frag(uint32_t (&a)[4],
-                                         const uint32_t (&held)[N][4],
-                                         const bf16* t, int ld, int r0,
-                                         int kc, int g, int tq) {
-  if constexpr (kHold) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = held[kc][i];
-  } else {
-    frag_a(a, t, ld, r0, kc * 16, g, tq);
-  }
 }
 
 // B fragment (16 k x 8 n) from a tile stored t[n][k] (K for q K^T).
@@ -1071,7 +1055,7 @@ struct Sm90Dq {
   static_assert(smem <= 232448, "over the shared memory a block may use");
 };
 
-template <int D>
+template <int D, bool kDirect>
 struct Sm90Dkv {
   // above D = 128, dK and dV do not fit one warpgroup's registers: both
   // warpgroups take the same 64 keys, warpgroup 0 dV and warpgroup 1 dK
@@ -1079,7 +1063,9 @@ struct Sm90Dkv {
   static constexpr int BN = kSplit ? 64 : 128;  // keys an item
   static constexpr int BQ = 64;                 // q rows a ring stage
   static constexpr int STAGES = D <= 128 ? 3 : 2;
-  static constexpr int Q2 = D == 256 ? 1 : 2;   // buffers of q * scale * log2 e
+  // buffers of q * scale * log2 e: K4 scores the stage's own q tile and
+  // needs none
+  static constexpr int Q2 = kDirect ? 0 : D == 256 ? 1 : 2;
   static constexpr int kPanels = D / 64;
   static constexpr uint32_t KVBYTES = BN * D * 2, QBYTES = BQ * D * 2;
   static constexpr uint32_t ROWBYTES = BQ * 4;  // lse or delta of a q tile
@@ -1106,10 +1092,11 @@ struct BwdArgs {
 
 // A consumer warpgroup of dq_bf16_sm90: of each item's q tile, rows r0 ..
 // r0 + 63, of which this thread holds row0 and row0 + 8.  Per k tile j: S
-// = q2 K^T and dP = dO V^T (both from shared memory), issued with dQ +=
-// dS_(j-1) K_(j-1) (dS from registers, K read MN-major); P and dS of tile
-// j are computed under that product.
-template <int D>
+// = q2 K^T (K4: q K^T, times scale * log2 e in f32) and dP = dO V^T (both
+// from shared memory), issued with dQ += dS_(j-1) K_(j-1) (dS from
+// registers, K read MN-major); P and dS of tile j are computed under that
+// product.
+template <int D, bool kDirect>
 __device__ __forceinline__ void dq_consumer(const BwdArgs& p, uint32_t sQ,
                                             uint4* gQ, const uint4* gDO,
                                             uint32_t sKV, uint32_t bars,
@@ -1136,8 +1123,8 @@ __device__ __forceinline__ void dq_consumer(const BwdArgs& p, uint32_t sQ,
 
   auto stage = [&](int j) { return (ring + j) % ST; };
   auto parity = [&](int j) { return (uint32_t)(((ring + j) / ST) & 1); };
-  // S = q2 K_j^T and dP = dO V_j^T: D / 16 steps of 16 columns each
-  // (descriptor offsets are in 16-byte units)
+  // S = q2 K_j^T (K4: q K_j^T) and dP = dO V_j^T: D / 16 steps of 16
+  // columns each (descriptor offsets are in 16-byte units)
   auto issue_sdp = [&](int j) {
     const uint32_t k_s = sKV + 2 * stage(j) * TB;
     const uint64_t qd = fresh(sw128_desc(qa, 16, 1024));
@@ -1161,6 +1148,7 @@ __device__ __forceinline__ void dq_consumer(const BwdArgs& p, uint32_t sQ,
     for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(dq, dsf[kk], kd + kk * 128);
   };
   // dS = P (dP - delta) in s, P = exp2(S - lse * log2 e) masked, in f32
+  // (K4: S is the raw q K^T times scale * log2 e)
   auto grad = [&](int j) {
     const int k0 = j * BK;
     const bool crosses = p.causal && k0 + BK - 1 > r0;
@@ -1168,6 +1156,7 @@ __device__ __forceinline__ void dq_consumer(const BwdArgs& p, uint32_t sQ,
     for (int i = 0; i < BK / 2; ++i) {
       const int r = (i >> 1) & 1;
       float x = s[i];
+      if constexpr (kDirect) x *= p.qscale;
       if (crosses && k0 + (i >> 2) * 8 + 2 * tq + (i & 1) > row0 + 8 * r)
         x = kNegInf;
       s[i] = ex2(x - lse2[r]) * (dp[i] - dl[r]);
@@ -1233,8 +1222,10 @@ __device__ __forceinline__ void dq_consumer(const BwdArgs& p, uint32_t sQ,
         else dl[1] = d;
       }
     }
-    scale_rows<BQ, D>(gQ, wg, t, p.qscale);       // q2, in place
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if constexpr (!kDirect) {   // K2: q2, in place
+      scale_rows<BQ, D>(gQ, wg, t, p.qscale);
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
@@ -1298,10 +1289,10 @@ __device__ __forceinline__ void dq_consumer(const BwdArgs& p, uint32_t sQ,
   if (wg == 0) turn_wait();                      // warpgroup 1's last pass
 }
 
-// K2 in bf16 up to D = 256: a persistent grid over the items (b * H + h,
-// 128-row q tile); warpgroups 0 and 1 consume, one thread of warpgroup 2
-// loads q and dO an item and K / V a k tile into the ring.
-template <int D>
+// K2 / K4-dq in bf16 up to D = 256: a persistent grid over the items
+// (b * H + h, 128-row q tile); warpgroups 0 and 1 consume, one thread of
+// warpgroup 2 loads q and dO an item and K / V a k tile into the ring.
+template <int D, bool kDirect>
 __global__ void __launch_bounds__(384, 1)
     dq_bf16_sm90(const __grid_constant__ BwdArgs p) {
   using C = Sm90Dq<D>;
@@ -1358,9 +1349,9 @@ __global__ void __launch_bounds__(384, 1)
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    dq_consumer<D>(p, sQ, reinterpret_cast<uint4*>(smem_raw + (sQ - raw)),
-                   reinterpret_cast<const uint4*>(smem_raw + (sDO - raw)),
-                   sKV, bars, wg);
+    dq_consumer<D, kDirect>(
+        p, sQ, reinterpret_cast<uint4*>(smem_raw + (sQ - raw)),
+        reinterpret_cast<const uint4*>(smem_raw + (sDO - raw)), sKV, bars, wg);
   }
 }
 
@@ -1384,16 +1375,17 @@ __device__ __forceinline__ DkvItem dkv_item(const BwdArgs& p, int item) {
 
 // A consumer warpgroup of dkv_bf16_sm90.  Rows are keys: kw0 .. kw0 + 63
 // (this thread: key0 and key0 + 8), columns the q rows of a tile.  Per q
-// tile: S^T = K q2^T and dP^T = V dO^T (from shared memory), P^T and dS^T
-// in registers, then dV += P^T dO and dK += dS^T q (A from registers, dO
-// and q read MN-major).  kSplit: both warpgroups take the same 64 keys,
+// tile: S^T = K q2^T (K4: K q^T from the stage's q tile, times scale *
+// log2 e in f32) and dP^T = V dO^T (from shared memory), P^T and dS^T in
+// registers, then dV += P^T dO and dK += dS^T q (A from registers, dO and
+// q read MN-major).  kSplit: both warpgroups take the same 64 keys,
 // warpgroup 0 computes S^T and dV, warpgroup 1 S^T, dP^T and dK.
-template <int D>
+template <int D, bool kDirect>
 __device__ __forceinline__ void dkv_consumer(const BwdArgs& p, uint32_t sK,
                                              uint32_t sStages, uint32_t sQ2,
                                              const float* rows, uint32_t bars,
                                              int wg) {
-  using C = Sm90Dkv<D>;
+  using C = Sm90Dkv<D, kDirect>;
   constexpr int BN = C::BN, BQ = C::BQ, ST = C::STAGES, Q2 = C::Q2;
   constexpr bool kSplit = C::kSplit;
   constexpr uint32_t QB = C::QBYTES;
@@ -1418,9 +1410,9 @@ __device__ __forceinline__ void dkv_consumer(const BwdArgs& p, uint32_t sK,
   fb[0][0] = fb[0][1] = fb[0][2] = fb[0][3] = 0u;
   int ring = 0;                                  // q tiles consumed so far
 
-  // S^T = K q2^T (and dP^T = V dO^T): D / 16 steps of 16 columns
-  // (descriptor offsets are in 16-byte units); S^T and dP^T are two
-  // commit groups, so q2 is released as soon as S^T is done
+  // S^T = K q2^T (K4: K q^T) and dP^T = V dO^T: D / 16 steps of 16
+  // columns (descriptor offsets are in 16-byte units); S^T and dP^T are
+  // two commit groups, so K3 releases q2 as soon as S^T is done
   auto issue_a = [&](uint32_t q2_s, uint32_t do_s) {
     const uint64_t kd = fresh(sw128_desc(ka, 16, 1024));
     const uint64_t qd = fresh(sw128_desc(q2_s, 16, 1024));
@@ -1456,7 +1448,8 @@ __device__ __forceinline__ void dkv_consumer(const BwdArgs& p, uint32_t sK,
     }
   };
   // P^T = exp2(S^T - lse * log2 e) masked (key > query) into s, dS^T =
-  // P^T (dP^T - delta) into dp, in f32
+  // P^T (dP^T - delta) into dp, in f32 (K4: S^T is the raw K q^T times
+  // scale * log2 e)
   auto grads = [&](const float* lse, int q0, int kw0) {
     const float* dlt = lse + BQ;
     const int key0 = kw0 + 16 * warp + g;
@@ -1469,6 +1462,7 @@ __device__ __forceinline__ void dkv_consumer(const BwdArgs& p, uint32_t sK,
       for (int e = 0; e < 4; ++e) {
         const int i = 4 * nb + e;
         float x = s[i];
+        if constexpr (kDirect) x *= p.qscale;
         if (crosses && key0 + 8 * (e >> 1) > q0 + 8 * nb + 2 * tq + (e & 1))
           x = kNegInf;
         const float pr = ex2(x - (e & 1 ? l.y : l.x) * kLog2e);
@@ -1515,17 +1509,26 @@ __device__ __forceinline__ void dkv_consumer(const BwdArgs& p, uint32_t sK,
     if (w.tiles == 0) mbar_arrive(emptyKV);
     for (int tt = 0; tt < w.tiles; ++tt, ++ring) {
       const int q0 = (w.i0 + tt % w.per) * BQ;
-      const int st = ring % ST, slot = ring % Q2;
+      const int st = ring % ST;
       const uint32_t q_s = sStages + 2 * st * QB, do_s = q_s + QB;
       mbar_wait(full + 8 * st, (ring / ST) & 1);
-      mbar_wait(q2full + 8 * slot, (ring / Q2) & 1);
-      wg_fence();
-      issue_a(sQ2 + slot * QB, do_s);
-      wg_commit();
-      wg_wait<1>();                              // S^T: q2 is read
-      pin(s);
-      mbar_arrive(q2empty + 8 * slot);
-      wg_wait<0>();
+      if constexpr (kDirect) {                   // S^T from the stage's q
+        wg_fence();
+        issue_a(q_s, do_s);
+        wg_commit();
+        wg_wait<0>();
+        pin(s);
+      } else {
+        const int slot = ring % Q2;
+        mbar_wait(q2full + 8 * slot, (ring / Q2) & 1);
+        wg_fence();
+        issue_a(sQ2 + slot * QB, do_s);
+        wg_commit();
+        wg_wait<1>();                            // S^T: q2 is read
+        pin(s);
+        mbar_arrive(q2empty + 8 * slot);
+        wg_wait<0>();
+      }
       pin(dp);
       if (tt == w.tiles - 1) mbar_arrive(emptyKV);   // K and V are read
       grads(rows + 2 * st * BQ, q0, kw0);
@@ -1552,16 +1555,17 @@ __device__ __forceinline__ void dkv_consumer(const BwdArgs& p, uint32_t sK,
   }
 }
 
-// K3 in bf16 up to D = 256: a persistent grid over the items (b * Hk + hk,
-// key tile).  Warpgroups 0 and 1 consume.  In warpgroup 2, one thread
-// loads an item's K / V, then q, dO, and the q tile's LSE and delta rows
-// into the ring (for each of the group's heads, each q tile that sees the
-// keys); warps 9-11 write q2 = q * scale * log2 e from each landed q tile
-// into a q2 buffer for S^T, since dK takes the unscaled q.
-template <int D>
+// K3 / K4-dkv in bf16 up to D = 256: a persistent grid over the items
+// (b * Hk + hk, key tile).  Warpgroups 0 and 1 consume.  In warpgroup 2,
+// one thread loads an item's K / V, then q, dO, and the q tile's LSE and
+// delta rows into the ring (for each of the group's heads, each q tile
+// that sees the keys); for K3, warps 9-11 write q2 = q * scale * log2 e
+// from each landed q tile into a q2 buffer for S^T, since dK takes the
+// unscaled q.  K4 scores the unscaled q, so it has no q2 buffers.
+template <int D, bool kDirect>
 __global__ void __launch_bounds__(384, 1)
     dkv_bf16_sm90(const __grid_constant__ BwdArgs p) {
-  using C = Sm90Dkv<D>;
+  using C = Sm90Dkv<D, kDirect>;
   constexpr int BN = C::BN, BQ = C::BQ, ST = C::STAGES, Q2 = C::Q2;
   constexpr int NP = C::kPanels;
   constexpr uint32_t QB = C::QBYTES, RB = C::ROWBYTES;
@@ -1625,34 +1629,36 @@ __global__ void __launch_bounds__(384, 1)
           bulk_load(r_s + RB, p.delta + row, RB, full + 8 * s);
         }
       }
-    } else if (threadIdx.x >= 288) {             // q2 from each landed q
-      const int ct = threadIdx.x - 288;
-      const uint4* gStages =
-          reinterpret_cast<const uint4*>(smem_raw + (sStages - raw));
-      uint4* gQ2 = reinterpret_cast<uint4*>(smem_raw + (sQ2 - raw));
-      int ring = 0;
-      for (int rd = 0; rd * (int)gridDim.x < p.items; ++rd) {
-        const int item = snake_item(rd);
-        if (item >= p.items) continue;
-        const DkvItem w = dkv_item<BN, BQ>(p, item);
-        for (int tt = 0; tt < w.tiles; ++tt, ++ring) {
-          const int s = ring % ST, slot = ring % Q2;
-          mbar_wait(full + 8 * s, (ring / ST) & 1);
-          if (ring >= Q2) mbar_wait(q2empty + 8 * slot, (ring / Q2 - 1) & 1);
-          const uint4* src = gStages + 2 * s * (QB / 16);
-          uint4* dst = gQ2 + slot * (QB / 16);
-          for (int i = ct; i < (int)(QB / 16); i += 96)
-            dst[i] = scale_chunk(src[i], p.qscale);
-          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-          mbar_arrive(q2full + 8 * slot);
+    } else if constexpr (!kDirect) {
+      if (threadIdx.x >= 288) {                  // q2 from each landed q
+        const int ct = threadIdx.x - 288;
+        const uint4* gStages =
+            reinterpret_cast<const uint4*>(smem_raw + (sStages - raw));
+        uint4* gQ2 = reinterpret_cast<uint4*>(smem_raw + (sQ2 - raw));
+        int ring = 0;
+        for (int rd = 0; rd * (int)gridDim.x < p.items; ++rd) {
+          const int item = snake_item(rd);
+          if (item >= p.items) continue;
+          const DkvItem w = dkv_item<BN, BQ>(p, item);
+          for (int tt = 0; tt < w.tiles; ++tt, ++ring) {
+            const int s = ring % ST, slot = ring % Q2;
+            mbar_wait(full + 8 * s, (ring / ST) & 1);
+            if (ring >= Q2) mbar_wait(q2empty + 8 * slot, (ring / Q2 - 1) & 1);
+            const uint4* src = gStages + 2 * s * (QB / 16);
+            uint4* dst = gQ2 + slot * (QB / 16);
+            for (int i = ct; i < (int)(QB / 16); i += 96)
+              dst[i] = scale_chunk(src[i], p.qscale);
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            mbar_arrive(q2full + 8 * slot);
+          }
         }
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    dkv_consumer<D>(p, sK, sStages, sQ2,
-                    reinterpret_cast<const float*>(smem_raw + (sRows - raw)),
-                    bars, wg);
+    dkv_consumer<D, kDirect>(
+        p, sK, sStages, sQ2,
+        reinterpret_cast<const float*>(smem_raw + (sRows - raw)), bars, wg);
   }
 }
 
@@ -1779,23 +1785,23 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16(const Params p) {
   }
 }
 
+// The mma.sync dQ body, above D = 256 only (dq_bf16_sm90 takes the rest).
 template <int D>
 struct DqTile {
-  static constexpr int BQ = 64, BK = D == 64 ? 64 : 32, LD = D + 8;
-  static constexpr bool kHold = D <= 128;      // q, dO fragments in registers
-  static constexpr int NC = D > 256 ? 2 : 1;   // column chunks (grid z)
+  static_assert(D > 256, "D <= 256 runs dq_bf16_sm90");
+  static constexpr int BQ = 64, BK = 32, LD = D + 8;
+  static constexpr int NC = 2;                 // column chunks (grid z)
   static constexpr int DC = D / NC;            // dQ columns a block owns
   static constexpr size_t smem =
       (size_t)(2 * BQ + 2 * BK) * LD * sizeof(bf16) + 2 * BQ * sizeof(float);
 };
 
-// K2 / K4-dq.  Block: 64 q rows of one (b, h) and dQ columns c0 .. c0 +
-// DC - 1; warp w owns rows 16w .. 16w + 15.
+// K2 / K4-dq above D = 256.  Block: 64 q rows of one (b, h) and dQ
+// columns c0 .. c0 + DC - 1; warp w owns rows 16w .. 16w + 15.
 template <int D, bool kDirect>
 __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
   using C = DqTile<D>;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, DC = C::DC;
-  constexpr bool kHold = C::kHold;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);      // q (K2: * scale * log2 e)
   bf16* sdO = sQ + BQ * LD;
@@ -1842,14 +1848,6 @@ __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
     }
   }
   __syncthreads();
-  uint32_t qf[kHold ? D / 16 : 1][4], df[kHold ? D / 16 : 1][4];
-  if constexpr (kHold) {
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      frag_a(qf[kc], sQ, LD, warp * 16, kc * 16, g, tq);
-      frag_a(df[kc], sdO, LD, warp * 16, kc * 16, g, tq);
-    }
-  }
   const float lse2[2] = {sL[warp * 16 + g], sL[warp * 16 + g + 8]};
   const float dl[2] = {sDl[warp * 16 + g], sDl[warp * 16 + g + 8]};
   float dq[DC / 8][4];
@@ -1874,8 +1872,8 @@ __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc) {
       uint32_t aq[4], ad[4];
-      row_frag<kHold>(aq, qf, sQ, LD, warp * 16, kc, g, tq);
-      row_frag<kHold>(ad, df, sdO, LD, warp * 16, kc, g, tq);
+      frag_a(aq, sQ, LD, warp * 16, kc * 16, g, tq);
+      frag_a(ad, sdO, LD, warp * 16, kc * 16, g, tq);
 #pragma unroll
       for (int nb = 0; nb < BK / 8; ++nb) {
         uint32_t bf[2];
@@ -1922,12 +1920,14 @@ __global__ void __launch_bounds__(kThreads) dq_bf16(const Params p) {
   }
 }
 
+// The mma.sync dK / dV body, above D = 256 only (dkv_bf16_sm90 takes the
+// rest).
 template <int D, bool kDirect>
 struct DkvTile {
-  static constexpr int BK = 64, BQ = D == 64 ? 64 : D > 256 ? 16 : 32;
-  static constexpr int LD = D + 8;
-  static constexpr int NS = D > 128 ? 2 : 1;   // warps sharing a key group
-  static constexpr int NC = D > 256 ? 2 : 1;   // column chunks (grid z)
+  static_assert(D > 256, "D <= 256 runs dkv_bf16_sm90");
+  static constexpr int BK = 64, BQ = 16, LD = D + 8;
+  static constexpr int NS = 2;                 // warps sharing a key group
+  static constexpr int NC = 2;                 // column chunks (grid z)
   static constexpr int DW = D / NC / NS;       // dK / dV columns a warp owns
   static constexpr int NT = kThreads * NS;
   // K4 keeps one q tile: its scores come from the unscaled q
@@ -1936,10 +1936,10 @@ struct DkvTile {
       2 * BQ * sizeof(float);
 };
 
-// K3 / K4-dkv.  Block: 64 keys of one (b, hk) and dK / dV columns D / NC
-// blockIdx.z .. + D / NC - 1; warp w owns keys 16 (w % 4) .. + 15 and DW
-// of those columns from DW (w / 4) on, and computes the transposed tiles
-// (keys x queries) directly.
+// K3 / K4-dkv above D = 256.  Block: 64 keys of one (b, hk) and dK / dV
+// columns D / NC blockIdx.z .. + D / NC - 1; warp w owns keys 16 (w % 4)
+// .. + 15 and DW of those columns from DW (w / 4) on, and computes the
+// transposed tiles (keys x queries) directly.
 template <int D, bool kDirect>
 __global__ void __launch_bounds__(DkvTile<D, kDirect>::NT)
     dkv_bf16(const Params p) {
@@ -2414,8 +2414,8 @@ cudaError_t launch_fwd_sm90(const Params& p, cudaStream_t st) {
   return launch_persistent(fwd_bf16_sm90<D, kDirect>, a.items, C::smem, st, a);
 }
 
-// K2 (w == kDq) or K3 in bf16 up to D = 256: the sm90 bodies.  q and dO
-// are read in tiles of `qrows` rows, K and V of `krows`.
+// K2 / K4-dq (w == kDq) or K3 / K4-dkv in bf16 up to D = 256: the sm90
+// bodies.  q and dO are read in tiles of `qrows` rows, K and V of `krows`.
 BwdArgs bwd_args(const Params& p, int D, int qrows, int krows, bool* ok) {
   BwdArgs a;
   *ok = tensor_map(&a.q, p.q, p.sq, p.B, p.Sq, p.H, D, qrows) &&
@@ -2435,7 +2435,7 @@ BwdArgs bwd_args(const Params& p, int D, int qrows, int krows, bool* ok) {
   return a;
 }
 
-template <int D>
+template <int D, bool kDirect>
 cudaError_t launch_dq_sm90(const Params& p, cudaStream_t st) {
   using C = Sm90Dq<D>;
   if (p.Sq % C::BQ || p.Sk % C::BK) return cudaErrorInvalidValue;
@@ -2445,12 +2445,13 @@ cudaError_t launch_dq_sm90(const Params& p, cudaStream_t st) {
   BwdArgs a = bwd_args(p, D, C::BQ, C::BK, &ok);
   if (!ok) return cudaErrorInvalidValue;
   a.items = p.B * p.H * a.nq;
-  return launch_persistent(dq_bf16_sm90<D>, a.items, C::smem, st, a);
+  return launch_persistent(dq_bf16_sm90<D, kDirect>, a.items, C::smem, st,
+                           a);
 }
 
-template <int D>
+template <int D, bool kDirect>
 cudaError_t launch_dkv_sm90(const Params& p, cudaStream_t st) {
-  using C = Sm90Dkv<D>;
+  using C = Sm90Dkv<D, kDirect>;
   if (p.Sq % C::BQ || p.Sk % C::BN) return cudaErrorInvalidValue;
   if (!encode_tiled()) return cudaErrorNotSupported;
   if (const cudaError_t e = bind_context()) return e;
@@ -2458,7 +2459,8 @@ cudaError_t launch_dkv_sm90(const Params& p, cudaStream_t st) {
   BwdArgs a = bwd_args(p, D, C::BQ, C::BN, &ok);
   if (!ok) return cudaErrorInvalidValue;
   a.items = p.B * p.Hk * a.nk;
-  return launch_persistent(dkv_bf16_sm90<D>, a.items, C::smem, st, a);
+  return launch_persistent(dkv_bf16_sm90<D, kDirect>, a.items, C::smem, st,
+                           a);
 }
 
 template <typename K>
@@ -2489,9 +2491,10 @@ cudaError_t dispatch(Which w, int dtype, const Params& p, cudaStream_t st) {
                       kThreads, C::smem, st, p);
       }
     }
-    if constexpr (D <= 256 && !kDirect) {        // K2, K3
-      return w == kDq ? launch_dq_sm90<D>(p, st) : launch_dkv_sm90<D>(p, st);
-    } else {                                     // K4-dq, K4-dkv; D > 256
+    if constexpr (D <= 256) {                    // K2, K3 (K4-dq, K4-dkv)
+      return w == kDq ? launch_dq_sm90<D, kDirect>(p, st)
+                      : launch_dkv_sm90<D, kDirect>(p, st);
+    } else {
       if (w == kDq) {
         using C = DqTile<D>;
         if (p.Sq % C::BQ || p.Sk % C::BK) return cudaErrorInvalidValue;
@@ -2559,14 +2562,15 @@ cudaError_t fwd_plan_by_dim(int D, int* out) {
 }
 
 // The bf16 backward's plans at head_dim D <= 256 as compiled (see
-// flash_bwd_plan): K2 (dkv = false) or K3.
-template <int D>
+// flash_bwd_plan): K2 (dkv = false) or K3; K4-dq or K4-dkv with kDirect.
+template <int D, bool kDirect>
 cudaError_t bwd_plan(bool dkv, int* out) {
   using Q = Sm90Dq<D>;
-  using K = Sm90Dkv<D>;
+  using K = Sm90Dkv<D, kDirect>;
   cudaFuncAttributes fa;
-  const cudaError_t e = dkv ? cudaFuncGetAttributes(&fa, dkv_bf16_sm90<D>)
-                            : cudaFuncGetAttributes(&fa, dq_bf16_sm90<D>);
+  const cudaError_t e =
+      dkv ? cudaFuncGetAttributes(&fa, dkv_bf16_sm90<D, kDirect>)
+          : cudaFuncGetAttributes(&fa, dq_bf16_sm90<D, kDirect>);
   if (e != cudaSuccess) return e;
   const int v[11] = {dkv ? K::BQ : Q::BQ, dkv ? K::BN : Q::BK,
                      dkv ? K::STAGES : Q::STAGES, dkv ? K::Q2 : 0,
@@ -2578,12 +2582,13 @@ cudaError_t bwd_plan(bool dkv, int* out) {
   return cudaSuccess;
 }
 
+template <bool kDirect>
 cudaError_t bwd_plan_by_dim(int D, bool dkv, int* out) {
   switch (D) {
-    case 64: return bwd_plan<64>(dkv, out);
-    case 128: return bwd_plan<128>(dkv, out);
-    case 192: return bwd_plan<192>(dkv, out);
-    case 256: return bwd_plan<256>(dkv, out);
+    case 64: return bwd_plan<64, kDirect>(dkv, out);
+    case 128: return bwd_plan<128, kDirect>(dkv, out);
+    case 192: return bwd_plan<192, kDirect>(dkv, out);
+    case 256: return bwd_plan<256, kDirect>(dkv, out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2649,9 +2654,11 @@ int flash_fwd_plan(int D, int direct, int* out) {
 // q2 buffers (K3), split (K3: 1 if the two consumer warpgroups hold dV and
 // dK of the same keys), dynamic shared bytes, threads a block, and from
 // cudaFuncGetAttributes the body's registers a thread (at entry), local
-// (spill) bytes, static shared bytes and largest block.
-int flash_bwd_plan(int D, int dkv, int* out) {
-  return (int)bwd_plan_by_dim(D, dkv != 0, out);
+// (spill) bytes, static shared bytes and largest block.  `direct` picks
+// K4's bodies (K4-dq, K4-dkv: no q2 buffers).
+int flash_bwd_plan(int D, int dkv, int direct, int* out) {
+  return (int)(direct ? bwd_plan_by_dim<true>(D, dkv != 0, out)
+                      : bwd_plan_by_dim<false>(D, dkv != 0, out));
 }
 
 // K2 / K4-dq: dq from q, k, v, o, dO and lse; also writes delta.

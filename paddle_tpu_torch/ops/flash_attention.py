@@ -14,8 +14,9 @@ The layout-direct path (K4: ``_bshd_fwd_kernel``, ``_bshd_dq_kernel``,
 ``_bshd_dkv_kernel``), which the reference takes for MHA when
 ``FLAGS_flash_layout_direct`` is set and :func:`_bshd_config` finds tiles:
 the same three bodies with K4's numerics (scores from the unscaled q times
-the scale in f32, natural exp).  Its plain twins are :func:`bshd_fwd_ref`
-and :func:`bshd_bwd_ref`.
+the scale in f32, natural exp; the dK / dV body then scores each q tile
+as it landed, with no second, scaled copy of it).  Its plain twins are
+:func:`bshd_fwd_ref` and :func:`bshd_bwd_ref`.
 
 :func:`flash_attention_bshd` takes ``[B, S, H, D]`` tensors, as the JAX
 function does, picks the path as the reference does, and runs through a
@@ -34,8 +35,10 @@ head_dim, recorded in the source; the bf16 forward's (K1 and K4-fwd up to
 head_dim 256: a producer warp's TMA ring feeding two wgmma consumer
 warpgroups) is also recorded here, :data:`FWD_PLAN`, and
 ``flash_fwd_plan`` reports the compiled one on the card; so are the bf16
-backward's (K2 and K3 up to head_dim 256, on the forward's skeleton),
-:data:`BWD_PLAN`, reported by ``flash_bwd_plan``.
+backward's up to head_dim 256, on the forward's skeleton (K2 and K3:
+:data:`BWD_PLAN`; K4-dq and K4-dkv: :data:`BWD_PLAN_DIRECT`), reported by
+``flash_bwd_plan``.  Above head_dim 256 and in float32 every path runs
+the older bodies (``mma.sync``, CUDA cores).
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ from ..core.flags import flag
 
 __all__ = ["flash_attention_bshd", "flash_fwd_ref", "flash_bwd_ref",
            "bshd_fwd_ref", "bshd_bwd_ref", "supported", "fwd_plan", "bwd_plan",
-           "BQ", "BK", "NEG_INF", "FWD_PLAN", "BWD_PLAN"]
+           "BQ", "BK", "NEG_INF", "FWD_PLAN", "BWD_PLAN", "BWD_PLAN_DIRECT"]
 
 BQ = 128
 BK = 128
@@ -74,6 +77,10 @@ BWD_PLAN = {64: ((128, 128, 3), (64, 128, 3, 2, 0)),
             128: ((128, 64, 3), (64, 128, 3, 2, 0)),
             192: ((128, 64, 2), (64, 64, 2, 2, 1)),
             256: ((128, 32, 3), (64, 64, 2, 1, 1))}
+# K4-dq / K4-dkv on the same bodies (``kDirect``): K2's and K3's tiles,
+# but K4-dkv scores the ring's own q tiles, so it has no q2 buffers
+BWD_PLAN_DIRECT = {D: (dq, dkv[:3] + (0,) + dkv[4:])
+                   for D, (dq, dkv) in BWD_PLAN.items()}
 SMEM_PER_BLOCK = 232448                     # what a Hopper block may use
 _lib = None
 
@@ -90,8 +97,9 @@ def _kernel_lib():
         lib.flash_bwd_dkv.argtypes = [vp] * 9 + tail
         for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
             fn.restype = ci
+        lib.flash_fwd_plan.argtypes = [ci, ci, vp]         # D, direct
+        lib.flash_bwd_plan.argtypes = [ci, ci, ci, vp]     # D, dkv, direct
         for fn in (lib.flash_fwd_plan, lib.flash_bwd_plan):
-            fn.argtypes = [ci, ci, vp]
             fn.restype = ci
         lib.paddle_cuda_error_string.argtypes = [ci]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
@@ -147,16 +155,18 @@ def compiled_fwd_plan(D, direct=False):
     return dict(zip(keys, out))
 
 
-def bwd_plan(D):
+def bwd_plan(D, direct=False):
     """The bf16 backward's tile plans at head_dim ``D`` (64, 128, 192 or
-    256) as this module records them, ``{"dq": ..., "dkv": ...}``: q rows
-    and keys of a tile (K2: 128 q rows a block over a ring of K / V tiles;
-    K3: a block of keys over a ring of q / dO tiles with their LSE and
-    delta rows), ring stages, K3's q2 buffers and split, threads (two
-    consumer warpgroups and one producer warpgroup) and the dynamic shared
-    memory a block takes: 1024 bytes to align the 128-byte swizzle, the
-    tiles, 128 bytes of barriers."""
-    (bq, bk, st), (kbq, kbk, kst, q2, split) = BWD_PLAN[D]
+    256) as this module records them, ``{"dq": ..., "dkv": ...}``, of K2 /
+    K3 or with ``direct`` of K4-dq / K4-dkv: q rows and keys of a tile (dq:
+    128 q rows a block over a ring of K / V tiles; dkv: a block of keys
+    over a ring of q / dO tiles with their LSE and delta rows), ring
+    stages, dkv's q2 buffers (none for K4) and split, threads (two consumer
+    warpgroups and one producer warpgroup) and the dynamic shared memory a
+    block takes: 1024 bytes to align the 128-byte swizzle, the tiles, 128
+    bytes of barriers."""
+    (bq, bk, st), (kbq, kbk, kst, q2, split) = (
+        BWD_PLAN_DIRECT if direct else BWD_PLAN)[D]
     return {"dq": {"bq": bq, "bk": bk, "stages": st, "threads": 384,
                    "smem": 1024 + 2 * (2 * bq * D) + st * 2 * (2 * bk * D)
                    + 128},
@@ -167,7 +177,7 @@ def bwd_plan(D):
                     + q2 * 2 * kbq * D + 128}}
 
 
-def compiled_bwd_plan(D):
+def compiled_bwd_plan(D, direct=False):
     """The same plans as the card's library compiled them
     (``flash_bwd_plan``), each with the body's registers a thread at
     entry, local (spill) bytes, static shared bytes and largest block."""
@@ -176,7 +186,8 @@ def compiled_bwd_plan(D):
     out = {}
     for i, role in enumerate(("dq", "dkv")):
         vals = (ctypes.c_int * 11)()
-        _raise_on(_kernel_lib().flash_bwd_plan(D, i, vals), "backward plan")
+        _raise_on(_kernel_lib().flash_bwd_plan(D, i, int(direct), vals),
+                  "backward plan")
         got = dict(zip(keys, vals))
         if role == "dq":
             del got["q2"], got["split"]

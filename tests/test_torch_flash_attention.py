@@ -246,6 +246,42 @@ def test_backward_tile_plan_fits_the_card_and_every_supported_shape(D):
         assert S % dkv["bq"] == 0 and S % dkv["bk"] == 0
 
 
+@pytest.mark.parametrize("D", sorted(tfa.BWD_PLAN_DIRECT))
+def test_direct_backward_tile_plan_fits_the_card_and_every_supported_shape(
+        D):
+    """K4-dq and K4-dkv (the layout-direct backward) on the same bodies as
+    K2 and K3, with K4's numerics, as the wrapper records their tiles
+    (``chip_smoke.py`` holds the card's compiled plans to the same
+    numbers).  K4-dq takes K2's tiles.  K4-dkv scores each q tile of its
+    ring as it landed, so it has no q2 buffer, and keeps K3's tiles, ring
+    and split (above head_dim 128 the two warpgroups hold dV and dK of the
+    same 64 keys): its shared memory is K3's less the q2 buffers, within
+    what a Hopper block may use.  Every sequence length that
+    ``supported()`` accepts (a multiple of 128) divides into the tiles."""
+    plan, k23 = tfa.bwd_plan(D, direct=True), tfa.bwd_plan(D)
+    dq, dkv = plan["dq"], plan["dkv"]
+    assert ((dq["bq"], dq["bk"], dq["stages"]),
+            (dkv["bq"], dkv["bk"], dkv["stages"], dkv["q2"],
+             dkv["split"])) == tfa.BWD_PLAN_DIRECT[D]
+    assert dq == k23["dq"]
+    assert dkv["q2"] == 0 and k23["dkv"]["q2"] >= 1
+    assert {k: v for k, v in dkv.items() if k not in ("q2", "smem")} == {
+        k: v for k, v in k23["dkv"].items() if k not in ("q2", "smem")}
+    assert dkv["split"] == int(D > 128) and dkv["stages"] >= 2
+    tile = 2 * dkv["bq"] * D
+    assert dkv["smem"] == (1024 + 2 * 2 * dkv["bk"] * D
+                           + dkv["stages"] * (2 * tile + 2 * 4 * dkv["bq"])
+                           + 128)
+    assert dkv["smem"] == k23["dkv"]["smem"] - k23["dkv"]["q2"] * tile
+    for p in (dq, dkv):
+        assert p["threads"] == 384
+        assert p["smem"] <= tfa.SMEM_PER_BLOCK == 232448
+    for S in range(128, 8193, 128):
+        assert supported((1, S, 2, D), (1, S, 2, D))
+        assert S % dq["bq"] == 0 and S % dq["bk"] == 0
+        assert S % dkv["bq"] == 0 and S % dkv["bk"] == 0
+
+
 def _strides_legal(t):
     """What a TMA tensor map needs of a tensor the kernels read in place:
     a 16-byte aligned base, a unit last stride, every other stride of a
@@ -322,51 +358,85 @@ def test_cuda_bf16_forward_matches_plain_versions(cuda_device, D):
         torch.testing.assert_close(lse, rl, rtol=0, atol=2e-2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("D", sorted(tfa.BWD_PLAN), ids=lambda d: f"d{d}")
-def test_cuda_bf16_backward_matches_plain_versions(cuda_device, D):
-    """On the card, the bf16 backward (K2 and K3) against
-    ``flash_bwd_ref`` at 2e-2 of each gradient's largest reference
-    magnitude, and bitwise the same on a second run and through autograd
-    (whose backward runs on a thread of its own): MHA and GQA 4:1, causal
-    over three q tiles, not causal with Sk != Sq, and on q / k / v views
-    of one fused projection; the compiled tile plans are the recorded ones,
-    with no spills."""
-    got = tfa.compiled_bwd_plan(D)
-    want = tfa.bwd_plan(D)
+def check_card_backward(dev, D, direct):
+    """On the card, the bf16 backward (K2 / K3 against ``flash_bwd_ref``,
+    or with ``direct`` K4-dq / K4-dkv against ``bshd_bwd_ref``) at 2e-2 of
+    each gradient's largest reference magnitude: MHA (and GQA 4:1 where
+    not ``direct``, K4 being MHA only) causal over three q tiles, not
+    causal with Sk != Sq, and on q / k / v views of one fused projection.
+    Each case runs twice through the backward launchers on the plain
+    forward's o and lse, and twice through ``flash_attention_bshd``'s
+    autograd (whose backward runs on a thread of its own), each pair
+    bitwise the same; each autograd run launches the route's three bodies
+    once each and no others, and its gradients are bitwise those of the
+    launchers on the kernel forward's o and lse.  The compiled tile plans
+    are the recorded ones, with no spills.  The caller sets
+    ``FLAGS_flash_layout_direct`` to ``direct``."""
+    got, want = tfa.compiled_bwd_plan(D, direct), tfa.bwd_plan(D, direct)
     for role in ("dq", "dkv"):
         assert {k: got[role][k] for k in want[role]} == want[role]
         assert got[role]["local_bytes"] == 0
     s = 1.0 / np.sqrt(D)
-    rng = np.random.RandomState(7)
+    rng = np.random.RandomState(8 if direct else 7)
 
     def card(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
-            cuda_device).bfloat16()
-    fused = card(2, 256, 3, 4, D).unbind(2)
+            dev).bfloat16()
+    qkv = card(2, 256, 3, 4, D)
     cases = [((card(2, 384, 4, D), card(2, 384, 4, D), card(2, 384, 4, D)),
-              True),
-             ((card(2, 384, 8, D), card(2, 384, 2, D), card(2, 384, 2, D)),
-              True),
-             ((card(1, 256, 8, D), card(1, 640, 2, D), card(1, 640, 2, D)),
-              False),
-             (fused, True)]
-    for (q, k, v), causal in cases:
+              True)]
+    if not direct:
+        cases.append(((card(2, 384, 8, D), card(2, 384, 2, D),
+                       card(2, 384, 2, D)), True))
+    H, Hk = (4, 4) if direct else (8, 2)
+    cases += [((card(1, 256, H, D), card(1, 640, Hk, D), card(1, 640, Hk, D)),
+               False),
+              (None, True)]
+    fwd_ref, bwd_ref = ((tfa.bshd_fwd_ref, tfa.bshd_bwd_ref) if direct
+                        else (flash_fwd_ref, flash_bwd_ref))
+    names = ("fwd", "dq", "dkv")
+    counters = [f"launches_{'direct_' if d else ''}{n}"
+                for d in (False, True) for n in names]
+    expect = [int(d == direct) for d in (False, True) for _ in names]
+    for ins, causal in cases:
+        q, k, v = qkv.unbind(2) if ins is None else ins
         do = card(*q.shape)
-        o, lse = flash_fwd_ref(q, k, v, causal, s)
-        want = flash_bwd_ref(q, k, v, o, lse, do, causal, s)
-        runs = []
+        o, lse = fwd_ref(q, k, v, causal, s)
+        want = bwd_ref(q, k, v, o, lse, do, causal, s)
+
+        def launch(o, lse):
+            dq, delta = tfa._launch_dq(q, k, v, o, lse, do, causal, s, direct)
+            return (dq, *tfa._launch_dkv(q, k, v, o, lse, do, delta, causal,
+                                         s, direct))
+        launched, graded = [], []
         for _ in range(2):
-            dq, delta = tfa._launch_dq(q, k, v, o, lse, do, causal, s)
-            dk, dv = tfa._launch_dkv(q, k, v, o, lse, do, delta, causal, s)
-            runs.append((dq, dk, dv))
-        assert all(torch.equal(a, b) for a, b in zip(*runs))
-        if q.is_contiguous():
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            launched.append(launch(o, lse))
+            chained = launch(*tfa._launch_fwd(q, k, v, causal, s, direct))
+            before = [getattr(flash_attention_bshd, c) for c in counters]
+            if ins is None:
+                leaf = qkv.clone().requires_grad_()
+                leaves = leaf.unbind(2)
+            else:
+                leaves = [t.clone().requires_grad_() for t in ins]
             flash_attention_bshd(*leaves, causal=causal).backward(do)
-            assert all(torch.equal(t.grad, g)
-                       for t, g in zip(leaves, runs[0]))
-        for g, w in zip(runs[0], want):
-            scale = w.float().abs().max().item()
-            torch.testing.assert_close(g.float(), w.float(), rtol=0,
-                                       atol=2e-2 * scale)
+            torch.cuda.synchronize()
+            assert [getattr(flash_attention_bshd, c) - b
+                    for c, b in zip(counters, before)] == expect
+            graded.append(leaf.grad.unbind(2) if ins is None
+                          else [t.grad for t in leaves])
+            assert all(torch.equal(a, b) for a, b in zip(graded[-1], chained))
+        for runs in (launched, graded):
+            assert all(torch.equal(a, b) for a, b in zip(*runs))
+            for g, w in zip(runs[0], want):
+                assert bool(torch.isfinite(g).all())
+                scale = w.float().abs().max().item()
+                torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                           atol=2e-2 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", sorted(tfa.BWD_PLAN), ids=lambda d: f"d{d}")
+def test_cuda_bf16_backward_matches_plain_versions(cuda_device, D):
+    """K2 and K3 on the card against ``flash_bwd_ref``, as
+    ``check_card_backward`` sets out."""
+    check_card_backward(cuda_device, D, direct=False)

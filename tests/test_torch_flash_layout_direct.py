@@ -19,6 +19,7 @@ from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops.flash_attention import (bshd_bwd_ref, bshd_fwd_ref,
                                                   flash_attention_bshd)
+from test_torch_flash_attention import check_card_backward
 
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -52,13 +53,15 @@ def layout_direct():
         tpt.set_flags({"FLAGS_flash_layout_direct": False})
 
 
-# (S, D, causal, H, dtype): D 64, 256, 320 and 512, causal and not, f32 and
-# bf16
+# (S, D, causal, H, dtype): D 64, 128, 192, 256, 320 and 512, causal and
+# not, f32 and bf16; S 384 is three 128-row q tiles with the diagonal
+# crossing each
 CASES = [(128, 64, True, 2, "f32"), (256, 64, False, 2, "f32"),
          (128, 256, True, 2, "f32"), (128, 256, False, 1, "f32"),
          (256, 64, True, 2, "bf16"), (128, 256, False, 2, "bf16"),
          (128, 320, True, 2, "f32"), (128, 512, False, 1, "f32"),
-         (128, 512, True, 2, "bf16")]
+         (128, 512, True, 2, "bf16"), (384, 128, True, 2, "bf16"),
+         (384, 192, True, 2, "bf16")]
 
 
 @pytest.mark.parametrize("S,D,causal,H,dt", CASES)
@@ -209,3 +212,20 @@ def test_routing(monkeypatch, flag_on, Hk, S, direct):
     assert seen == [("fwd", direct), ("dq", direct), ("dkv", direct)]
     ref = tfa.bshd_fwd_ref if direct else tfa.flash_fwd_ref
     torch.testing.assert_close(o, ref(q, k, v, True)[0])
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", sorted(tfa.BWD_PLAN_DIRECT),
+                         ids=lambda d: f"d{d}")
+def test_cuda_bf16_direct_backward_matches_plain_versions(cuda_device,
+                                                          layout_direct, D):
+    """K4-dq and K4-dkv on the card, with the flag, against
+    ``bshd_bwd_ref``, as ``check_card_backward`` sets out."""
+    check_card_backward(cuda_device, D, direct=True)
