@@ -88,14 +88,18 @@ Phases (any failure raises and the script exits non-zero):
    layers, random bf16 from a seeded generator on the card) quantized to
    int8 and int4 through ``weight_quantize``; one decode step of linear
    layers (M = 8) through ``nn.quant.weight_only_linear``, K8 launched
-   once a GEMM, each output against ``quant_matmul_ref``; M 1 and 300, one
-   float32 case, a call needing a gradient (no launch), the memory a call
+   once a GEMM (K8's kernel alone in a profiled pass), each output against
+   ``quant_matmul_ref`` and bitwise the same in a second pass; the bf16
+   bodies' compiled plans (no spills) and each projection's launch plan
+   (strip, splits = cluster size); M 1, 13 and 300 and a float32 case at
+   K 4096 and 14336, and the smallest shape (256 x 256), each twice and
+   bitwise equal; a call needing a gradient (no launch), the memory a call
    allocates (less than its bf16 weight); the pass timed beside its bound,
-   the dequant formulation, F.linear on dequantized bf16 weights, and the
-   library's int8 call where it runs on CUDA.
+   the host's time a call, the dequant formulation, F.linear on
+   dequantized bf16 weights, and the library's int8 / int4 calls.
 6. the decode and verify windows' lines, the ``kernels`` JSON line (all
-   twelve kernels, each launched on its path; K1-K7q with their design and
-   tile or split plan), the card line, and last the result line.
+   twelve kernels, each launched on its path, with their design and tile,
+   split or launch plan), the card line, and last the result line.
 """
 from __future__ import annotations
 
@@ -2043,6 +2047,7 @@ LLAMA_PROJ = [("q", 4096, 4096), ("k", 4096, 1024), ("v", 4096, 1024),
 WO_LAYERS = 32
 WO_M = 8                 # decode batch
 WO_PASSES = 5            # timed passes, median
+WO_SPIN = 40_000_000     # cycles (about 20 ms): longer than a pass's issue
 # K8 against quant_matmul_ref: bf16 at 2e-2 of the largest reference
 # magnitude, the bar of tests/test_quantization.py's kernel test (both sum
 # in f32; they differ by the order of the sum and one bf16 rounding of
@@ -2050,42 +2055,155 @@ WO_PASSES = 5            # timed passes, median
 WO_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 
 
+# extra K8 cases beside the pass: batch rows at the q / o shape and at
+# down's K = 14336, and the smallest shape K8 takes
+WO_M_CASES = (1, 13, 300)
+WO_SMALL = (256, 256)
+K8_DESIGN = ("bf16 x: y^T = W^T x^T on mma.sync m16n8k16 (the weight the "
+             "16-row A operand, the batch n = 8); one block an SM, a "
+             "cp.async ring of raw int8 / int4 bytes (16 KB stages, up to 8, "
+             "XOR-swizzled; int4 in two pipelines), each lane dequantizing "
+             "its fragment in registers (byte permutes, no conversion unit, "
+             "no bf16 tile in shared memory); K split over a thread block "
+             "cluster of up to 8, every cluster resident at once, the "
+             "partials added in rank order through distributed shared "
+             "memory: one launch a GEMM. f32 x: CUDA cores, whole K a block")
+
+
 def _rel_err(got, want):
     return ((got.float() - want.float()).abs().max().item()
             / want.float().abs().max().item())
 
 
+def k8_plan_check(sms):
+    """The bf16 K8 bodies' plans as the card's library compiled them
+    (``quant_matmul_plan``) against ``ops/quant_matmul.py``'s
+    ``body_plan``, with no local memory (spills); each body's ptxas
+    report printed; and the launch plan of each Llama-3-8B projection at
+    the pass's M.  Returns the launch plans by projection."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    log = _build.LOGS.get("quant_matmul", "")
+    for bn in (64, 128):
+        for int4 in (False, True):
+            for mt in (1, 2, 4):
+                want = qm.body_plan(bn, int4, mt)
+                got = qm.compiled_plan(bn, int4, mt)
+                check(all(got[k] == v for k, v in want.items()),
+                      f"K8 plan bn={bn} int4={int4} mt={mt}: compiled {got}, "
+                      f"recorded {want}")
+                check(got["local_bytes"] == 0,
+                      f"K8 bn={bn} int4={int4} mt={mt} uses "
+                      f"{got['local_bytes']} bytes of local memory (spills)")
+                tag = f"qmm_bf16ILi{bn}ELb{int(int4)}ELi{mt}E"
+                lines = log.splitlines()
+                report = next(
+                    (" ".join(x.strip() for x in lines[i + 1:i + 4]
+                              if "registers" in x or "spill" in x)
+                     for i, x in enumerate(lines)
+                     if "Compiling entry function" in x and tag in x),
+                    "not in this process" if not log else "no report")
+                print(f"K8 body qmm_bf16<{bn}, {'int4' if int4 else 'int8'}, "
+                      f"{mt}>: {got['ks']} k rows a stage, {got['pipes']} "
+                      f"pipeline(s) of {got['stages']} stages, "
+                      f"{got['threads']} threads, dynamic shared "
+                      f"memory {got['smem']} bytes, static "
+                      f"{got['static_smem']}; registers {got['registers']}, "
+                      f"local {got['local_bytes']} bytes; ptxas: {report}",
+                      flush=True)
+    plans = {}
+    dev = torch.cuda.current_device()
+    for name, K, N in LLAMA_PROJ:
+        for int4 in (False, True):
+            bn, splits, mt = qm.launch_plan(
+                WO_M, K, N, sms,
+                lambda b, m, s: qm.max_clusters(dev, b, int4, m, s))
+            blocks = N // bn * splits
+            resident = qm.max_clusters(dev, bn, int4, mt, splits)
+            plans[f"{name} {K}x{N}{' int4' if int4 else ''}"] = {
+                "strip": bn, "splits": splits, "cluster": splits,
+                "batch_tiles": mt, "blocks": blocks,
+                "clusters_resident": resident}
+            check(blocks <= sms and N // bn <= resident,
+                  f"K8 plan for {name}: {blocks} blocks, {N // bn} clusters "
+                  f"of {splits}, {resident} resident at once, {sms} SMs")
+    print("K8 launch plans at M = 8 (strip columns, splits of K = cluster "
+          "size, blocks, clusters of that size the card holds at once): "
+          + ", ".join(f"{k} {v['strip']} / {v['splits']} / {v['blocks']} / "
+                      f"{v['clusters_resident']}" for k, v in plans.items()),
+          flush=True)
+    return plans
+
+
+def _k8_case(x, q, s, int4, tag):
+    """K8 at (x, q, s) twice: bitwise the same, finite, within WO_TOL of
+    ``quant_matmul_ref``; returns the error of the largest."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    y = qm.quant_matmul(x, q, s, int4=int4)
+    again = qm.quant_matmul(x, q, s, int4=int4)
+    e = _rel_err(y, qm.quant_matmul_ref(x, q, s, int4=int4))
+    check(bool(torch.isfinite(y).all())
+          and tuple(y.shape) == (x.shape[0], q.shape[1]),
+          f"weight-only {tag}: output not finite or of the wrong shape")
+    check(torch.equal(y, again), f"weight-only {tag}: a second launch "
+          f"differs bitwise")
+    check(e <= WO_TOL[x.dtype], f"weight-only {tag}: error {e} over "
+          f"{WO_TOL[x.dtype]}")
+    return e
+
+
 def _timed(fn, n=WO_PASSES, kernels=None):
     """Times of ``fn``, a pass over distinct weights whose bytes exceed the
     50 MB L2 (so no flush is needed): ``wall``, the median of ``n``
-    synchronised runs between CUDA events, host issue included; and
-    ``device``, the median over three runs under torch.profiler of the
-    device time of its kernels (those whose names contain one of
-    ``kernels``, or all), which leaves out the host's launch gaps."""
+    synchronised runs between CUDA events, host issue included;
+    ``held``, the median of three device spans of the pass, the card held
+    in a spin while its launches are queued (CUDA events, no profiler:
+    the kernels and the gaps between them); and ``device``, the median
+    over three runs under torch.profiler of the device time of its
+    kernels (those whose names contain one of ``kernels``, or all), with
+    ``recorded``, how many launches of them the profiler saw (late in
+    this script it has missed a few per cent of K8's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
-    walls, devs = [], []
-    for _ in range(n):
+    walls, helds, devs = [], [], []
+    for spin in [0] * n + [WO_SPIN] * 3:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        if spin:
+            torch.cuda._sleep(spin)
         a.record()
         fn()
         b.record()
         b.synchronize()
-        walls.append(a.elapsed_time(b))
+        (helds if spin else walls).append(a.elapsed_time(b))
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        devs.append(sum(
-            e.self_device_time_total / 1e3 for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-            and (kernels is None or any(k in e.key for k in kernels))))
-    return {"wall": float(np.median(walls)), "device": float(np.median(devs))}
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+              and (kernels is None or any(k in e.key for k in kernels))]
+        devs.append((sum(e.self_device_time_total for e in ev) / 1e3,
+                     sum(e.count for e in ev)))
+    devs.sort()
+    return {"wall": float(np.median(walls)), "held": float(np.median(helds)),
+            "device": devs[1][0], "recorded": devs[1][1]}
+
+
+def _kernel_counts(fn):
+    """{kernel name: launches} of one run of fn under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
 
 
 def _gemm_bound(shapes, wbytes_per_el, el=2):
@@ -2108,12 +2226,17 @@ def weight_only_phase(dev, card):
     one decode step's worth of ``nn.quant.weight_only_linear`` at M = 8
     under ``no_grad``, in int8 and in int4, with the launch counts set to
     0 just before and read just after each pass; every output against
-    ``quant_matmul_ref``.  Then M = 1 and 300, one f32 shape, a call that
-    needs a gradient (the dequant formulation, no launch), and the memory
-    a call allocates.  Times: the pass, the dequant formulation over the
-    same pass, F.linear on dequantized bf16 weights, the library's int8
-    call where it runs on CUDA, the plain twin, and K8 per projection
-    shape.  Returns the kernels' lines and launches."""
+    ``quant_matmul_ref``, and bitwise the same in a second pass.  First
+    the compiled plans (``k8_plan_check``).  Then M = 1, 13 and 300 and
+    one f32 case at the q / o shape and at down's K = 14336, and M = 1, 8,
+    13, 300 and f32 at the smallest shape K8 takes (256 x 256), each run
+    twice and bitwise equal; a call that needs a gradient (the dequant
+    formulation, no launch), and the memory a call allocates.  Times: the
+    pass (and a profiled pass running K8's kernel alone), the host's
+    microseconds a call, the dequant formulation over the same pass,
+    F.linear on dequantized bf16 weights, the library's calls where they
+    run on CUDA, the plain twin, and K8 per projection shape.  Returns the
+    kernels' lines and launches."""
     from paddle_tpu_torch import set_flags
     from paddle_tpu_torch.nn import quant
     from paddle_tpu_torch.ops import quant_matmul as qm
@@ -2147,43 +2270,59 @@ def weight_only_phase(dev, card):
             if out is not None:
                 out.append(y)
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = k8_plan_check(sms)
     lines, launches = [], {}
     for algo, kern in (("int8", "K8"), ("int4", "K8-int4")):
         int4 = algo == "int4"
-        outs = []
+        outs, again = [], []
         with torch.no_grad():
             reset_launch_counts()
             run_pass(algo, outs)
             got = launch_counts()
+            run_pass(algo, again)
         torch.cuda.synchronize()
         launches[kern] = got[kern]
         want = {k: len(weights[algo]) if k == kern else 0 for k in COUNTERS}
         check(got == want, f"weight-only {algo} pass: launches {got}, "
               f"expected {want}")
         worst = 0.0
-        for (K, N, q, s), y in zip(weights[algo], outs):
+        for (K, N, q, s), y, y2 in zip(weights[algo], outs, again):
             e = _rel_err(y, qm.quant_matmul_ref(xs[K], q, s, int4=int4))
             check(bool(torch.isfinite(y).all()) and y.shape == (WO_M, N)
                   and e <= WO_TOL[torch.bfloat16],
                   f"weight-only {algo} {K}x{N}: error {e} of the largest")
+            check(torch.equal(y, y2), f"weight-only {algo} {K}x{N}: the "
+                  f"pass's second run differs bitwise")
             worst = max(worst, e)
-        del outs
+        del outs, again
         errs = {f"bf16 M={WO_M} pass": worst}
-        # M 1 and 300 at one shape, and one f32 shape
-        K, N, q, s = weights[algo][0]
-        for M, dt in ((1, torch.bfloat16), (300, torch.bfloat16),
-                      (WO_M, torch.float32)):
-            x = torch.randn(M, K, generator=gen, device=dev).to(dt)
-            e = _rel_err(qm.quant_matmul(x, q, s, int4=int4),
-                         qm.quant_matmul_ref(x, q, s, int4=int4))
-            check(e <= WO_TOL[dt], f"weight-only {algo} M={M} {dt}: error "
-                  f"{e} over {WO_TOL[dt]}")
-            errs[f"{'bf16' if dt == torch.bfloat16 else 'f32'} M={M}"] = e
+        # other batch rows at the q / o shape and at down's K = 14336, one
+        # f32 case at each, and the smallest shape; every case twice
+        small_w = torch.randn(*WO_SMALL, generator=gen, device=dev,
+                              dtype=torch.bfloat16) * 0.02
+        small = (*WO_SMALL, *quant.weight_quantize(
+            small_w, algo=f"weight_only_{algo}"))
+        del small_w
+        down = next(t for t in weights[algo] if t[0] == 14336)
+        for K, N, q, s in (weights[algo][0], down, small):
+            for M, dt in ([(M, torch.bfloat16) for M in WO_M_CASES]
+                          + [(WO_M, torch.bfloat16), (WO_M, torch.float32)]):
+                if M == WO_M and dt == torch.bfloat16 and K != WO_SMALL[0]:
+                    continue               # the pass has it
+                x = torch.randn(M, K, generator=gen, device=dev).to(dt)
+                tag = (f"{'bf16' if dt == torch.bfloat16 else 'f32'} M={M} "
+                       f"{K}x{N}")
+                errs[tag] = _k8_case(x, q, s, int4, f"{algo} {tag}")
+        del small
         print(f"weight-only {algo} ({kern}): {got[kern]} launches over "
-              f"{len(weights[algo])} GEMMs; errors of the largest reference "
-              f"magnitude " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              f"{len(weights[algo])} GEMMs, each output bitwise the same in "
+              f"a second pass; errors of the largest reference magnitude "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
               + f" (tol bf16 {WO_TOL[torch.bfloat16]:.0e}, f32 "
-              f"{WO_TOL[torch.float32]:.0e})", flush=True)
+              f"{WO_TOL[torch.float32]:.0e}; every case run twice, bitwise "
+              f"equal)", flush=True)
+        K, N, q, s = weights[algo][0]
         # a call that needs a gradient takes the dequant formulation
         xg = xs[K].clone().requires_grad_()
         before = launch_counts()
@@ -2214,9 +2353,20 @@ def weight_only_phase(dev, card):
 
         # times: the pass and its alternatives, over the same distinct
         # weights (more bytes than the L2 holds)
-        k8 = ("qmm", "reduce_splits")
+        k8 = ("qmm",)
         with torch.no_grad():
             t = _timed(lambda: run_pass(algo), kernels=k8)
+            # the profiler records most of the pass's launches, not all
+            # (its count fell short of the launch counter's by a few per
+            # cent): every kernel it saw is K8's, and none more often than
+            # the pass has GEMMs
+            by_kernel = _kernel_counts(lambda: run_pass(algo))
+            check(all("qmm_bf16" in k for k in by_kernel)
+                  and 0 < sum(by_kernel.values()) <= len(weights[algo]),
+                  f"weight-only {algo}: the profiled pass ran {by_kernel}, "
+                  f"not K8's kernel alone, one a GEMM")
+            host_us = Timer.host_us(lambda: qm.quant_matmul(
+                xs[K], q, s, int4=int4))
             set_flags({"weight_only_use_kernel": False})
             try:
                 dequant = _timed(lambda: run_pass(algo))
@@ -2232,14 +2382,16 @@ def weight_only_phase(dev, card):
                 ts = _timed(lambda: [qm.quant_matmul(xs[K], q, s, int4=int4)
                                      for q, s in mine], kernels=k8)
                 per_shape[f"{name} {K}x{N}"] = {
-                    "ms": ts["device"] / len(mine),
+                    "held_ms": ts["held"] / len(mine),
+                    "device_ms": ts["device"] / max(ts["recorded"], 1),
+                    "recorded": ts["recorded"], "calls": len(mine),
                     "wall_ms": ts["wall"] / len(mine),
                     "bound_ms": _gemm_bound([(K, N)], 0.5 if int4 else 1)[0]}
         shapes = [(K, N) for K, N, _, _ in weights[algo]]
         bound_ms, bound_by = _gemm_bound(shapes, 0.5 if int4 else 1)
         lib, lib_note, lib_err = (_int4pack if int4 else _int8pack)(
             weights[algo], xs)
-        lib_ms = None if lib is None else lib["device"]
+        lib_ms = None if lib is None else lib["held"]
         lines.append({
             "name": f"quant_matmul_{algo}", "kernel": kern, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
@@ -2248,19 +2400,30 @@ def weight_only_phase(dev, card):
             "max_abs_err": max(v for k, v in errs.items()
                                if k.startswith("bf16")),
             "tolerance": WO_TOL[torch.bfloat16],
-            "max_abs_err_f32": errs[f"f32 M={WO_M}"],
+            "max_abs_err_f32": max(v for k, v in errs.items()
+                                   if k.startswith("f32")),
             "tolerance_f32": WO_TOL[torch.float32],
             "error_of": "y, relative to the largest reference magnitude",
-            "ms": t["device"], "plain_ms": plain["device"],
+            "ms": t["held"], "device_ms": t["device"],
+            "device_recorded": t["recorded"], "plain_ms": plain["held"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "library": lib_note, "library_err": lib_err,
             "plain": "quant_matmul_ref over the same pass",
-            "times_are": ("device time of the pass's kernels (torch.profiler); "
-                          "*_wall_ms: the synchronised pass, host issue "
-                          "included"),
+            "times_are": ("ms, plain_ms, library_ms, dequant_ms: the pass's "
+                          "device span, the card held while it is queued "
+                          "(kernels and the gaps between them); device_ms: "
+                          "torch.profiler's time of the kernels it recorded "
+                          "(device_recorded of the launches); *_wall_ms: the "
+                          "synchronised pass, host issue included"),
+            "device_plain_ms": plain["device"],
+            "device_library_ms": None if lib is None else lib["device"],
+            "device_dequant_ms": dequant["device"],
             "wall_ms": t["wall"], "plain_wall_ms": plain["wall"],
             "library_wall_ms": None if lib is None else lib["wall"],
-            "dequant_ms": dequant["device"], "dequant_wall_ms": dequant["wall"],
+            "dequant_ms": dequant["held"], "dequant_wall_ms": dequant["wall"],
+            "design": K8_DESIGN, "plan": plans,
+            "kernels_a_pass": by_kernel,
+            "host_us_a_call": host_us,
             "shape": (f"one decode step of Llama-3-8B's linear layers: "
                       f"{len(shapes)} GEMMs (32 layers x q, k, v, o, gate, "
                       f"up, down) at M={WO_M}, bf16 x, {algo} weights "
@@ -2268,17 +2431,25 @@ def weight_only_phase(dev, card):
             "per_shape": per_shape,
         })
         print(f"weight-only {algo} ({kern}) pass of {len(shapes)} GEMMs at "
-              f"M={WO_M}, device time (wall, host issue included): kernel "
-              f"{t['device']:.4f} ms ({t['wall']:.4f}), bound {bound_ms:.4f} "
-              f"ms ({bound_by}), dequant formulation {dequant['device']:.4f} "
-              f"ms ({dequant['wall']:.4f}), plain {plain['device']:.4f} ms "
-              f"({plain['wall']:.4f}), library "
+              f"M={WO_M}, held device span (profiler device time of the "
+              f"launches it recorded; wall, host issue included): kernel "
+              f"{t['held']:.4f} ms ({t['device']:.4f} ms, {t['recorded']} of "
+              f"{len(shapes)}; {t['wall']:.4f}), bound {bound_ms:.4f} ms "
+              f"({bound_by}), dequant formulation {dequant['held']:.4f} ms "
+              f"({dequant['device']:.4f}; {dequant['wall']:.4f}), plain "
+              f"{plain['held']:.4f} ms ({plain['device']:.4f}; "
+              f"{plain['wall']:.4f}), library "
               + ("n/a" if lib is None else
-                 f"{lib['device']:.4f} ms ({lib['wall']:.4f}), error "
-                 f"{lib_err:.2e} of the largest")
-              + f" ({lib_note}); per projection, device (wall) a call: "
-              + ", ".join(f"{k} {v['ms']:.4f} ({v['wall_ms']:.4f}) ms, bound "
-                          f"{v['bound_ms']:.4f}" for k, v in per_shape.items())
+                 f"{lib['held']:.4f} ms ({lib['device']:.4f}; "
+                 f"{lib['wall']:.4f}), error {lib_err:.2e} of the largest")
+              + f" ({lib_note}); the profiled pass's kernels, K8's alone "
+              f"({by_kernel}, of {len(shapes)} launches); host "
+              f"{host_us:.1f} us a call ({K}x{N}); per projection, held "
+              f"(profiler a recorded launch; wall) a call: "
+              + ", ".join(f"{k} {v['held_ms']:.4f} ({v['device_ms']:.4f}, "
+                          f"{v['recorded']} of {v['calls']}; "
+                          f"{v['wall_ms']:.4f}) ms, bound {v['bound_ms']:.4f}"
+                          for k, v in per_shape.items())
               + f"; on {card}", flush=True)
         torch.cuda.empty_cache()
 
@@ -2293,10 +2464,12 @@ def weight_only_phase(dev, card):
     del dense
     lin_bound = _gemm_bound([(K, N) for K, N, _, _ in weights["int8"]], 2)[0]
     print(f"weight-only: F.linear on the bf16-dequantized weights, the same "
-          f"pass: device {lin['device']:.4f} ms (wall {lin['wall']:.4f}), "
-          f"bound {lin_bound:.4f} ms (bytes)", flush=True)
+          f"pass: held {lin['held']:.4f} ms (profiler device "
+          f"{lin['device']:.4f}, {lin['recorded']} launches; wall "
+          f"{lin['wall']:.4f}), bound {lin_bound:.4f} ms (bytes)", flush=True)
     for line in lines:
-        line["bf16_linear_ms"] = lin["device"]
+        line["bf16_linear_ms"] = lin["held"]
+        line["bf16_linear_device_ms"] = lin["device"]
         line["bf16_linear_wall_ms"] = lin["wall"]
         line["bf16_linear_bound_ms"] = lin_bound
     del weights, xs

@@ -136,16 +136,53 @@ def test_the_reference_errors():
                           jnp.ones(256))
 
 
+# clusters of 1, 2, 4, 7 and 8 blocks an H100 SXM (132 SMs) holds at once
+# with one block an SM (cudaOccupancyMaxActiveClusters on the card)
+H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 7: 15, 8: 15}
+
+
 @pytest.mark.parametrize("M,K,N,want", [
-    (8, 4096, 4096, 8), (8, 4096, 1024, 16), (8, 4096, 14336, 2),
-    (8, 14336, 4096, 7), (1, 4096, 4096, 8), (300, 4096, 4096, 1),
-    (8, 256, 256, 1)])
-def test_k_split_fills_the_card(M, K, N, want):
-    """The CUDA grid's split of K (a divisor of K / 256) gives the Llama-3-8B
-    decode projections at least two blocks an SM of a 132-SM card."""
-    assert tqmm._splits(M, K, N, 132) == want
-    blocks = (N // 64) * -(-M // 16) * want
-    assert blocks >= 264 or want == K // 256
+    (8, 4096, 4096, (64, 2, 1)), (8, 4096, 1024, (128, 8, 1)),
+    (8, 4096, 14336, (128, 1, 1)), (8, 14336, 4096, (64, 2, 1)),
+    (1, 4096, 4096, (64, 2, 1)), (13, 4096, 1024, (128, 8, 2)),
+    (300, 4096, 4096, (128, 1, 4)), (8, 256, 256, (64, 1, 1))])
+def test_launch_plan_fills_the_card(M, K, N, want):
+    """The bf16 body's launch plan (strip columns, splits of K, batch
+    tiles) for the Llama-3-8B decode projections on an H100: the most
+    blocks, one an SM, whose clusters the card holds at once (so there is
+    no second wave); splits a divisor of K / 256 and at most a portable
+    cluster of 8.  q / o and down take 128 blocks in strips of 64, gate /
+    up 112; k / v 64, since 16 clusters of 8 would be one more than the
+    card holds."""
+    got = tqmm.launch_plan(M, K, N, 132, lambda bn, mt, s: H100_CLUSTERS[s])
+    assert got == want
+    bn, splits, mt = got
+    assert (K // 256) % splits == 0 and 1 <= splits <= tqmm.MAX_SPLITS
+    tiles = N // bn * -(-M // (8 * mt))
+    if M <= 32:
+        assert tiles * splits <= 132 and tiles <= H100_CLUSTERS[splits]
+    if M <= 32 and K >= 4096:
+        assert tiles * splits >= 64
+
+
+@pytest.mark.parametrize("mt", [1, 2, 4])
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("bn", [64, 128])
+def test_body_plan_ring_takes_an_sm(bn, int4, mt):
+    """Each bf16 body's ring: stages of 16 KB of raw weight bytes (8 KB for
+    int4 strips of 64), k rows a stage dividing the 256 of a split; two
+    pipelines for int4, one for int8; at least three stages each, so at
+    least two stages of each pipeline are in flight; and a block's shared
+    memory within the card's 227 KB but over half an SM's, so one block
+    takes an SM."""
+    plan = tqmm.body_plan(bn, int4, mt)
+    wbytes = plan["ks"] // (2 if int4 else 1) * bn
+    assert wbytes == (8192 if int4 and bn == 64 else 16384)
+    assert 256 % plan["ks"] == 0
+    assert plan["pipes"] == (2 if int4 else 1)
+    assert 3 <= plan["stages"] <= tqmm.MAX_STAGES
+    assert plan["smem"] <= tqmm.SMEM_PER_BLOCK
+    assert 2 * (plan["smem"] + 1024) > 233472
 
 
 def test_supported_and_the_public_names():
@@ -190,3 +227,36 @@ def test_route_on_the_card_picks_k8_only_without_grad(monkeypatch):
     finally:
         tpt.set_flags({"weight_only_use_kernel": True})
     assert len(seen) == 2
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 13, 300])
+@pytest.mark.parametrize("K,N", [(256, 256), (4096, 1024), (14336, 4096)])
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+def test_cuda_k8_matches_the_plain_twin(cuda_device, int4, K, N, M):
+    """K8 on the card against ``quant_matmul_ref``: bf16 x within 2e-2 and
+    f32 x within 1e-5 of the largest reference magnitude (both sum in f32,
+    in other orders; bf16 also rounds y once), and a second launch bitwise
+    the same."""
+    gen = torch.Generator(device=cuda_device).manual_seed(M + K + N)
+    w = torch.randn(K, N, generator=gen, device=cuda_device) * 0.02
+    q, s = tquant.weight_quantize(
+        w, algo="weight_only_int4" if int4 else "weight_only_int8")
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        x = torch.randn(M, K, generator=gen, device=cuda_device).to(dt)
+        y = tqmm.quant_matmul(x, q, s, int4=int4)
+        again = tqmm.quant_matmul(x, q, s, int4=int4)
+        want = tqmm.quant_matmul_ref(x, q, s, int4=int4).float()
+        torch.cuda.synchronize()
+        assert y.dtype == dt and tuple(y.shape) == (M, N)
+        assert torch.isfinite(y).all()
+        err = ((y.float() - want).abs().max() / want.abs().max()).item()
+        assert err <= tol, f"{dt}: error {err} of the largest over {tol}"
+        assert torch.equal(y, again), f"{dt}: a second launch differs"
