@@ -67,7 +67,16 @@ Phases (any failure raises and the script exits non-zero):
    and read just after, must equal layers x the dispatches that reach it,
    and every token must match a teacher-forced dense reference (see
    ``GAP``; for int8 pages the reference's K and V pass through the same
-   int8 quantization).
+   int8 quantization).  Every engine runs on CUDA graphs: each runner
+   program (decode, prefill, verify) is captured at its first dispatch and
+   replayed after, as is the drafter's ``generate`` decode step; each
+   engine prints its programs' captures, replays and eager dispatches
+   (eager must be 0: every request is greedy), and steps that captured a
+   program are kept out of the rates.  On the bf16 engines, a decode
+   block, a prefill chunk and a verify step are replayed beside the same
+   body run eagerly on the same inputs and cache (tokens identical, logits
+   within the bf16 bar); the profiled windows print the paged kernel's
+   launches as the profiler saw them beside layers x steps.
 4. training, after the engines have freed their memory: a tiny float32
    GPT-2 bridged from seeded numpy weights takes two AdamW steps on the
    card (K1-K3) and on the CPU (their plain versions), held together; then
@@ -88,8 +97,11 @@ Phases (any failure raises and the script exits non-zero):
    layers, random bf16 from a seeded generator on the card) quantized to
    int8 and int4 through ``weight_quantize``; one decode step of linear
    layers (M = 8) through ``nn.quant.weight_only_linear``, K8 launched
-   once a GEMM (K8's kernel alone in a profiled pass), each output against
-   ``quant_matmul_ref`` and bitwise the same in a second pass; the bf16
+   once a GEMM (K8's kernel alone, 224 launches, in a profiled pass run
+   in a fresh process first), each output against
+   ``quant_matmul_ref`` and bitwise the same in a second pass; the pass
+   captured into a CUDA graph and replayed (224 launches counted, outputs
+   bitwise the eager pass's, its wall beside the eager one's); the bf16
    bodies' compiled plans (no spills) and each projection's launch plan
    (strip, splits = cluster size); M 1, 13 and 300 and a float32 case at
    K 4096 and 14336, and the smallest shape (256 x 256), each twice and
@@ -1371,26 +1383,38 @@ def serve_full_width(model, tag, gap, dev, profile=False, spec=False,
                                  else None))
     rng = np.random.RandomState(SEED)
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in PROMPT_LENS]
-    steps = []            # (seconds, kind, tokens emitted)
+    steps = []            # (seconds, kind, tokens emitted, drafting seconds)
+    drafting = []                  # seconds in the proposer, per call
     step = eng.step
+    gen0 = program_totals(None, model)
 
     def timed_step():
         pf, vf = eng.prefill_dispatches, eng.spec_dispatches
         emitted = eng.spec_emitted
+        caps = program_totals(eng, model)["captures"]
+        prefilled = sum(r.pos for r in eng.sched.slots if r is not None)
+        d0 = sum(drafting)
         a = time.perf_counter()
         served = step()
         torch.cuda.synchronize()
         dt = time.perf_counter() - a
+        # a step that captured a program (the runner's or the drafter's)
+        # is kept out of the steady-state rates and reported on its own
+        tail = (" capture" if program_totals(eng, model)["captures"] != caps
+                else "")
+        drafted = sum(drafting) - d0
         if eng.prefill_dispatches != pf:
-            steps.append((dt, "prefill", 0))
+            steps.append((dt, "prefill" + tail, sum(
+                r.pos for r in eng.sched.slots if r is not None) - prefilled,
+                drafted))
         elif eng.spec_dispatches != vf:
-            steps.append((dt, "verify", eng.spec_emitted - emitted))
+            steps.append((dt, "verify" + tail, eng.spec_emitted - emitted,
+                          drafted))
         else:
-            steps.append((dt, "decode", served))
+            steps.append((dt, "decode" + tail, served, drafted))
         return served
 
     eng.step = timed_step
-    drafting = []                  # seconds in the proposer, per call
     if spec:
         propose = eng._proposer.propose
 
@@ -1425,6 +1449,31 @@ def serve_full_width(model, tag, gap, dev, profile=False, spec=False,
 
     n_prefill, n_decode = dispatches("prefill"), dispatches("decode")
     n_verify = dispatches("verify")
+    progs = eng.runner.program_stats()
+    totals = program_totals(eng, None)
+    gen = {k: v - gen0[k] for k, v in program_totals(None, model).items()}
+    print(f"engine {tag}: runner programs "
+          + ", ".join(f"{name} {st['captures']} captured in "
+                      f"{st['capture_s']:.2f} s, {st['replays']} replays, "
+                      f"{st['eager']} eager, launches a replay "
+                      f"{st['launches_a_replay']}"
+                      for name, st in progs.items())
+          + f"; generate's decode steps (the drafter) {gen['captures']} "
+          f"captured in {gen['capture_s']:.2f} s, {gen['replays']} replays, "
+          f"{gen['eager']} eager", flush=True)
+    # every request is greedy: each dispatch is a graph replay but the
+    # capturing one of each program
+    check(totals["eager"] == 0 and gen["eager"] == 0,
+          f"engine {tag}: {totals['eager']} eager dispatches and "
+          f"{gen['eager']} eager generate steps, all requests greedy")
+    check(totals["replays"] + totals["captures"]
+          == n_prefill + n_decode + n_verify,
+          f"engine {tag}: {totals} program runs for "
+          f"{n_prefill + n_decode + n_verify} dispatches")
+    check(totals["replays"] > 0, f"engine {tag}: no program replayed")
+    if spec:
+        check(gen["replays"] > 0,
+              f"engine {tag}: the drafter's generate replayed no decode step")
     L = cfg.num_hidden_layers
     quant = kv_cache_dtype == "int8"
     single, multi = ("K6", "K7q") if quant else ("K5", "K7")
@@ -1469,19 +1518,26 @@ def serve_full_width(model, tag, gap, dev, profile=False, spec=False,
           f"{describe(counts, worst, gap)}", flush=True)
 
     def rate(kind):
-        secs = sum(s for s, k, _ in steps if k == kind)
-        toks = sum(n for _, k, n in steps if k == kind)
+        secs = sum(s for s, k, _, _ in steps if k == kind)
+        toks = sum(n for _, k, n, _ in steps if k == kind)
         return (toks / secs if secs else None), secs, sum(
-            1 for _, k, _ in steps if k == kind)
+            1 for _, k, _, _ in steps if k == kind)
 
     ttft = sorted(eng.ttft(r) for r in rids)
+    captured = [s for s, k, _, _ in steps if k.endswith("capture")]
+    # the drafting of the verify steps that captured no program
+    draft_steady = [d for _, k, _, d in steps if k == "verify"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    agree = None
     window = None
     if profile:
         eng.step = step
         if spec:
             eng._proposer.propose = propose
+            agree = graph_against_eager(eng, tag, ("verify",))
             window = profile_verify(eng, prompts, tag)
         else:
+            agree = graph_against_eager(eng, tag, ("decode", "prefill"))
             window = profile_engine(eng, prompts, tag)
     res = {
         "ttft_p50_s": float(np.median(ttft)),
@@ -1494,16 +1550,23 @@ def serve_full_width(model, tag, gap, dev, profile=False, spec=False,
                            if rate("verify")[2] else None),
         # a verify step's time without its drafting (the proposer runs
         # inside the step)
-        "verify_only_ms": (1e3 * (rate("verify")[1] - sum(drafting))
+        "verify_only_ms": (1e3 * (rate("verify")[1] - sum(draft_steady))
                            / rate("verify")[2] if rate("verify")[2]
                            else None),
         "draft_s": sum(drafting),
-        "prefill_tok_s": sum(PROMPT_LENS) / rate("prefill")[1],
+        "draft_step_s": (sum(draft_steady) / len(draft_steady)
+                         if draft_steady else None),
+        "capture_steps": len(captured),
+        "capture_step_s": sum(captured),
+        "capture_s": totals["capture_s"] + gen["capture_s"],
+        "programs": progs, "generate_programs": gen,
+        "graph_against_eager": agree,
+        "prefill_tok_s": rate("prefill")[0],
         "wall_s": wall,
         "dispatches": {"prefill": n_prefill, "decode": n_decode,
                        "verify": n_verify},
         "launches": launches,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "peak_mem_gib": peak,
         "argmax_flips": int(counts[1]),
         "worst_shortfall": worst,
         "window": window,
@@ -1514,6 +1577,69 @@ def serve_full_width(model, tag, gap, dev, profile=False, spec=False,
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def program_totals(eng, model):
+    """Captures, replays, eager runs and capture seconds summed over the
+    engine's runner programs and the model's stored ``generate`` states
+    (either may be None)."""
+    stats = list(eng.runner.program_stats().values()) if eng else []
+    if model is not None:
+        stats += [e["step"].stats() for e in model._gen_states.values()]
+    return {k: sum(st[k] for st in stats)
+            for k in ("captures", "replays", "eager", "capture_s")}
+
+
+def graph_against_eager(eng, tag, kinds):
+    """The engine's captured programs against their own bodies run
+    eagerly, on the engine's buffers: for each of ``kinds`` (the decode
+    block, the prefill chunk, the verify step with the most rows), with
+    the inputs its last dispatch left in its buffers, replay the graph,
+    then put the cache back as it was before the replay and run the same
+    body uncaptured on copies of the same inputs.  The tokens must be
+    identical and the logits within the bf16 bar of the largest; prints
+    whether they are bitwise equal."""
+    r = eng.runner
+    progs = {"decode": r._decode_programs.get(1),
+             "prefill": r._prefill_program,
+             "verify": (r._verify_programs[max(r._verify_programs)]
+                        if r._verify_programs else None)}
+    out = {}
+    for kind in kinds:
+        prog = progs[kind]
+        check(prog is not None and prog.graph is not None,
+              f"engine {tag}: no captured {kind} program")
+        inputs = {n: b.clone() for n, b in prog.buffers.items()}
+        saved = tuple(a.clone() for a in r.cache)
+        with torch.no_grad():
+            replay = prog.run(inputs)
+            after = tuple(a.clone() for a in r.cache)
+            r.load_cache(saved)
+            eager = prog.run_eager(inputs)
+        torch.cuda.synchronize()
+        err = _rel_err(replay[1], eager[1])
+        res = {"program": prog.name, "tokens_equal": torch.equal(
+                   replay[0], eager[0]),
+               "logits_err": err, "logits_bitwise": torch.equal(
+                   replay[1], eager[1]),
+               # the trash page aside: rows that write no live page all
+               # land there, and which of them wins is not defined
+               "cache_bitwise": all(
+                   torch.equal(a[:, :r.trash_page], b[:, :r.trash_page])
+                   for a, b in zip(after, r.cache))}
+        print(f"engine {tag}: {prog.name} replayed against its body run "
+              f"eagerly on the same inputs and cache: tokens "
+              f"{'identical' if res['tokens_equal'] else 'DIFFER'}, logits "
+              f"within {err:.2e} of the largest (tol "
+              f"{TOL[torch.bfloat16]:.0e}), bitwise equal: logits "
+              f"{res['logits_bitwise']}, cache {res['cache_bitwise']}",
+              flush=True)
+        check(res["tokens_equal"] and err <= TOL[torch.bfloat16],
+              f"engine {tag}: {prog.name} replay and eager body disagree "
+              f"({res})")
+        out[kind] = res
+        del saved, after
+    return out
 
 
 def profile_window(eng, tag, kind, n_steps, cpu=True):
@@ -1560,15 +1686,26 @@ def profile_engine(eng, prompts, tag, n_steps=8):
     while any(not eng._lookup(r).out for r in rids):   # until all decode
         eng.step()
     batch = sum(not eng.status(r).terminal for r in rids)
+    replays = program_totals(eng, None)["replays"]
     wall, busy, rows = profile_window(eng, tag, "decode", n_steps)
     k5 = sum(ms for key, _, ms in rows
              if any(m in key for m in SPLIT_KERNELS))
+    seen = sum(n for key, n, _ in rows if SPLIT_KERNELS[0] in key)
+    L = eng.runner.cfg.num_hidden_layers
+    replays = program_totals(eng, None)["replays"] - replays
     print(f"profile {tag} decode: K5 {k5:.3f} ms of device busy "
-          f"{busy:.1f} ms ({100 * k5 / busy:.2f}%)", flush=True)
-    check(k5 > 0, f"profile {tag}: the decode window ran no K5")
+          f"{busy:.1f} ms ({100 * k5 / busy:.2f}%); the profiler saw "
+          f"{seen} of K5's split launches, layers x steps = "
+          f"{L * n_steps}; {replays} graph replays in the window",
+          flush=True)
+    check(k5 > 0 and seen > 0, f"profile {tag}: the decode window ran no "
+          f"K5 that the profiler saw ({seen} launches, {k5} ms)")
+    check(replays == n_steps, f"profile {tag}: {replays} replays in "
+          f"{n_steps} decode steps")
     eng.run_until_done()
     return {"wall_ms": wall, "busy_ms": busy, "kernel_ms": k5,
-            "steps": n_steps, "batch": batch}
+            "steps": n_steps, "batch": batch, "launches_seen": seen,
+            "launches_expected": L * n_steps}
 
 
 def profile_verify(eng, prompts, tag, n_steps=2):
@@ -1593,16 +1730,20 @@ def profile_verify(eng, prompts, tag, n_steps=2):
                                       cpu=False)
     k7 = sum(ms for key, _, ms in rows
              if any(m in key for m in SPLIT_KERNELS))
+    seen = sum(n for key, n, _ in rows if SPLIT_KERNELS[0] in key)
     verify = eng.spec_dispatches - v0
+    L = eng.runner.cfg.num_hidden_layers
     secs = time.perf_counter() - t0
     print(f"profile {tag} verify: batch {batch}, the re-serve and its "
-          f"window took {secs:.1f} s", flush=True)
-    check(verify > 0 and k7 > 0,
+          f"window took {secs:.1f} s; the profiler saw {seen} of K7's split "
+          f"launches, layers x verify dispatches = {L * verify}", flush=True)
+    check(verify > 0 and k7 > 0 and seen > 0,
           f"profile {tag}: the window ran {verify} verify dispatches and "
-          f"{k7} ms of K7")
+          f"{k7} ms of K7 over {seen} launches the profiler saw")
     return {"wall_ms": wall, "busy_ms": busy, "kernel_ms": k7,
             "verify_dispatches": verify, "steps": n_steps, "batch": batch,
-            "cost_s": secs}
+            "cost_s": secs, "launches_seen": seen,
+            "launches_expected": L * verify}
 
 
 def engine_line(tag, e2e, card):
@@ -1615,8 +1756,12 @@ def engine_line(tag, e2e, card):
           f"{f(e2e['verify_tok_s'], '.1f')} tok/s "
           f"({f(e2e['verify_step_ms'], '.2f')} ms a step, "
           f"{f(e2e['verify_only_ms'], '.2f')} ms without drafting), prefill "
-          f"{e2e['prefill_tok_s']:.1f} tok/s, wall {e2e['wall_s']:.2f} s, "
-          f"peak memory {e2e['peak_mem_gib']:.1f} GiB, batch 8, on {card}",
+          f"{f(e2e['prefill_tok_s'], '.1f')} tok/s, drafting "
+          f"{e2e['draft_s']:.2f} s ({f(e2e['draft_step_s'], '.4f')} s a "
+          f"verify step), {e2e['capture_steps']} steps that captured a "
+          f"program ({e2e['capture_step_s']:.2f} s, kept out of the rates; "
+          f"capture {e2e['capture_s']:.2f} s), wall {e2e['wall_s']:.2f} s, "
+          f"peak memory {e2e['peak_mem_gib']:.2f} GiB, batch 8, on {card}",
           flush=True)
 
 
@@ -2206,6 +2351,65 @@ def _kernel_counts(fn):
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
 
 
+def _quantized_pass(dev, algo):
+    """Llama-3-8B's 224 projection weights, drawn in bf16 from seed
+    ``SEED`` on ``dev`` one at a time and quantized to ``algo``, in pass
+    order ([(K, N, qw, scale)]), the pass's x by K (drawn after them), and
+    the generator, for later draws."""
+    from paddle_tpu_torch.nn import quant
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    weights = []
+    for _ in range(WO_LAYERS):
+        for _, K, N in LLAMA_PROJ:
+            w = torch.randn(K, N, generator=gen, device=dev,
+                            dtype=torch.bfloat16) * 0.02
+            weights.append((K, N, *quant.weight_quantize(
+                w, algo=f"weight_only_{algo}")))
+            del w
+    xs = {K: torch.randn(WO_M, K, generator=gen, device=dev).to(
+        torch.bfloat16) for K in {K for _, K, _ in LLAMA_PROJ}}
+    return weights, xs, gen
+
+
+def k8_profile_child():
+    """In a fresh process: one profiled weight-only pass each in int8 and
+    int4 (after one unprofiled), printing {algo: {kernel: launches the
+    profiler recorded}} as the last line (late in a long process the
+    profiler misses some of K8's launches; in a fresh one it has recorded
+    all of them)."""
+    from paddle_tpu_torch.nn import quant
+    dev = torch.device("cuda", 0)
+    out = {}
+    for algo in ("int8", "int4"):
+        weights, xs, _ = _quantized_pass(dev, algo)
+
+        def run():
+            with torch.no_grad():
+                for K, N, q, s in weights:
+                    quant.weight_only_linear(xs[K], q, weight_scale=s,
+                                             weight_dtype=algo)
+        run()
+        out[algo] = _kernel_counts(run)
+        del weights, xs
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def k8_fresh_process_counts():
+    """:func:`k8_profile_child` in a child process of this interpreter,
+    from this script's directory; returns its counts."""
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.k8_profile_child())"],
+        cwd=here, capture_output=True, text=True, timeout=900)
+    check(res.returncode == 0, f"the fresh-process profiled K8 pass failed "
+          f"(rc {res.returncode}): {res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 def _gemm_bound(shapes, wbytes_per_el, el=2):
     """Least time (ms) of GEMMs y [M, N] = x [M, K] @ W: each input read
     once (x, W at ``wbytes_per_el`` bytes a weight, the f32 scale) and y
@@ -2238,21 +2442,20 @@ def weight_only_phase(dev, card):
     run on CUDA, the plain twin, and K8 per projection shape.  Returns the
     kernels' lines and launches."""
     from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.jit import CapturedProgram, graph_pool
     from paddle_tpu_torch.nn import quant
     from paddle_tpu_torch.ops import quant_matmul as qm
     gc.collect()
     torch.cuda.empty_cache()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
-    weights = {"int8": [], "int4": []}    # [(K, N, qw, scale)] in pass order
-    for _ in range(WO_LAYERS):
-        for _, K, N in LLAMA_PROJ:
-            w = torch.randn(K, N, generator=gen, device=dev,
-                            dtype=torch.bfloat16) * 0.02
-            for algo in ("int8", "int4"):
-                q, s = quant.weight_quantize(w, algo=f"weight_only_{algo}")
-                weights[algo].append((K, N, q, s))
-            del w
+    fresh = k8_fresh_process_counts()
+    print(f"weight-only: a profiled pass in a fresh process ("
+          f"{time.perf_counter() - t0:.1f} s): {fresh}", flush=True)
+    t0 = time.perf_counter()
+    weights = {}                # algo -> [(K, N, qw, scale)] in pass order
+    for algo in ("int8", "int4"):
+        # the same bf16 weights and x for both (one seed)
+        weights[algo], xs, gen = _quantized_pass(dev, algo)
     torch.cuda.synchronize()
     wbytes = {a: sum(q.numel() for _, _, q, _ in ws)
               for a, ws in weights.items()}
@@ -2260,8 +2463,6 @@ def weight_only_phase(dev, card):
           f"weights ({WO_LAYERS} layers) drawn in bf16 and quantized in "
           f"{time.perf_counter() - t0:.1f} s: int8 {wbytes['int8'] / 1e9:.2f} "
           f"GB, int4 {wbytes['int4'] / 1e9:.2f} GB", flush=True)
-    xs = {K: torch.randn(WO_M, K, generator=gen, device=dev).to(torch.bfloat16)
-          for K in {K for _, K, _ in LLAMA_PROJ}}
 
     def run_pass(algo, out=None):
         for K, N, q, s in weights[algo]:
@@ -2356,17 +2557,43 @@ def weight_only_phase(dev, card):
         k8 = ("qmm",)
         with torch.no_grad():
             t = _timed(lambda: run_pass(algo), kernels=k8)
-            # the profiler records most of the pass's launches, not all
-            # (its count fell short of the launch counter's by a few per
-            # cent): every kernel it saw is K8's, and none more often than
-            # the pass has GEMMs
-            by_kernel = _kernel_counts(lambda: run_pass(algo))
+            # the profiled pass, from a fresh process (late in this one
+            # the profiler misses a few per cent of the launches): K8's
+            # kernel alone, once a GEMM
+            by_kernel = fresh[algo]
             check(all("qmm_bf16" in k for k in by_kernel)
-                  and 0 < sum(by_kernel.values()) <= len(weights[algo]),
+                  and sum(by_kernel.values()) == len(weights[algo]),
                   f"weight-only {algo}: the profiled pass ran {by_kernel}, "
-                  f"not K8's kernel alone, one a GEMM")
+                  f"not K8's kernel alone, once a GEMM")
             host_us = Timer.host_us(lambda: qm.quant_matmul(
                 xs[K], q, s, int4=int4))
+            # the same call with the launch plan searched every call, as
+            # before plans were cached by shape
+            host_us_search = Timer.host_us(lambda: (
+                qm._plans.clear(), qm.quant_matmul(xs[K], q, s, int4=int4)))
+            # the pass captured once into a CUDA graph and replayed
+            pass_prog = CapturedProgram(
+                lambda b: tuple(
+                    quant.weight_only_linear(b[f"x{K}"], q, weight_scale=s,
+                                             weight_dtype=algo)
+                    for K, N, q, s in weights[algo]),
+                {f"x{K}": x for K, x in xs.items()}, graph_pool(dev),
+                f"weight-only {algo} pass")
+            eager_outs = [quant.weight_only_linear(
+                xs[K], q, weight_scale=s, weight_dtype=algo)
+                for K, N, q, s in weights[algo]]
+            pass_prog.run({})                          # captures
+            reset_launch_counts()
+            replayed = pass_prog.run({})
+            got = launch_counts()
+            check(got[kern] == len(weights[algo]) and all(
+                torch.equal(a, b) for a, b in zip(replayed, eager_outs)),
+                f"weight-only {algo}: the replayed pass counted {got[kern]} "
+                f"launches or differs bitwise from the eager pass")
+            del replayed, eager_outs
+            replay = _timed(pass_prog.graph.replay, kernels=k8)
+            capture_s = pass_prog.capture_s
+            del pass_prog
             set_flags({"weight_only_use_kernel": False})
             try:
                 dequant = _timed(lambda: run_pass(algo))
@@ -2423,7 +2650,12 @@ def weight_only_phase(dev, card):
             "dequant_ms": dequant["held"], "dequant_wall_ms": dequant["wall"],
             "design": K8_DESIGN, "plan": plans,
             "kernels_a_pass": by_kernel,
+            "kernels_a_pass_from": "a fresh process's profiled pass",
             "host_us_a_call": host_us,
+            "host_us_a_call_plan_searched": host_us_search,
+            "replay_wall_ms": replay["wall"], "replay_ms": replay["held"],
+            "replay_device_ms": replay["device"],
+            "capture_s": capture_s,
             "shape": (f"one decode step of Llama-3-8B's linear layers: "
                       f"{len(shapes)} GEMMs (32 layers x q, k, v, o, gate, "
                       f"up, down) at M={WO_M}, bf16 x, {algo} weights "
@@ -2442,9 +2674,17 @@ def weight_only_phase(dev, card):
               + ("n/a" if lib is None else
                  f"{lib['held']:.4f} ms ({lib['device']:.4f}; "
                  f"{lib['wall']:.4f}), error {lib_err:.2e} of the largest")
-              + f" ({lib_note}); the profiled pass's kernels, K8's alone "
-              f"({by_kernel}, of {len(shapes)} launches); host "
-              f"{host_us:.1f} us a call ({K}x{N}); per projection, held "
+              + f" ({lib_note}); the profiled pass's kernels in a fresh "
+              f"process, K8's alone ({by_kernel}, of {len(shapes)} "
+              f"launches); the pass replayed from a CUDA graph (captured in "
+              f"{capture_s:.2f} s, {len(shapes)} launches counted a replay, "
+              f"outputs bitwise the eager pass's): wall {replay['wall']:.4f} "
+              f"ms, held {replay['held']:.4f} ms (profiler "
+              f"{replay['device']:.4f}, {replay['recorded']} launches) "
+              f"against the eager pass's wall {t['wall']:.4f} and held "
+              f"{t['held']:.4f} ms; host {host_us:.1f} us a call ({K}x{N}; "
+              f"{host_us_search:.1f} with the launch plan searched every "
+              f"call); per projection, held "
               f"(profiler a recorded launch; wall) a call: "
               + ", ".join(f"{k} {v['held_ms']:.4f} ({v['device_ms']:.4f}, "
                           f"{v['recorded']} of {v['calls']}; "

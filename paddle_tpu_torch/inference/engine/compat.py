@@ -126,7 +126,9 @@ class _LegacyDelegation:
 
     @cache.setter
     def cache(self, value):
-        self.runner.cache = value
+        # copied in place, never rebound: the runner's captured programs
+        # hold the addresses of its cache tensors (shape and dtype checked)
+        self.runner.load_cache(value)
 
     @property
     def W(self):

@@ -477,6 +477,7 @@ class LLMEngine(_LegacyDelegation, _SpecOrchestration):
         self._step_phase = ("decode", tuple(s for s, _ in live))
         _faults.maybe_fire("serving.step", rids=[r.rid for _, r in live],
                            phase="decode")
+        # the dispatch that captures the program (on the CPU: its first)
         compile_call = not self.runner.has_decode_program(k)
         self._m.decode.inc()
         t0 = time.perf_counter()
@@ -495,7 +496,7 @@ class LLMEngine(_LegacyDelegation, _SpecOrchestration):
             self._record_block_sample(k, dt)
         if not compile_call and _obs.enabled():
             # dispatch served k tokens for each live slot; exclude the
-            # compile call so the histogram reflects steady-state latency
+            # capturing call so the histogram reflects steady-state latency
             for _ in live:
                 self._m.token_latency.observe(dt / k)
         for j in range(k):

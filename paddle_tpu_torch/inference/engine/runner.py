@@ -11,7 +11,8 @@ Counterpart of ``paddle_tpu/inference/engine/runner.py``, in PyTorch:
   dispatch; the chunk's rows ride the paged-attention kernel's batch dim
   with per-row context lengths, so causal masking falls out of
   ctx = pos + 1.  A DECODE step feeds every in-flight slot its last token
-  (token-level continuous batching); ``run_decode`` runs K such steps.  A
+  (token-level continuous batching); ``run_decode`` runs K such steps,
+  the token and length feedback kept on the device.  A
   VERIFY step (``run_verify``) scores Kv consecutive positions per slot
   for speculative decoding through the multi-query kernel.
 - The layer stack is a Python loop over the layers (the reference's
@@ -29,14 +30,28 @@ The device decides the attention path: CUDA tensors go through the
 hand-written paged-attention kernels (K5 / K6 for prefill and decode, K7 /
 K7q for verify), CPU tensors through their plain versions (see
 :mod:`paddle_tpu_torch.ops.paged_attention`).
+
+The programs: as the reference jits one program per shape (``_build_decode``
+per K, ``_build_prefill``, ``_build_verify`` per Kv), the runner keeps one
+:class:`~paddle_tpu_torch.jit.capture.CapturedProgram` per decode K, per
+verify Kv and one for prefill, with static int32 buffers shaped by
+``max_batch``, ``prefill_chunk`` and the scheduler's block tables.  On the
+card the first greedy dispatch captures the program into a CUDA graph and
+every later one replays it (one host launch); on the CPU the same body runs
+on the same buffers.  A dispatch with a sampled row runs the body eagerly
+(its per-row seeded ``torch.Generator`` cannot be captured), counted as
+``eager`` in :meth:`ModelRunner.program_stats`.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ...device import resolve_device
+from ...jit.capture import CapturedProgram, graph_pool
 from ...models.llama import rms_norm as _rms
 from ...models.llama import rope as _rope
 from ...ops.paged_attention import (paged_attention,
@@ -55,10 +70,10 @@ def _sample(logits, greedy, temp, topp, topk, seeds):
     ties); each sampled row draws from its own ``torch.Generator`` seeded
     ``seeds[i]``, so draws are reproducible within the port (they cannot
     match JAX's threefry draws)."""
-    amax = torch.argmax(logits, dim=-1)
+    amax = _greedy(logits)
     sampled = np.flatnonzero(np.asarray(greedy) == 0)
     if sampled.size == 0:
-        return amax.to(torch.int32)
+        return amax
     dev = logits.device
     rows = torch.as_tensor(sampled, device=dev)
     lg = logits[rows]
@@ -84,7 +99,13 @@ def _sample(logits, greedy, temp, topp, topk, seeds):
         gen.manual_seed(int(seeds[row]))
         choice = torch.multinomial(filtered[j], 1, generator=gen)
         out[row] = sort_idx[j, choice[0]]
-    return out.to(torch.int32)
+    return out
+
+
+def _greedy(logits):
+    """The greedy rows' token: ``argmax`` (the first index on ties), as
+    :func:`_sample` takes it."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def _to_numpy(t):
@@ -156,8 +177,13 @@ class ModelRunner:
             ks = torch.zeros((L, self.n_pages, self.page, kvh),
                              dtype=torch.float32, device=self.device)
             self.cache += (ks, torch.zeros_like(ks))
-        self._decode_programs: dict = {}    # decode block sizes run so far
+        # the programs (CapturedProgram), built at their first dispatch:
+        # decode by block size K, verify by rows Kv, one prefill; on the
+        # card their graphs share one memory pool
+        self._pool = graph_pool(self.device)
+        self._decode_programs: dict = {}
         self._verify_programs: dict = {}
+        self._prefill_program = None
 
     @property
     def use_kernel(self):
@@ -213,55 +239,21 @@ class ModelRunner:
     def _logits(self, h):
         return F.linear(h.float(), self.W["head"])
 
-    def _i32(self, a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
-
-    # ------------------------------------------------------------- dispatch
-    def has_decode_program(self, k):
-        return k in self._decode_programs
-
-    def has_verify_program(self, kv):
-        return kv in self._verify_programs
-
-    @torch.no_grad()
-    def run_prefill(self, tokens, start, table, n_valid,
-                    greedy, temp, topp, topk, seed):
-        """Dispatch one prefill chunk; returns the sampled next token as a
-        0-d DEVICE tensor (only the caller decides whether to sync on it — a
-        mid-prompt chunk's sample is never read)."""
-        C = self.chunk
-        tok = self._i32(tokens)
-        tab = self._i32(table)
-        x = self.W["embed"][tok.long()]                          # [C, H]
-        offs = torch.arange(C, dtype=torch.int32, device=self.device)
-        pos = int(start) + offs
-        valid = offs < int(n_valid)
-        page_idx = tab[(pos // self.page).long().clamp(max=tab.shape[0] - 1)]
-        page_idx = torch.where(valid, page_idx, self.trash_page).long()
-        within = (pos % self.page).long()
-        ctx = torch.where(valid, pos + 1, 1).to(torch.int32)
-        tables = tab[None, :].expand(C, -1).contiguous()
-        h = self._forward(x, pos, page_idx, within, tables, ctx)
-        last = h[max(int(n_valid) - 1, 0)][None]
-        nxt = _sample(self._logits(last), [greedy], [temp], [topp], [topk],
-                      [seed])
-        return nxt[0]
-
-    @torch.no_grad()
-    def run_decode(self, k, tokens, lens, tables, active,
-                   greedy, temp, topp, topk, seeds, fold):
-        """Run a K-step decode block; returns host tokens [k, B] int32 (the
-        copy to the host syncs, so the caller's wall time is a true dispatch
-        sample)."""
-        self._decode_programs[k] = True
-        act = self._i32(active) > 0
-        tok = self._i32(tokens)
-        ln = self._i32(lens)
-        tab = self._i32(tables)
-        seeds = np.asarray(seeds, np.int64)
-        fold = np.asarray(fold, np.int64)
+    # -------------------------------------------------------------- programs
+    # Each body reads only its program's static buffers (and the weights
+    # and cache, which stay where they are) and returns (tokens, logits);
+    # the dispatch copies out the tokens.  ``sample`` None is the greedy
+    # argmax the card captures, else ``sample(logits, step)`` draws the
+    # tokens of an eager dispatch with sampled rows.
+    def _decode_body(self, k, b, sample=None):
+        """K decode steps with the token and length feedback kept inside:
+        buffers tokens [B], lens [B] (tokens already cached), tables
+        [B, S], active [B] 0/1; returns the tokens [K, B] int32 and the
+        logits [K, B, V]."""
+        act = b["active"] > 0
+        tok, ln, tab = b["tokens"], b["lens"], b["tables"]
         S = tab.shape[1]
-        outs = []
+        outs, logs = [], []
         for i in range(int(k)):
             x = self.W["embed"][tok.long()]                      # [B, H]
             pos = ln
@@ -272,12 +264,135 @@ class ModelRunner:
             within = (pos % self.page).long()
             ctx = torch.where(act, pos + 1, 1).to(torch.int32)
             h = self._forward(x, pos, page_idx, within, tab, ctx)
-            nxt = _sample(self._logits(h), greedy, temp, topp, topk,
-                          seeds + i * fold)
+            logits = self._logits(h)
+            nxt = _greedy(logits) if sample is None else sample(logits, i)
             tok = torch.where(act, nxt, tok)
             ln = ln + act.to(ln.dtype)
             outs.append(nxt)
-        return torch.stack(outs).cpu().numpy()
+            logs.append(logits)
+        return torch.stack(outs), torch.stack(logs)
+
+    def _prefill_body(self, b, sample=None):
+        """One prompt chunk of one slot: buffers tokens [C] (zero-padded),
+        start and n_valid (0-d), table [S]; the chunk's rows ride the paged
+        kernel's batch dim with ctx = pos + 1.  Returns the next token
+        (0-d int32) sampled from row n_valid - 1, and its logits [1, V]."""
+        C = self.chunk
+        tab = b["table"]
+        x = self.W["embed"][b["tokens"].long()]                  # [C, H]
+        offs = torch.arange(C, dtype=torch.int32, device=self.device)
+        pos = b["start"] + offs
+        valid = offs < b["n_valid"]
+        page_idx = tab[(pos // self.page).long().clamp(max=tab.shape[0] - 1)]
+        page_idx = torch.where(valid, page_idx, self.trash_page).long()
+        within = (pos % self.page).long()
+        ctx = torch.where(valid, pos + 1, 1).to(torch.int32)
+        tables = tab[None, :].expand(C, -1).contiguous()
+        h = self._forward(x, pos, page_idx, within, tables, ctx)
+        last = (b["n_valid"] - 1).clamp(min=0).long().view(1)
+        logits = self._logits(h.index_select(0, last))
+        nxt = _greedy(logits) if sample is None else sample(logits, 0)
+        return nxt[0], logits
+
+    def _verify_body(self, kv, b, sample=None):
+        """kv consecutive positions a slot in one forward: buffers tokens
+        [B, kv], lens [B], tables [B, S], n_rows [B]; returns the tokens
+        [B, kv] int32 (see :meth:`run_verify`) and the logits [B * kv,
+        V]."""
+        B = self.max_batch
+        tab, ln, nr = b["tables"], b["lens"], b["n_rows"]
+        S = tab.shape[1]
+        row_j = torch.arange(kv, dtype=torch.int32,
+                             device=self.device).repeat(B)      # [B*kv]
+        pos = ln[:, None].expand(B, kv).reshape(-1) + row_j
+        valid = row_j < nr[:, None].expand(B, kv).reshape(-1)
+        slot = (pos // self.page).long().clamp(max=S - 1).view(B, kv)
+        page_idx = tab.gather(1, slot).reshape(-1)
+        page_idx = torch.where(valid, page_idx, self.trash_page).long()
+        within = (pos % self.page).long()
+        # row 0 of an active slot sees lens + 1 tokens (its own write
+        # included); the multi-query kernel extends that by j for row j
+        cl = torch.where(nr > 0, ln + 1, 1).to(torch.int32)
+        x = self.W["embed"][b["tokens"].reshape(-1).long()]
+        h = self._forward(x, pos, page_idx, within, tab, cl, q_len=kv)
+        logits = self._logits(h)
+        toks = _greedy(logits) if sample is None else sample(logits, 0)
+        return toks.view(B, kv), logits
+
+    def _program(self, name, body, inputs):
+        """A program whose int32 buffers take the shapes of its first
+        call's ``inputs``."""
+        bufs = {n: torch.zeros(np.shape(v), dtype=torch.int32,
+                               device=self.device)
+                for n, v in inputs.items()}
+        return CapturedProgram(body, bufs, self._pool, name)
+
+    # ------------------------------------------------------------- dispatch
+    def has_decode_program(self, k):
+        """Whether the decode program of ``k`` steps is built: its graph
+        captured on the card, its body run once on the CPU."""
+        prog = self._decode_programs.get(k)
+        return prog is not None and prog.ready
+
+    def has_verify_program(self, kv):
+        prog = self._verify_programs.get(kv)
+        return prog is not None and prog.ready
+
+    def program_stats(self):
+        """Each program's runs, captures, replays, eager runs, capture
+        seconds and launches a replay, by ``decode/K``, ``prefill`` and
+        ``verify/Kv``."""
+        progs = {f"decode/{k}": p for k, p in self._decode_programs.items()}
+        if self._prefill_program is not None:
+            progs["prefill"] = self._prefill_program
+        progs.update((f"verify/{kv}", p)
+                     for kv, p in self._verify_programs.items())
+        return {name: p.stats() for name, p in progs.items()}
+
+    @torch.no_grad()
+    def run_prefill(self, tokens, start, table, n_valid,
+                    greedy, temp, topp, topk, seed):
+        """Dispatch one prefill chunk; returns the sampled next token as a
+        0-d DEVICE tensor of its own (only the caller decides whether to
+        sync on it — a mid-prompt chunk's sample is never read)."""
+        inputs = dict(tokens=tokens, start=start, table=table,
+                      n_valid=n_valid)
+        if self._prefill_program is None:
+            self._prefill_program = self._program(
+                "prefill", self._prefill_body, inputs)
+        prog = self._prefill_program
+        if greedy:
+            return prog.run(inputs, take=0)
+
+        def sample(logits, _):
+            return _sample(logits, [greedy], [temp], [topp], [topk], [seed])
+
+        return prog.run_eager(inputs, functools.partial(
+            self._prefill_body, sample=sample), take=0)
+
+    @torch.no_grad()
+    def run_decode(self, k, tokens, lens, tables, active,
+                   greedy, temp, topp, topk, seeds, fold):
+        """Run a K-step decode block; returns host tokens [k, B] int32 (the
+        copy to the host syncs, so the caller's wall time is a true dispatch
+        sample).  Greedy dispatches run the program; one with a sampled row
+        runs its body eagerly (a seeded draw cannot be captured)."""
+        inputs = dict(tokens=tokens, lens=lens, tables=tables, active=active)
+        prog = self._decode_programs.get(k)
+        if prog is None:
+            prog = self._decode_programs[k] = self._program(
+                f"decode/{k}", functools.partial(self._decode_body, k),
+                inputs)
+        if np.all(np.asarray(greedy) != 0):
+            return prog.run(inputs, host=True, take=0).numpy()
+        seeds = np.asarray(seeds, np.int64)
+        fold = np.asarray(fold, np.int64)
+
+        def sample(logits, i):
+            return _sample(logits, greedy, temp, topp, topk, seeds + i * fold)
+
+        return prog.run_eager(inputs, functools.partial(
+            self._decode_body, k, sample=sample), host=True, take=0).numpy()
 
     @torch.no_grad()
     def run_verify(self, kv, tokens, lens, tables, n_rows,
@@ -293,35 +408,48 @@ class ModelRunner:
         decode block would have drawn — so greedy and fixed-seed requests
         stay token-exact against spec-off decoding.  The host rolls back
         pages past the accepted point; attention masks by context length,
-        so stale writes beyond a slot's length are never attended."""
-        self._verify_programs[kv] = True
+        so stale writes beyond a slot's length are never attended.  As in
+        :meth:`run_decode`, a dispatch with a sampled row runs eagerly."""
+        inputs = dict(tokens=tokens, lens=lens, tables=tables, n_rows=n_rows)
+        prog = self._verify_programs.get(kv)
+        if prog is None:
+            prog = self._verify_programs[kv] = self._program(
+                f"verify/{kv}", functools.partial(self._verify_body, kv),
+                inputs)
+        if np.all(np.asarray(greedy) != 0):
+            return prog.run(inputs, host=True, take=0).numpy()
         B = self.max_batch
-        tab = self._i32(tables)
-        ln = self._i32(lens)
-        nr = self._i32(n_rows)
-        S = tab.shape[1]
-        row_j = torch.arange(kv, dtype=torch.int32,
-                             device=self.device).repeat(B)      # [B*kv]
-        pos = ln.repeat_interleave(kv) + row_j
-        valid = row_j < nr.repeat_interleave(kv)
-        slot = (pos // self.page).long().clamp(max=S - 1).view(B, kv)
-        page_idx = tab.gather(1, slot).reshape(-1)
-        page_idx = torch.where(valid, page_idx, self.trash_page).long()
-        within = (pos % self.page).long()
-        # row 0 of an active slot sees lens + 1 tokens (its own write
-        # included); the multi-query kernel extends that by j for row j
-        cl = torch.where(nr > 0, ln + 1, 1).to(torch.int32)
-        x = self.W["embed"][self._i32(tokens).reshape(-1).long()]
-        h = self._forward(x, pos, page_idx, within, tab, cl, q_len=kv)
 
         def rep(a):
             return np.repeat(np.asarray(a), kv)
 
         seeds_rep = (rep(seeds).astype(np.int64)
                      + np.tile(np.arange(kv), B) * rep(fold))
-        toks = _sample(self._logits(h), rep(greedy), rep(temp), rep(topp),
-                       rep(topk), seeds_rep)
-        return toks.view(B, kv).cpu().numpy()
+
+        def sample(logits, _):
+            return _sample(logits, rep(greedy), rep(temp), rep(topp),
+                           rep(topk), seeds_rep)
+
+        return prog.run_eager(inputs, functools.partial(
+            self._verify_body, kv, sample=sample), host=True, take=0).numpy()
+
+    @torch.no_grad()
+    def load_cache(self, cache):
+        """Copy ``cache`` (one tensor a component, shapes and dtypes as
+        this runner's) into the cache IN PLACE: the captured programs hold
+        the addresses of these tensors, so they are never rebound."""
+        cache = tuple(cache)
+        if len(cache) != len(self.cache):
+            raise ValueError(f"cache has {len(cache)} components, this "
+                             f"runner {len(self.cache)}")
+        for i, (a, b) in enumerate(zip(self.cache, cache)):
+            if tuple(b.shape) != tuple(a.shape) or b.dtype != a.dtype:
+                raise ValueError(
+                    f"cache component {i} is {b.dtype} "
+                    f"{tuple(b.shape)}, this runner's {a.dtype} "
+                    f"{tuple(a.shape)}")
+        for a, b in zip(self.cache, cache):
+            a.copy_(b)
 
     # ---------------------------------------------------------- page movement
     @torch.no_grad()

@@ -157,6 +157,7 @@ class _SpecOrchestration:
         self._step_phase = ("verify", tuple(s for s, _ in live))
         _faults.maybe_fire("serving.step", rids=[r.rid for _, r in live],
                            phase="verify")
+        # the dispatch that captures the program (on the CPU: its first)
         compile_call = not self.runner.has_verify_program(Kv)
         self.spec_dispatches += 1
         self._m.verify.inc()

@@ -1,0 +1,195 @@
+"""Programs replayed from CUDA graphs: the port's counterpart of a jitted
+program.
+
+The JAX package compiles one XLA program per shape (``jax.jit`` in the
+serving runner, ``paddle_tpu/jit/to_static.py`` for ``generate``'s decode
+step), and each dispatch is one launch from the host.  PyTorch runs
+eagerly: the same step issues every op of every layer from Python.  A
+:class:`CapturedProgram` records such a step once into a
+``torch.cuda.CUDAGraph`` and replays it, so a dispatch costs the host one
+launch again.
+
+A program owns static input buffers, a body that reads only those buffers
+(and state that stays where it is, such as weights and caches written in
+place), and the static outputs the body returned while it was captured.
+:meth:`CapturedProgram.run` copies the caller's inputs into the buffers,
+then
+
+- on a CUDA device: the first call runs the body once on a side stream (the
+  call's result; it also does every first-use host step: a kernel's build,
+  its plan, the cuBLAS workspace) and captures it into a graph, in the
+  memory pool its owner passed (shared by the owner's programs); every
+  later call replays the graph;
+- on the CPU: it calls the same body on the same buffers, so the tests run
+  exactly the code that the card captures.
+
+Outputs are copied out before ``run`` returns (a device clone, or the host
+copy the caller asked for): a later replay never overwrites a tensor a
+caller holds.  A capture that fails raises; nothing retries it eagerly.
+:meth:`CapturedProgram.run_eager` runs the body (or a variant of it, on
+the same buffers) uncaptured, for a dispatch the graph cannot serve, and
+counts it.
+
+Launch counters: each kernel wrapper counts the launches it makes in
+Python, so a replay, which runs no Python, would count none.  The capture
+records how far it moved every counter in ``ops``' ``LAUNCH_COUNTERS``,
+puts them back (a capture launches nothing), and each replay adds those
+deltas: the counters keep counting launches on the card.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..ops import flash_attention, paged_attention, quant_matmul
+
+__all__ = ["CapturedProgram", "launch_counts", "graph_pool"]
+
+_COUNTERS = (paged_attention.LAUNCH_COUNTERS + quant_matmul.LAUNCH_COUNTERS
+             + flash_attention.LAUNCH_COUNTERS)
+
+
+def _key(fn, attr):
+    return f"{fn.__name__}.{attr}"
+
+
+def launch_counts():
+    """Every kernel launch counter of the port, ``{"fn.attr": count}``."""
+    return {_key(fn, attr): getattr(fn, attr) for fn, attr in _COUNTERS}
+
+
+def _add_launches(deltas):
+    for fn, attr in _COUNTERS:
+        d = deltas.get(_key(fn, attr))
+        if d:
+            setattr(fn, attr, getattr(fn, attr) + d)
+
+
+# One side stream a device for every warm-up and capture: PyTorch keeps a
+# cuBLAS workspace for each stream that has run a GEMM, for the life of the
+# process, so a fresh stream a capture would leave one behind each time
+# (32 MiB each on the H100).  Warming up on the capture stream also
+# allocates that workspace before the capture begins.
+_STREAMS: dict = {}
+
+
+def _capture_stream(device):
+    if device not in _STREAMS:
+        _STREAMS[device] = torch.cuda.Stream(device)
+    return _STREAMS[device]
+
+
+def graph_pool(device):
+    """A memory pool for the graphs of one owner on ``device`` (None on the
+    CPU, where nothing is captured)."""
+    return (torch.cuda.graph_pool_handle()
+            if torch.device(device).type == "cuda" else None)
+
+
+class CapturedProgram:
+    """One program: ``body(buffers)`` returns a tensor or a tuple of
+    tensors computed from ``buffers`` (name -> static input tensor, all on
+    one device).  ``pool``: the graph memory pool (:func:`graph_pool`)."""
+
+    def __init__(self, body, buffers, pool=None, name="program"):
+        self.body = body
+        self.buffers = buffers
+        self.pool = pool
+        self.name = name
+        self.device = next(iter(buffers.values())).device
+        self.graph = None
+        self.outputs = None          # the graph's static outputs
+        self.launches = {}           # counter -> launches a replay makes
+        self.runs = 0                # calls of run()
+        self.captures = 0
+        self.replays = 0
+        self.eager = 0               # calls of run_eager()
+        self.capture_s = 0.0
+
+    @property
+    def ready(self):
+        """On the card: a graph exists.  On the CPU: the body has run once
+        through :meth:`run` (the first call, which the card captures)."""
+        if self.device.type == "cuda":
+            return self.graph is not None
+        return self.runs > 0
+
+    def stats(self):
+        return {"runs": self.runs, "captures": self.captures,
+                "replays": self.replays, "eager": self.eager,
+                "capture_s": self.capture_s,
+                "launches_a_replay": dict(self.launches)}
+
+    def _stage(self, inputs):
+        """Copy each input (array, number or tensor) into its buffer; the
+        shape must match, the dtype is converted."""
+        for name, value in inputs.items():
+            buf = self.buffers[name]
+            src = torch.as_tensor(value)
+            if tuple(src.shape) != tuple(buf.shape):
+                raise ValueError(
+                    f"{self.name}: input {name!r} has shape "
+                    f"{tuple(src.shape)}, its buffer {tuple(buf.shape)}")
+            buf.copy_(src)
+
+    @staticmethod
+    def _copy_out(out, host, take):
+        if take is not None:
+            out = out[take]
+        one = isinstance(out, torch.Tensor)
+        outs = (out,) if one else tuple(out)
+        outs = tuple(t.cpu() if host else t.clone() for t in outs)
+        return outs[0] if one else outs
+
+    def run(self, inputs, host=False, take=None):
+        """Stage ``inputs`` ({name: value}) and run the program; returns
+        copies of its outputs (on the host with ``host``; with ``take``,
+        of output ``take`` alone)."""
+        self._stage(inputs)
+        self.runs += 1
+        if self.device.type != "cuda":
+            out = self.body(self.buffers)
+        elif self.graph is None:
+            out = self._capture()
+        else:
+            self.graph.replay()
+            _add_launches(self.launches)
+            self.replays += 1
+            out = self.outputs
+        return self._copy_out(out, host, take)
+
+    def run_eager(self, inputs, body=None, host=False, take=None):
+        """Stage ``inputs`` and run ``body`` (default: the program's own)
+        on the buffers uncaptured; counted in ``eager``."""
+        self._stage(inputs)
+        self.eager += 1
+        return self._copy_out((body or self.body)(self.buffers), host, take)
+
+    def _capture(self):
+        """Run the body on the side stream (this call's result), then
+        capture it there.  The capture's kernels do not run, so the
+        counters it moved are put back and kept as the launches of one
+        replay."""
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(self.device)
+        side = _capture_stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self.body(self.buffers)
+        main.wait_stream(side)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=side):
+                outputs = self.body(self.buffers)
+        finally:
+            after = launch_counts()
+            _add_launches({k: before[k] - after[k] for k in after})
+        self.launches = {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}
+        self.graph, self.outputs = graph, outputs
+        torch.cuda.synchronize(self.device)
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return out

@@ -16,10 +16,14 @@ Autoregressive decoding with a dense per-layer :class:`KVCache`
 (:meth:`LlamaForCausalLM.generate`, what the speculative decoder's draft
 model runs) attends through :func:`_cached_sdpa`, plain tensor code on any
 device, as the JAX package's ``_cached_sdpa`` is plain jnp outside any
-Pallas kernel.
+Pallas kernel.  As the reference keeps ``_gen_states``, ``generate`` keeps
+its caches and its decode step on the model, keyed by (batch, cache
+bucket, sampling config, K); the step is a captured program (a CUDA graph
+on the card) that greedy decoding replays.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -27,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..jit.capture import CapturedProgram, graph_pool
 from ..nn.functional import cross_entropy, flash_attention
 from ..nn.functional.attention import _sdpa_ref
 from ..ops.paged_attention import quantize_kv
@@ -138,9 +143,11 @@ def rope(x, pos, theta):
 class KVCache:
     """Per-layer dense KV cache [batch, max_len, KVH, D] for autoregressive
     decode, with the write offset (the serving path's paged variant lives in
-    the engine's runner).  Counterpart of the JAX ``KVCache``; the port runs
-    eagerly, so the offset is a plain int and the cache is written in
-    place."""
+    the engine's runner).  Counterpart of the JAX ``KVCache``: the offset
+    lives on the device (``pos``, a 0-d int32 tensor, as the reference's
+    offset is program state), so a decode step that reads and advances it
+    can be captured and replayed; ``offset`` is its host mirror, for the
+    overflow check.  The cache is written in place."""
 
     def __init__(self, batch, max_len, num_kv_heads, head_dim,
                  dtype=torch.float32, device="cuda"):
@@ -148,8 +155,15 @@ class KVCache:
         self.k = torch.zeros((batch, max_len, num_kv_heads, head_dim),
                              dtype=dtype, device=dev)
         self.v = torch.zeros_like(self.k)
+        self.pos = torch.zeros((), dtype=torch.int32, device=dev)
         self.offset = 0
         self.max_len = max_len
+
+    def reset(self):
+        """Rewind to position 0; what the tail holds is masked, never
+        read."""
+        self.pos.fill_(0)
+        self.offset = 0
 
     def update(self, k_new, v_new):
         """Write the s new steps [batch, s, KVH, D] at the offset; returns
@@ -159,23 +173,25 @@ class KVCache:
         if self.offset + s > self.max_len:
             raise ValueError(f"KVCache of {self.max_len} positions is full "
                              f"(offset {self.offset}, {s} new)")
-        self.k[:, self.offset:self.offset + s] = k_new
-        self.v[:, self.offset:self.offset + s] = v_new
+        idx = (self.pos + torch.arange(s, device=self.pos.device)).long()
+        self.k.index_copy_(1, idx, k_new.to(self.k.dtype))
+        self.v.index_copy_(1, idx, v_new.to(self.v.dtype))
+        self.pos += s
         self.offset += s
         return self.k, self.v
 
 
 def _cached_sdpa(q, k, v, q_offset):
-    """Attention of the s query positions starting at ``q_offset`` (q
-    [b, s, h, d]) against the FULL fixed-length cache k / v [b, t, kvh, d]:
+    """Attention of the s query positions starting at ``q_offset`` (an int
+    or a 0-d device tensor; q [b, s, h, d]) against the FULL fixed-length cache k / v [b, t, kvh, d]:
     float32 scores, -1e30 above each row's causal horizon (which also hides
     the not-yet-written tail), float32 softmax, output in q's dtype."""
     b, s, h, d = q.shape
     t = k.shape[1]
     rep = h // k.shape[2]
-    if rep > 1:
-        k = k.repeat_interleave(rep, dim=2)
-        v = v.repeat_interleave(rep, dim=2)
+    if rep > 1:        # each kv head rep times in a row, by shape alone
+        k = k[:, :, :, None].expand(-1, -1, -1, rep, -1).reshape(b, t, h, d)
+        v = v[:, :, :, None].expand(-1, -1, -1, rep, -1).reshape(b, t, h, d)
     sc = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(d)
     rows = q_offset + torch.arange(s, device=q.device)[:, None]
     cols = torch.arange(t, device=q.device)[None, :]
@@ -253,12 +269,12 @@ class LlamaAttention(nn.Module):
         otherwise)."""
         b, s, _ = x.shape
         if position_ids is None:
-            off = kv_cache.offset if kv_cache is not None else 0
+            off = kv_cache.pos if kv_cache is not None else 0
             position_ids = (torch.arange(s, device=x.device)
                             + off)[None].expand(b, s)
         q, k, v = self._qkv(x, position_ids)
         if kv_cache is not None:
-            q_offset = kv_cache.offset       # before the in-place update
+            q_offset = kv_cache.pos.clone()  # before the in-place update
             kk, vv = kv_cache.update(k, v)
             out = _cached_sdpa(q, kk, vv, q_offset)
         else:
@@ -346,6 +362,8 @@ class LlamaForCausalLM(nn.Module):
                                 dtype))
         if generator is not None:
             self.init_weights(generator)
+        self._gen_states = {}        # generate()'s caches and programs
+        self._gen_pool = None        # their graphs' memory pool
 
     @torch.no_grad()
     def init_weights(self, generator):
@@ -410,51 +428,129 @@ class LlamaForCausalLM(nn.Module):
         int64 on the model's device; returns [B, prompt + new].
 
         The cache holds prompt + new tokens rounded up to a power of two
-        (at least 128) positions, as the reference sizes it.
-        tokens_per_dispatch: decode steps run back to back before the host
-        looks at the tokens (default 1); eos checking needs each token, so
-        it forces 1.  ``use_cache=False`` re-runs the whole sequence through
-        the model's forward every step."""
+        (at least 128) positions, as the reference sizes it, and persists
+        on the model with its decode step (:meth:`_gen_state`).  The prompt
+        runs eagerly; the decode step is a
+        :class:`~paddle_tpu_torch.jit.capture.CapturedProgram`: greedy
+        steps replay its CUDA graph on the card, sampled ones (a seeded
+        ``torch.Generator`` cannot be captured) run its body eagerly.
+        tokens_per_dispatch: decode steps run back to back in one program
+        before the host looks at the tokens (default 1); eos checking needs
+        each token, so it forces 1.  ``use_cache=False`` re-runs the whole
+        sequence through the model's forward every step."""
         b, prompt = input_ids.shape
         K = 1 if tokens_per_dispatch is None else tokens_per_dispatch
         K = max(1, min(int(K), max_new_tokens))
         if eos_token_id is not None:
             K = 1                          # host must see every token
+        sampling = (do_sample, top_p, top_k, temperature, seed)
+        entry = None
         if use_cache:
             # K>1 overshoots up to K-1 tokens past max_new before the trim
             need = prompt + -(-max_new_tokens // K) * K
-            caches = self.new_kv_caches(b, 1 << max(7, (need - 1).bit_length()))
-
-        def one(ids, caches):
-            hidden = self.llama(ids, kv_caches=caches)
-            return self._sample(self._head(hidden[:, -1]), do_sample, top_p,
-                                top_k, temperature, seed)
+            entry = self._gen_state(
+                b, 1 << max(7, (need - 1).bit_length()), sampling, K)
 
         toks, cur, finished = [input_ids], input_ids, None
         n_dispatch = -(-max_new_tokens // K) if use_cache else max_new_tokens
-        for _ in range(n_dispatch):
-            if use_cache:
-                blk = [one(cur, caches)]
-                for _ in range(K - 1):
-                    blk.append(one(blk[-1], caches))
-                nxt = blk[-1]
-            else:
-                nxt = one(torch.cat(toks, dim=1), None)
-            if eos_token_id is not None:
-                done_now = (nxt == eos_token_id).reshape(-1)
-                if finished is not None:
-                    nxt = torch.where(finished, eos_token_id,
-                                      nxt.reshape(-1)).reshape(-1, 1)
-                    done_now = finished | done_now
-                finished = done_now
-            nxt = nxt.to(input_ids.dtype)
-            toks.append(torch.cat(blk, dim=1).to(input_ids.dtype)
-                        if use_cache and K > 1 else nxt)
-            cur = nxt
-            if finished is not None and bool(finished.all()):
-                break
+        try:
+            if use_cache:            # the prompt runs eagerly
+                cur = self._next_token(
+                    self.llama(input_ids, kv_caches=entry["caches"]),
+                    sampling)
+                entry["pos"] = prompt
+            for i in range(n_dispatch):
+                if use_cache:
+                    # dispatch 0: the prompt's token and K - 1 steps
+                    # (eagerly, as the reference's first dispatch is its
+                    # prefill trace); later ones: the K-step program
+                    step, n = entry["step"], K - 1 if i == 0 else K
+                    if i == 0:
+                        blk = cur if n == 0 else torch.cat([cur, (
+                            step.run_eager({"cur": cur}, functools.partial(
+                                self._decode_steps, entry, sampling, n)))],
+                            1)
+                    elif do_sample or entry["private"]:
+                        blk = step.run_eager({"cur": cur})
+                    else:
+                        blk = step.run({"cur": cur})
+                    entry["pos"] += n
+                    for c in entry["caches"]:
+                        c.offset = entry["pos"]
+                    nxt = blk[:, -1:]
+                else:
+                    nxt = self._next_token(self.llama(torch.cat(toks, 1)),
+                                           sampling)
+                if eos_token_id is not None:
+                    done_now = (nxt == eos_token_id).reshape(-1)
+                    if finished is not None:
+                        nxt = torch.where(finished, eos_token_id,
+                                          nxt.reshape(-1)).reshape(-1, 1)
+                        done_now = finished | done_now
+                    finished = done_now
+                nxt = nxt.to(input_ids.dtype)
+                toks.append(blk.to(input_ids.dtype)
+                            if use_cache and K > 1 else nxt)
+                cur = nxt
+                if finished is not None and bool(finished.all()):
+                    break
+        finally:
+            if entry is not None:
+                entry["busy"] = False
         out = torch.cat(toks, dim=1)
         return out[:, :prompt + max_new_tokens]     # trim the K overshoot
+
+    def _gen_state(self, batch, max_len, sampling, K):
+        """The reference's ``_gen_states`` entry for (batch, cache bucket,
+        sampling config, K): the per-layer caches and the K-step decode
+        program, kept on the model (at most 4 entries, the oldest dropped)
+        and reused with the offset rewound.  An entry in use (``busy``: a
+        reentrant or concurrent ``generate``) is not shared: the caller
+        gets a private entry, not stored, whose steps run eagerly (a graph
+        used once costs more than it saves, and capturing beside another
+        call's launches is unsafe).  Returns the entry, marked busy."""
+        key = (batch, max_len) + tuple(sampling) + (K,)
+        existing = self._gen_states.get(key)
+        if existing is not None and not existing["busy"]:
+            entry = existing
+            for c in entry["caches"]:
+                c.reset()
+        else:
+            if self._gen_pool is None:
+                self._gen_pool = graph_pool(self.device)
+            entry = {"caches": self.new_kv_caches(batch, max_len),
+                     "busy": False, "pos": 0,
+                     "private": existing is not None}
+            cur = torch.zeros((batch, 1), dtype=torch.long,
+                              device=self.device)
+            entry["step"] = CapturedProgram(
+                functools.partial(self._decode_steps, entry, sampling, K),
+                {"cur": cur}, self._gen_pool,
+                f"generate/{batch}x{max_len}/K{K}")
+            if existing is None:
+                self._gen_states[key] = entry
+                while len(self._gen_states) > 4:   # bound retained memory
+                    self._gen_states.pop(next(iter(self._gen_states)))
+        entry["busy"] = True
+        return entry
+
+    def _decode_steps(self, entry, sampling, n, bufs):
+        """``n`` decode steps from the tokens bufs["cur"] [B, 1] through the
+        entry's caches; returns the tokens [B, n].  The caches' host
+        offsets restart from the entry's position: capturing runs this body
+        twice for one dispatch (the warm-up, then the capture)."""
+        for c in entry["caches"]:
+            c.offset = entry["pos"]
+        tok, outs = bufs["cur"], []
+        for _ in range(n):
+            tok = self._next_token(self.llama(tok, kv_caches=entry["caches"]),
+                                   sampling)
+            outs.append(tok)
+        return torch.cat(outs, 1)
+
+    def _next_token(self, hidden, sampling):
+        """The next token [B, 1] after the last position of ``hidden``."""
+        return self._sample(self._head(hidden[:, -1]), *sampling)
 
     def _sample(self, logits, do_sample, top_p, top_k, temperature, seed):
         """Next token [B, 1] from logits [B, vocab], in the reference's

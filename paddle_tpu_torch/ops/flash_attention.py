@@ -542,3 +542,9 @@ flash_attention_bshd.launches_dkv = 0
 flash_attention_bshd.launches_direct_fwd = 0
 flash_attention_bshd.launches_direct_dq = 0
 flash_attention_bshd.launches_direct_dkv = 0
+
+# every launch counter of this module (see ``paged_attention``'s)
+LAUNCH_COUNTERS = tuple(
+    (flash_attention_bshd, f"launches_{kind}")
+    for kind in ("fwd", "dq", "dkv", "direct_fwd", "direct_dq",
+                 "direct_dkv"))

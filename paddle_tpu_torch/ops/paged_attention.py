@@ -299,6 +299,14 @@ def paged_attention_multiquery(q, k_pages, v_pages, block_tables,
 paged_attention_multiquery.launches = 0
 paged_attention_multiquery.launches_int8 = 0
 
+# every launch counter of this module, for
+# :mod:`paddle_tpu_torch.jit.capture` (a graph replay re-issues the launches
+# its capture counted, and no wrapper runs to count them)
+LAUNCH_COUNTERS = ((paged_attention, "launches"),
+                   (paged_attention, "launches_int8"),
+                   (paged_attention_multiquery, "launches"),
+                   (paged_attention_multiquery, "launches_int8"))
+
 
 def _dense(pages, scales, idx):
     """Pages gathered by idx [B, S] into float32 [B, KVH, S*page, D],

@@ -53,6 +53,7 @@ _F32_STRIP = 64        # columns of an f32 block (one chunk of K)
 _lib = None
 _sms = {}              # SM count by device index
 _clusters = {}         # (device, bn, int4, mt, splits) -> resident clusters
+_plans = {}            # (device, M, K, N, int4) -> launch_plan's plan
 
 
 def _kernel_lib():
@@ -214,6 +215,21 @@ def quant_matmul(x, qw, scale, *, int4=False):
     return _launch(_aligned(x), _aligned(qw), _aligned(scale), int4)
 
 
+def _plan(dev, M, K, N, int4):
+    """:func:`launch_plan` for the card ``dev``, cached by (device, M, K, N,
+    int4): the search and its runtime queries run once a shape, so an
+    eager call's host time stays low and a captured one queries nothing."""
+    key = (dev, M, K, N, bool(int4))
+    if key not in _plans:
+        if dev not in _sms:
+            _sms[dev] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        _plans[key] = launch_plan(
+            M, K, N, _sms[dev],
+            lambda b, m, s: max_clusters(dev, b, int4, m, s))
+    return _plans[key]
+
+
 def _launch(x, qw, scale, int4):
     """K8 on checked, aligned operands: y [M, N] in x's dtype, one launch."""
     M, K = x.shape
@@ -222,13 +238,7 @@ def _launch(x, qw, scale, int4):
     if x.dtype == torch.float32:
         bn, splits, mt = _F32_STRIP, 1, 1
     else:
-        dev = x.device.index
-        if dev not in _sms:
-            _sms[dev] = torch.cuda.get_device_properties(
-                dev).multi_processor_count
-        bn, splits, mt = launch_plan(
-            M, K, N, _sms[dev],
-            lambda b, m, s: max_clusters(dev, b, int4, m, s))
+        bn, splits, mt = _plan(x.device.index, M, K, N, int4)
     with torch.cuda.device(x.device):
         err = _kernel_lib().quant_matmul(
             x.data_ptr(), qw.data_ptr(), scale.data_ptr(), y.data_ptr(),
@@ -247,3 +257,7 @@ def _launch(x, qw, scale, int4):
 
 quant_matmul.launches = 0
 quant_matmul.launches_int4 = 0
+
+# every launch counter of this module (see ``paged_attention``'s)
+LAUNCH_COUNTERS = ((quant_matmul, "launches"),
+                   (quant_matmul, "launches_int4"))

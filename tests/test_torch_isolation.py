@@ -52,6 +52,7 @@ def test_port_files_import_no_jax_and_nothing_of_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import paddle_tpu_torch.inference.serving\n"
+            "import paddle_tpu_torch.jit\n"
             "import paddle_tpu_torch.models.convert\n"
             "import paddle_tpu_torch.models.gpt2\n"
             "import paddle_tpu_torch.nn\n"
