@@ -77,7 +77,37 @@ Phases (any failure raises and the script exits non-zero):
    body run eagerly on the same inputs and cache (tokens identical, logits
    within the bf16 bar); the profiled windows print the paged kernel's
    launches as the profiler saw them beside layers x steps.
-4. training, after the engines have freed their memory: a tiny float32
+4. front door, the serving front door and fleet (``paddle_tpu_torch.
+   inference.frontend``): K5 launched from a fresh thread against its
+   plain version; a native ``TCPStore`` master; the tiny float32 Llama
+   behind a two-replica SSE gateway (token-exact with one direct engine)
+   and behind a fleet of two thread-hosted workers on the durable gateway,
+   one killed mid-stream (its streams resumed token-exact); then
+   Llama-3-8B in bf16 behind the in-process gateway: two ``LLMEngine``s on
+   one model, each with its own step thread, a prefix-affinity
+   ``ReplicaSet``, eight concurrent ``http_completion`` SSE clients (the
+   engine phase's prompts, 32 tokens each) and a shared-prefix pair whose
+   second request must be routed by affinity to the first's replica and
+   hit its two cached pages; every stream FINISHED with 32 tokens, equal
+   to the serving engine's ``result()`` and within ``GAP`` of the dense
+   reference; both replicas captured their programs (captures take turns
+   on the card: the time one waited is printed), 0 eager, and K5's
+   launches = layers x dispatches on each replica and in all; TTFT and
+   tokens/s beside the direct bf16 engine's.  Then the fleet: two
+   ``WorkerSupervisor``s each spawn ``python -m paddle_tpu_torch.
+   inference.frontend.worker --engine-spec chip_smoke.py:make_engine``
+   (the same seeded Llama-3-8B bf16 engine), a ``FleetReplicaSet`` behind
+   the durable (journaled) gateway, the same eight prompts over HTTP, and
+   a SIGKILL of the worker serving the most streams once each of them has
+   ``FLEET_KILL_AT`` tokens: every stream must end with exactly 32 tokens
+   at SSE indices 0-31 (no gap, no duplicate, the tokens sent before the
+   kill kept), the killed worker's streams resumed on the survivor, the
+   worker respawned by its supervisor and rejoined through membership
+   under epoch 2; then, the workers stopped, the dense reference built
+   here from the same seed checks every stream within ``GAP``.  Each
+   worker's memory, the time from the kill to the resumed streams' first
+   token and to the rejoin are printed.
+5. training, after the engines have freed their memory: a tiny float32
    GPT-2 bridged from seeded numpy weights takes two AdamW steps on the
    card (K1-K3) and on the CPU (their plain versions), held together; then
    GPT-2 124M in bf16 at ``bench.py``'s geometry (B16 S1024, AdamW 3e-4,
@@ -93,7 +123,7 @@ Phases (any failure raises and the script exits non-zero):
    GPT-2 from the same seed trains with ``FLAGS_flash_layout_direct`` set
    (K4's path), its first step held to the default path's, with K4's three
    bodies launched layers x steps times each and K1-K3 never.
-5. weight-only, K8's path: Llama-3-8B's 224 projection weights (32
+6. weight-only, K8's path: Llama-3-8B's 224 projection weights (32
    layers, random bf16 from a seeded generator on the card) quantized to
    int8 and int4 through ``weight_quantize``; one decode step of linear
    layers (M = 8) through ``nn.quant.weight_only_linear``, K8 launched
@@ -109,7 +139,7 @@ Phases (any failure raises and the script exits non-zero):
    allocates (less than its bf16 weight); the pass timed beside its bound,
    the host's time a call, the dequant formulation, F.linear on
    dequantized bf16 weights, and the library's int8 / int4 calls.
-6. the decode and verify windows' lines, the ``kernels`` JSON line (all
+7. the decode and verify windows' lines, the ``kernels`` JSON line (all
    twelve kernels, each launched on its path, with their design and tile,
    split or launch plan), the card line, and last the result line.
 """
@@ -118,9 +148,14 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1246,26 +1281,33 @@ def teacher_forced_check(model, prompt, out, gap, dev, kv_int8=False):
 TINY_ENGINES = ((256, 2, 1, 512), (64, 4, 2, 128), (256, 4, 2, 512))
 
 
-def tiny_f32_engine(dev, hidden=256, heads=2, kv_heads=1, ffn=512):
+def tiny_f32_model(dev, hidden=256, heads=2, kv_heads=1, ffn=512):
     """A 2-layer float32 Llama from seeded numpy weights, bridged through
-    llama_from_numpy, served on the card and checked token by token; then
-    the same requests with int8 pages, speculative decoding, both, and the
-    model as its own draft model, each token-identical to the plain engine
-    of its KV dtype."""
-    from paddle_tpu_torch.inference.serving import LLMEngine, SpecConfig
+    llama_from_numpy; returns the model and the generator that drew its
+    weights (prompts come from it next)."""
     from paddle_tpu_torch.models.convert import llama_from_numpy
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig.tiny(hidden_size=hidden, num_attention_heads=heads,
                            num_key_value_heads=kv_heads,
                            intermediate_size=ffn)
-    d = hidden // heads
     rng = np.random.RandomState(SEED)
     state = {}
     shapes = _jax_shapes(LlamaForCausalLM(cfg, device="cpu"))
     for name, shape in shapes.items():
         state[name] = (1.0 + 0.1 * rng.randn(*shape) if name.endswith(
             "norm.weight") else 0.08 * rng.randn(*shape)).astype(np.float32)
-    model = llama_from_numpy(state, cfg, device=dev)
+    return llama_from_numpy(state, cfg, device=dev), rng
+
+
+def tiny_f32_engine(dev, hidden=256, heads=2, kv_heads=1, ffn=512):
+    """The tiny float32 Llama (:func:`tiny_f32_model`) served on the card
+    and checked token by token; then the same requests with int8 pages,
+    speculative decoding, both, and the model as its own draft model, each
+    token-identical to the plain engine of its KV dtype."""
+    from paddle_tpu_torch.inference.serving import LLMEngine, SpecConfig
+    model, rng = tiny_f32_model(dev, hidden, heads, kv_heads, ffn)
+    cfg = model.config
+    d = hidden // heads
     pattern = list(rng.randint(0, cfg.vocab_size, 6))
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in (5, 16, 21)]
     prompts.append(np.asarray(pattern * 3))      # something to draft from
@@ -1282,6 +1324,10 @@ def tiny_f32_engine(dev, hidden=256, heads=2, kv_heads=1, ffn=512):
         ran = {k for k in ("K5", "K6", "K7", "K7q") if after[k] > before[k]}
         check(ran == set(kernels), f"tiny f32 D={d} {kw}: launched "
               f"{sorted(ran)}, expected {kernels}")
+        # a failed dispatch (a capture that raised) is retried by the
+        # engine's step isolation and would pass unseen
+        check(eng.step_failures == 0, f"tiny f32 D={d} {kw}: "
+              f"{eng.step_failures} steps failed")
         return eng, rids, [list(eng.result(r)) for r in rids]
 
     eng, rids, base = serve(["K5"])
@@ -1471,6 +1517,8 @@ def serve_full_width(model, tag, gap, dev, profile=False, spec=False,
           f"engine {tag}: {totals} program runs for "
           f"{n_prefill + n_decode + n_verify} dispatches")
     check(totals["replays"] > 0, f"engine {tag}: no program replayed")
+    check(eng.step_failures == 0,
+          f"engine {tag}: {eng.step_failures} steps failed")
     if spec:
         check(gen["replays"] > 0,
               f"engine {tag}: the drafter's generate replayed no decode step")
@@ -1772,8 +1820,9 @@ def engine_phase(dev, card):
     profiled: a decode window, device busy and K5's share), speculative
     decoding (K5 + K7, a window of its verify steps
     profiled), and int8 pages with speculative decoding (K6 + K7q).
-    Returns each kernel's launches on the run of its path, and the verify
-    window."""
+    Returns each kernel's launches on the run of its path, the decode and
+    verify windows, and the bf16 engine's run (for the front door's
+    rates)."""
     for kw in TINY_ENGINES:
         tiny_f32_engine(dev, *kw)
     model = full_width_model(torch.float32, dev)
@@ -1800,7 +1849,694 @@ def engine_phase(dev, card):
                 "K6": runs["bf16 int8 spec"]["launches"]["K6"],
                 "K7q": runs["bf16 int8 spec"]["launches"]["K7q"]}
     return launches, {"decode": runs["bf16"]["window"],
-                      "verify": runs["bf16 spec"]["window"]}
+                      "verify": runs["bf16 spec"]["window"]}, runs["bf16"]
+
+
+# ------------------------------------------------------ phase: front door
+ROOT = Path(__file__).resolve().parent
+FLEET_TTL = 3.0              # lease TTL of the fleet's workers, seconds
+FLEET_KILL_AT = 8            # SIGKILL once every stream has this many tokens
+WORKER_READY_S = 300         # a worker's start, model and engine included
+# the fleet workers' engine factory (``--engine-spec``)
+FLEET_ENGINE_SPEC = f"{ROOT / 'chip_smoke.py'}:make_engine"
+
+
+def front_door_engine(model, dev):
+    """The engine phase's bf16 settings with prefix caching on: the router
+    routes by the engine's cached prompt pages."""
+    from paddle_tpu_torch.inference.serving import LLMEngine
+    return LLMEngine(model, device=dev, max_batch=8, max_len=1024,
+                     page_size=PAGE, prefill_chunk=32, prefix_cache=True)
+
+
+def make_engine():
+    """Engine factory of the fleet's worker processes
+    (``--engine-spec chip_smoke.py:make_engine``): the seeded Llama-3-8B
+    bf16 model on the card behind :func:`front_door_engine`.  Its
+    ``health`` also reports the process's device memory."""
+    dev = torch.device("cuda", 0)
+    eng = front_door_engine(full_width_model(torch.bfloat16, dev), dev)
+    health = eng.health
+
+    def health_with_memory():
+        h = health()
+        h["mem_gib"] = torch.cuda.memory_allocated(dev) / 2 ** 30
+        h["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        h["reserved_gib"] = torch.cuda.memory_reserved(dev) / 2 ** 30
+        return h
+
+    eng.health = health_with_memory
+    return eng
+
+
+def sse_stream(url, prompt, n, key=None, on_token=None):
+    """One streamed ``POST /v1/completions``; returns the tokens with their
+    SSE indices and arrival times, and the final event's status and
+    replica.  ``key``: the durable gateway's ``Idempotency-Key``."""
+    import urllib.request
+    headers = {"Content-Type": "application/json"}
+    if key is not None:
+        headers["Idempotency-Key"] = key
+    req = urllib.request.Request(
+        url + "/v1/completions", method="POST", headers=headers,
+        data=json.dumps({"prompt": [int(t) for t in prompt],
+                         "max_tokens": int(n), "stream": True}).encode())
+    out = {"tokens": [], "index": [], "times": [], "status": None,
+           "replica": None, "t0": time.perf_counter()}
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                break
+            evt = json.loads(line[len("data: "):])
+            if "token" in evt:
+                out["tokens"].append(int(evt["token"]))
+                out["index"].append(int(evt["index"]))
+                out["times"].append(time.perf_counter())
+                if on_token is not None:
+                    on_token(len(out["tokens"]))
+            else:
+                out["status"] = evt.get("status")
+                out["replica"] = evt.get("replica")
+    return out
+
+
+def run_clients(fn, args, timeout=900):
+    """``fn(*a)`` for each ``a`` of ``args``, each in a thread of its own;
+    returns the results in order, or raises with every client's error."""
+    results, errors = [None] * len(args), []
+
+    def client(i):
+        try:
+            results[i] = fn(*args[i])
+        except Exception as e:  # every client's error is reported
+            errors.append(f"client {i}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(args))]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + timeout
+    for t in threads:
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+    check(not any(t.is_alive() for t in threads),
+          f"clients still running after {timeout} s")
+    check(not errors, "; ".join(errors))
+    return results
+
+
+def fresh_thread_launch(dev):
+    """K5 launched from a thread that made no CUDA call before (as a
+    replica's step thread or a worker's RPC thread is), held to its plain
+    version at the decode shape."""
+    from paddle_tpu_torch.ops.paged_attention import (paged_attention,
+                                                      paged_attention_ref)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    B, S = 8, 8
+    q = torch.randn(B, H, D, device=dev, dtype=torch.bfloat16, generator=gen)
+    kp, vp = (torch.randn(B * S + 1, PAGE, KVH, D, device=dev,
+                          dtype=torch.bfloat16, generator=gen)
+              for _ in range(2))
+    tables = torch.arange(1, B * S + 1, device=dev,
+                          dtype=torch.int32).view(B, S)
+    lens = torch.tensor([1, 17, 33, 64, 100, 127, 128, 77], device=dev,
+                        dtype=torch.int32)
+    want = paged_attention_ref(q, kp, vp, tables, lens)
+    box = {}
+
+    def launch():
+        try:
+            box["out"] = paged_attention(q, kp, vp, tables, lens)
+            torch.cuda.synchronize(dev)
+        except Exception as e:  # reported below
+            box["error"] = e
+
+    t = threading.Thread(target=launch)
+    t.start()
+    t.join(timeout=120)
+    check("out" in box, f"K5 from a fresh thread: {box.get('error')!r}")
+    err = (box["out"].float() - want.float()).abs().max().item()
+    bar = TOL[torch.bfloat16] * want.float().abs().max().item()
+    check(err <= bar, f"K5 from a fresh thread: error {err} > {bar}")
+    print(f"front door: K5 launched from a fresh thread (no CUDA call "
+          f"before it) agrees with its plain version, max |err| {err:.2e} "
+          f"(bar {bar:.2e})", flush=True)
+
+
+def engine_results(eng):
+    """{prompt: output tokens} of every request the engine finished."""
+    return {tuple(r.prompt0): [int(t) for t in eng.result(rid)]
+            for rid, r in eng.sched.finished.items()}
+
+
+def replica_identity(tag, name, eng, L):
+    """One in-process replica's programs: captured, 0 eager, and its K5
+    launches (each program's runs times the launches a replay makes) =
+    layers x its prefill + decode dispatches.  Returns its dispatches and
+    a printable line."""
+    snap = eng.metrics()
+    n = {kind: int(sum(s["value"] for s in
+                       snap["serving_dispatches_total"]["series"]
+                       if s["labels"].get("kind") == kind))
+         for kind in ("prefill", "decode", "verify")}
+    progs = eng.runner.program_stats()
+    totals = program_totals(eng, None)
+    k5 = sum((st["captures"] + st["replays"])
+             * st["launches_a_replay"].get("paged_attention.launches", 0)
+             for st in progs.values())
+    check(totals["captures"] > 0, f"{tag} {name}: no program captured")
+    check(eng.step_failures == 0,
+          f"{tag} {name}: {eng.step_failures} steps failed")
+    check(totals["eager"] == 0,
+          f"{tag} {name}: {totals['eager']} eager dispatches, all greedy")
+    check(totals["captures"] + totals["replays"]
+          == n["prefill"] + n["decode"] + n["verify"],
+          f"{tag} {name}: {totals} program runs for {n} dispatches")
+    check(k5 == L * (n["prefill"] + n["decode"]),
+          f"{tag} {name}: K5 {k5} launches != {L} x {n}")
+    wait = sum(st["capture_wait_s"] for st in progs.values())
+    line = (f"{tag} {name}: {n['prefill']} prefill + {n['decode']} decode "
+            f"dispatches, {totals['captures']} programs captured in "
+            f"{totals['capture_s']:.2f} s ({wait:.2f} s waiting for the "
+            f"other replica's capture), {totals['replays']} replays, "
+            f"{totals['eager']} eager, {len(eng.sched.finished)} requests "
+            f"served, K5 {k5} launches = {L} x "
+            f"{n['prefill'] + n['decode']}")
+    return n["prefill"] + n["decode"], line
+
+
+def gateway_phase(dev, card, direct):
+    """Llama-3-8B bf16 behind the in-process front door: two engines on
+    one model, each with its own step thread, a prefix-affinity
+    ``ReplicaSet`` and the SSE gateway; the engine phase's eight prompts
+    from eight concurrent ``http_completion`` clients, then two requests
+    sharing a two-page prefix, the second sent once the first has its
+    first token.  ``direct``: the direct bf16 engine's run, for the
+    rates."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.inference.frontend import (PrefixAffinityRouter,
+                                                     ReplicaSet,
+                                                     http_completion,
+                                                     start_gateway)
+    model = full_width_model(torch.bfloat16, dev)
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    engines = {"r0": front_door_engine(model, dev),
+               "r1": front_door_engine(model, dev)}
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    shared = list(rng.randint(0, cfg.vocab_size, 2 * PAGE))
+    pair = [shared + list(rng.randint(0, cfg.vocab_size, n)) for n in (5, 9)]
+    torch.cuda.reset_peak_memory_stats()
+    obs.enable()
+    rs = ReplicaSet(list(engines.items()),
+                    router=PrefixAffinityRouter(page_size=PAGE))
+    gw = start_gateway(rs, port=0)
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        streams = run_clients(
+            lambda p: http_completion(gw.url, [int(t) for t in p],
+                                      max_tokens=NEW_TOKENS, stream=True,
+                                      timeout=600),
+            [(p,) for p in prompts])
+        wall = time.perf_counter() - t0
+        first_token = threading.Event()
+        holder = {}
+
+        def first():
+            holder["out"] = sse_stream(gw.url, pair[0], NEW_TOKENS,
+                                       on_token=lambda n: first_token.set())
+
+        t = threading.Thread(target=first)
+        t.start()
+        check(first_token.wait(300), "the shared-prefix pair's first "
+              "request never streamed a token")
+        hits0 = {n: e.prefix_cache_stats()["hits"]
+                 for n, e in engines.items()}
+        routed0 = obs.snapshot(prefix="frontend_routed")
+        second = sse_stream(gw.url, pair[1], NEW_TOKENS)
+        t.join(timeout=300)
+        check("out" in holder, "the pair's first request did not finish")
+        hits = {n: e.prefix_cache_stats()["hits"] - hits0[n]
+                for n, e in engines.items()}
+        routed = obs.snapshot(prefix="frontend_routed")
+        launches = launch_counts()
+        ids = [replica_identity("gateway", n, e, L)
+               for n, e in engines.items()]
+    finally:
+        gw.close()
+        rs.close()
+        obs.disable()
+    first_out = holder["out"]
+
+    def affinity(snap):
+        fam = snap.get("frontend_routed_total", {"series": []})
+        return {s["labels"]["replica"]: s["value"] for s in fam["series"]
+                if s["labels"].get("reason") == "affinity"}
+
+    a0, a1 = affinity(routed0), affinity(routed)
+    to = first_out["replica"]
+    check(second["replica"] == to, f"the pair's second request went to "
+          f"{second['replica']}, the first to {to}")
+    check(a1.get(to, 0) - a0.get(to, 0) == 1,
+          f"the second request was not routed by affinity ({a0} -> {a1})")
+    check(hits[to] >= 2, f"the second request hit {hits[to]} cached pages "
+          f"on {to}, its prefix is two")
+    results = {}
+    for e in engines.values():
+        results.update(engine_results(e))
+    outs = [s["tokens"] for s in streams] + [first_out["tokens"],
+                                             second["tokens"]]
+    finals = [s["status"] for s in streams] + [first_out["status"],
+                                               second["status"]]
+    all_prompts = [list(map(int, p)) for p in prompts] + pair
+    for i, (p, out, status) in enumerate(zip(all_prompts, outs, finals)):
+        check(status == "finished", f"gateway stream {i} ended {status}")
+        check(len(out) == NEW_TOKENS, f"gateway stream {i}: {len(out)} "
+              f"tokens")
+        check(out == results.get(tuple(p)), f"gateway stream {i}: the SSE "
+              f"tokens differ from the serving engine's result()")
+    for line in (line for _, line in ids):
+        print(line, flush=True)
+    total = sum(n for n, _ in ids)
+    expected = {k: 0 for k in launches}
+    expected["K5"] = L * total
+    check(launches == expected, f"gateway launches {launches} != "
+          f"{expected} (layers x both replicas' dispatches)")
+    counts, worst = np.zeros(3, int), 0.0
+    for p, out in zip(all_prompts, outs):
+        c, w = teacher_forced_check(model, np.asarray(p), out, GAP, dev)
+        counts, worst = counts + c, max(worst, w)
+    ttft = sorted(e.ttft(rid) for e in engines.values()
+                  for rid in e.sched.finished)
+    first8 = sorted(engines[n].ttft(rid) for n in engines
+                    for rid, r in engines[n].sched.finished.items()
+                    if tuple(r.prompt0) in {tuple(map(int, p))
+                                            for p in prompts})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = {"ttft_p50_s": float(np.median(first8)), "ttft_max_s": first8[-1],
+           "tok_s": len(prompts) * NEW_TOKENS / wall, "wall_s": wall,
+           "peak_mem_gib": peak, "launches_k5": launches["K5"]}
+    print(f"gateway: {len(outs)} SSE streams (8 concurrent + a shared-"
+          f"prefix pair, the second routed by affinity to {to} with "
+          f"{hits[to]} cached pages hit) FINISHED with {NEW_TOKENS} tokens, "
+          f"each the serving engine's result(); teacher-forced check of "
+          f"{NEW_TOKENS * len(outs)} tokens passed: "
+          f"{describe(counts, worst, GAP)}; K5 {launches['K5']} launches = "
+          f"{L} x {total} dispatches", flush=True)
+    print(f"gateway: 8 concurrent streams over two replicas, TTFT p50 "
+          f"{res['ttft_p50_s']:.4f} s, max {res['ttft_max_s']:.4f} s "
+          f"(engine-side; all ten {ttft[0]:.4f}-{ttft[-1]:.4f}), "
+          f"{res['tok_s']:.1f} tokens/s end to end ({len(prompts)} x "
+          f"{NEW_TOKENS} tokens in {wall:.2f} s, captures included); the "
+          f"direct bf16 engine: TTFT p50 {direct['ttft_p50_s']:.4f} s, max "
+          f"{direct['ttft_max_s']:.4f} s, {8 * NEW_TOKENS / direct['wall_s']:.1f}"
+          f" tokens/s end to end ({direct['wall_s']:.2f} s, captures "
+          f"included), decode {direct['decode_tok_s']:.1f} tokens/s; peak "
+          f"memory {peak:.2f} GiB (one model, two engines), on {card}",
+          flush=True)
+    # the gateway handle holds the replica set, and with it the engines
+    # and the model: drop every reference before the fleet's workers
+    del gw, rs, engines, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _worker_logs(paths, tail=2000):
+    for p in paths:
+        try:
+            text = Path(p).read_text()[-tail:]
+        except OSError:
+            continue
+        print(f"--- worker log {p} (tail)\n{text}", flush=True)
+
+
+def fleet_phase(dev, card, store):
+    """Two supervised worker processes, each serving the seeded Llama-3-8B
+    bf16 engine (:func:`make_engine`), leased through ``store``; a
+    ``FleetReplicaSet`` behind the durable gateway; the engine phase's
+    eight prompts streamed over HTTP; one worker SIGKILLed once every
+    stream has ``FLEET_KILL_AT`` tokens.  Its streams resume on the
+    survivor, the supervisor respawns it and it rejoins through
+    membership.  Then the workers stop and the dense reference, built here
+    from the same seed, checks every stream."""
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.inference.frontend import (FleetReplicaSet,
+                                                     WorkerSupervisor,
+                                                     start_gateway)
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig.llama3_8b()
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"fleet: before the workers, this process holds "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} reserved; the "
+          f"card has {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free",
+          flush=True)
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    journal = tempfile.mkdtemp(prefix="chip_smoke_journal_", dir=scratch)
+    logs, procs = [], []
+    group = "smoke-fleet"
+
+    def spawner(name):
+        def spawn():
+            log = scratch / f"chip_smoke_{name}_{len(procs)}.log"
+            logs.append(log)
+            with open(log, "w") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m",
+                     "paddle_tpu_torch.inference.frontend.worker",
+                     "--engine-spec", FLEET_ENGINE_SPEC,
+                     "--name", name, "--store-port", str(store.port),
+                     "--group", group, "--ttl", str(FLEET_TTL)],
+                    cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT))
+            return procs[-1]
+        return spawn
+
+    sups = {n: WorkerSupervisor(spawner(n), name=n, base_delay=0.1,
+                                max_crashes=3, crash_window=600.0)
+            for n in ("w0", "w1")}
+    fleet = FleetReplicaSet(TCPStore(port=store.port, timeout=60),
+                            group=group, ttl=FLEET_TTL, page_size=PAGE)
+    gw = None
+    t_start = time.perf_counter()
+    try:
+        for sup in sups.values():
+            sup.start(interval=0.2)
+        fleet.start_sync(0.2)
+        deadline = time.monotonic() + WORKER_READY_S
+        while (len(fleet.alive_replicas()) < 2
+               and time.monotonic() < deadline):
+            check(all(p.poll() is None for p in procs),
+                  "a fleet worker exited while starting")
+            time.sleep(0.5)
+        check(len(fleet.alive_replicas()) == 2,
+              f"fleet workers did not join within {WORKER_READY_S} s")
+        ready_s = time.perf_counter() - t_start
+        gw = start_gateway(fleet, port=0, journal_dir=journal)
+        progress = [0] * len(prompts)
+        keys = [f"c{i}" for i in range(len(prompts))]
+        box = {}
+
+        def clients():
+            box["streams"] = run_clients(
+                lambda i, p: sse_stream(
+                    gw.url, p, NEW_TOKENS, key=keys[i],
+                    on_token=lambda n: progress.__setitem__(i, n)),
+                [(i, p) for i, p in enumerate(prompts)])
+
+        runner = threading.Thread(target=clients)
+        t0 = time.perf_counter()
+        runner.start()
+        # the victim, once every stream is routed: the worker with the most
+        # unfinished streams (one worker can finish its streams before the
+        # other has streamed its first tokens), killed once each of those
+        # has FLEET_KILL_AT tokens
+        deadline = time.monotonic() + 600
+        victim = None
+        while victim is None and time.monotonic() < deadline:
+            on = {}
+            for k in keys:
+                r = gw.plane.get(k)
+                if r is not None and r.handle is not None:
+                    on[k] = r.handle.replica.name
+            if len(on) == len(keys):
+                open_ = {n: [progress[i] for i, k in enumerate(keys)
+                             if on[k] == n and progress[i] < NEW_TOKENS]
+                         for n in ("w0", "w1")}
+                most = max(open_, key=lambda n: (len(open_[n]), n == "w0"))
+                if open_[most] and min(open_[most]) >= FLEET_KILL_AT:
+                    victim = most
+            time.sleep(0.002)
+        check(victim is not None, f"streams never reached {FLEET_KILL_AT} "
+              f"tokens ({progress})")
+        members = fleet.membership.members()
+        before = {n: fleet.replica(n).health() for n in ("w0", "w1")}
+        pid = members[victim].meta["pid"]
+        at_kill = list(progress)
+        t_kill = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        runner.join(timeout=900)
+        check("streams" in box, "fleet clients did not finish")
+        streams = box["streams"]
+        wall = time.perf_counter() - t0
+        handles = {k: gw.plane.get(k).handle for k in on}
+        deadline = time.monotonic() + WORKER_READY_S
+        while time.monotonic() < deadline:
+            m = fleet.membership.members().get(victim)
+            rep = next((r for r in fleet.alive_replicas()
+                        if r.name == victim), None)
+            if m is not None and m.epoch >= 2 and rep is not None \
+                    and rep.epoch == m.epoch:
+                break
+            time.sleep(0.5)
+        members = fleet.membership.members()
+        check(victim in members and members[victim].epoch == 2,
+              f"the respawned {victim} did not rejoin "
+              f"({ {k: v.epoch for k, v in members.items()} })")
+        rejoin_s = time.perf_counter() - t_kill
+        check(sups[victim].restarts == 1,
+              f"{victim} restarted {sups[victim].restarts} times")
+        after = {n: fleet.replica(n).health() for n in ("w0", "w1")}
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        free_end = torch.cuda.mem_get_info(dev)[0]
+    except BaseException:
+        _worker_logs(logs)
+        raise
+    finally:
+        if gw is not None:
+            gw.close()
+        fleet.close()
+        for sup in sups.values():
+            sup.stop(term_timeout=30.0)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    victims = sorted(k for k, n in on.items() if n == victim)
+    check(any(at_kill[int(k[1:])] < NEW_TOKENS for k in victims),
+          f"no stream on {victim} was mid-way at the kill ({on}, "
+          f"{at_kill})")
+    resumed = []
+    for i, st in enumerate(streams):
+        k = f"c{i}"
+        check(st["status"] == "finished", f"fleet stream {k} ended "
+              f"{st['status']}")
+        check(st["index"] == list(range(NEW_TOKENS)),
+              f"fleet stream {k}: SSE indices {st['index']} (a gap or a "
+              f"duplicate)")
+        kept = [t for t, at in zip(st["tokens"], st["times"]) if at < t_kill]
+        check(len(kept) >= at_kill[i], f"fleet stream {k}: {len(kept)} "
+              f"tokens before the kill, {at_kill[i]} seen then")
+        if handles[k].resumed:
+            check(k in victims and handles[k].replica.name != victim,
+                  f"fleet stream {k} resumed from {on.get(k)} onto "
+                  f"{handles[k].replica.name}")
+            # the survivor's first token ends the longest stall after the
+            # kill (tokens the victim sent before dying may land after it)
+            times = st["times"]
+            j = max((j for j in range(1, len(times)) if times[j] >= t_kill),
+                    key=lambda j: times[j] - times[j - 1])
+            resumed.append(times[j] - t_kill)
+    check(resumed, f"no stream on {victim} resumed after the kill")
+    # the dense reference, from the same seed, once the workers are gone
+    model = full_width_model(torch.bfloat16, dev)
+    counts, worst = np.zeros(3, int), 0.0
+    for p, st in zip(prompts, streams):
+        c, w = teacher_forced_check(model, p, st["tokens"], GAP, dev)
+        counts, worst = counts + c, max(worst, w)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"fleet: store {store.server_kind}; 2 worker processes joined in "
+          f"{ready_s:.1f} s; 8 SSE streams through the durable gateway, "
+          f"{victim} SIGKILLed (pid {pid}) with {len(victims)} streams on "
+          f"it at {at_kill} tokens; every stream FINISHED with exactly "
+          f"{NEW_TOKENS} tokens, indices 0-{NEW_TOKENS - 1}, no gap or "
+          f"duplicate, the tokens sent before the kill kept; "
+          f"{len(resumed)} resumed on the survivor; teacher-forced check "
+          f"of {NEW_TOKENS * len(streams)} tokens passed: "
+          f"{describe(counts, worst, GAP)}", flush=True)
+    print(f"fleet: kill to the resumed streams' first token "
+          f"{min(resumed):.2f}-{max(resumed):.2f} s; {victim} respawned "
+          f"(restarts {sups[victim].restarts}) and rejoined under epoch 2 "
+          f"{rejoin_s:.1f} s after the kill; 8 x {NEW_TOKENS} tokens in "
+          f"{wall:.2f} s end to end, on {card}", flush=True)
+    for snap in (before, after):
+        for n, h in snap.items():
+            check(h["step_failures"] == 0,
+                  f"fleet worker {n}: {h['step_failures']} steps failed")
+    for when, snap in (("before the kill", before), ("at the end", after)):
+        print("fleet: worker memory " + when + ": " + ", ".join(
+            f"{n} {h['mem_gib']:.2f} GiB allocated, peak "
+            f"{h['peak_mem_gib']:.2f}, reserved {h['reserved_gib']:.2f}"
+            for n, h in snap.items()), flush=True)
+    print(f"fleet: with both workers up at the end the card had "
+          f"{free_end / 2 ** 30:.2f} GiB free; nvidia-smi compute apps "
+          f"(pid, used memory): {smi or 'none visible'}", flush=True)
+    return {"resume_s": resumed, "rejoin_s": rejoin_s, "ready_s": ready_s,
+            "wall_s": wall, "memory": {"before": before, "after": after}}
+
+
+class _PinRouter:
+    """Routes to the pinned replica while it is a candidate, else to the
+    first candidate."""
+
+    def __init__(self, pin=None):
+        self.pin = pin
+
+    def route(self, prompt_ids, replicas):
+        from paddle_tpu_torch.inference.frontend import RouteDecision
+        return RouteDecision(next((r for r in replicas if r.name == self.pin),
+                                  replicas[0]), "pinned")
+
+    def note_event(self, replica_name, event, key):
+        pass
+
+    def forget(self, name):
+        pass
+
+
+def tiny_front_door(dev, store):
+    """The tiny float32 Llama behind the front door on the card: four
+    concurrent SSE streams through a two-replica gateway, token-exact with
+    one direct engine; then a fleet of two thread-hosted workers over
+    ``store`` behind the durable gateway, the worker serving two streams
+    killed (its RPC listener and step loop closed, its lease left) once
+    they have streamed, their streams resumed on the survivor and
+    token-exact with an uninterrupted run."""
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.inference.frontend import (FleetReplicaSet,
+                                                     ReplicaSet,
+                                                     WorkerServer,
+                                                     http_completion,
+                                                     start_gateway)
+    from paddle_tpu_torch.inference.serving import LLMEngine
+    model, rng = tiny_f32_model(dev)
+    vocab = model.config.vocab_size
+    prompts = [list(map(int, rng.randint(0, vocab, n)))
+               for n in (5, 16, 21, 9)]
+    knobs = dict(device=dev, max_batch=2, max_len=64, page_size=8,
+                 prefill_chunk=8, prefix_cache=True)
+    direct = LLMEngine(model, **knobs)
+    rids = [direct.add_request(p, max_new_tokens=24) for p in prompts]
+    direct.run_until_done()
+    want = [[int(t) for t in direct.result(r)] for r in rids]
+    rs = ReplicaSet([LLMEngine(model, **knobs), LLMEngine(model, **knobs)])
+    gw = start_gateway(rs, port=0)
+    try:
+        got = run_clients(
+            lambda p: http_completion(gw.url, p, max_tokens=24, stream=True,
+                                      timeout=300), [(p,) for p in prompts])
+    finally:
+        gw.close()
+        rs.close()
+    check(all(r.engine.step_failures == 0 for r in rs.replicas),
+          "tiny f32 gateway: an engine step failed")
+    check([g["tokens"] for g in got] == want,
+          "tiny f32 gateway: streams differ from the direct engine")
+    print("front door tiny f32: 4 concurrent SSE streams through two "
+          "replicas token-exact with the direct engine", flush=True)
+
+    def paced_engine():
+        eng = LLMEngine(model, **knobs)
+        step = eng.step
+
+        def paced():
+            time.sleep(0.02)
+            return step()
+
+        eng.step = paced
+        return eng
+
+    group = "smoke-tiny"
+    router = _PinRouter("w0")
+    fleet = FleetReplicaSet(TCPStore(port=store.port, timeout=60),
+                            group=group,
+                            ttl=FLEET_TTL, router=router, page_size=8)
+    workers = {}
+    gw = None
+    try:
+        for n in ("w0", "w1"):
+            workers[n] = WorkerServer(
+                n, paced_engine(), TCPStore(port=store.port, timeout=60),
+                group=group, ttl=FLEET_TTL).start()
+        fleet.sync()
+        check(len(fleet.alive_replicas()) == 2, "tiny workers did not join")
+        gw = start_gateway(fleet, port=0, journal_dir=tempfile.mkdtemp(
+            prefix="chip_smoke_tiny_journal_", dir=ROOT / "build"))
+        started = threading.Event()
+        box = {}
+
+        def clients():
+            box["out"] = run_clients(
+                lambda i: sse_stream(
+                    gw.url, prompts[i], 24, key=f"t{i}",
+                    on_token=lambda n: n >= 3 and started.set()),
+                [(0,), (1,)])
+
+        t = threading.Thread(target=clients)
+        t.start()
+        check(started.wait(120), "tiny fleet streams never started")
+        victim = workers.pop("w0")
+        victim.rpc.close()
+        victim.replica.close()
+        router.pin = None
+        t.join(timeout=300)
+        check("out" in box, "tiny fleet clients did not finish")
+        handles = [gw.plane.get(f"t{i}").handle for i in range(2)]
+        check(workers["w1"].replica.engine.step_failures == 0,
+              "tiny f32 fleet: a step of the survivor failed")
+    finally:
+        if gw is not None:
+            gw.close()
+        fleet.close()
+        for w in workers.values():
+            w.close(drain=False)
+    out = box["out"]
+    check([o["tokens"] for o in out] == want[:2], "tiny f32 fleet: resumed "
+          "streams differ from the uninterrupted run")
+    check(all(o["index"] == list(range(24)) for o in out),
+          "tiny f32 fleet: a gap or a duplicate in the SSE indices")
+    check(any(h.resumed for h in handles),
+          f"tiny f32 fleet: no stream resumed ({handles})")
+    print(f"front door tiny f32: a fleet of two workers over the "
+          f"{store.server_kind} store, w0 killed mid-stream, "
+          f"{sum(h.resumed for h in handles)} streams resumed on w1 and "
+          f"{sum(h.requeued for h in handles)} requeued, both token-exact "
+          f"with the uninterrupted run", flush=True)
+
+
+def front_door_phase(dev, card, direct):
+    """The serving front door and fleet: K5 from a fresh thread; the tiny
+    float32 gateway and fleet; Llama-3-8B bf16 behind the in-process
+    gateway; the fleet of worker processes with a SIGKILL."""
+    from paddle_tpu_torch.distributed.store import TCPStore
+    # the engine phase's models sit in reference cycles (their programs'
+    # bodies): collect them before the front door's engines and workers
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh_thread_launch(dev)
+    store = TCPStore(is_master=True, timeout=60)
+    print(f"front door: TCPStore master served by the {store.server_kind} "
+          f"daemon", flush=True)
+    check(store.server_kind == "native", "the store's native daemon did "
+          "not start (no g++?)")
+    tiny_front_door(dev, store)
+    gateway = gateway_phase(dev, card, direct)
+    fleet = fleet_phase(dev, card, store)
+    return {"gateway": gateway, "fleet": fleet}
 
 
 # -------------------------------------------------------- phase 4: training
@@ -2811,8 +3547,10 @@ def main():
     mark("head dims")
     del timer
     torch.cuda.empty_cache()
-    launches, windows = engine_phase(dev, card)
+    launches, windows, direct = engine_phase(dev, card)
     mark("engines")
+    front_door_phase(dev, card, direct)
+    mark("front door")
     launches.update(training_phase(dev, card))
     mark("training")
     wo_lines, wo_launches = weight_only_phase(dev, card)

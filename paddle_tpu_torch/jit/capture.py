@@ -32,17 +32,27 @@ counts it.
 
 Launch counters: each kernel wrapper counts the launches it makes in
 Python, so a replay, which runs no Python, would count none.  The capture
-records how far it moved every counter in ``ops``' ``LAUNCH_COUNTERS``,
-puts them back (a capture launches nothing), and each replay adds those
-deltas: the counters keep counting launches on the card.
+records the launches its own thread counted into a tally of its own
+(``ops._counts.recording``: a capture launches nothing, and launches that
+other threads make meanwhile stay theirs), and each replay adds that
+tally: the counters keep counting launches on the card.
+
+Several engines may share a process and a card (a replica set, a fleet's
+workers in threads), each capturing from its own thread.  Captures of one
+device take turns under one lock, on the device's one capture stream, and
+capture in ``thread_local`` error mode: what other threads do meanwhile (a
+replay, a host copy, an allocation) is theirs, and neither invalidates
+the capture nor is recorded into it.
 """
 from __future__ import annotations
 
+import gc
+import threading
 import time
 
 import torch
 
-from ..ops import flash_attention, paged_attention, quant_matmul
+from ..ops import _counts, flash_attention, paged_attention, quant_matmul
 
 __all__ = ["CapturedProgram", "launch_counts", "graph_pool"]
 
@@ -50,20 +60,10 @@ _COUNTERS = (paged_attention.LAUNCH_COUNTERS + quant_matmul.LAUNCH_COUNTERS
              + flash_attention.LAUNCH_COUNTERS)
 
 
-def _key(fn, attr):
-    return f"{fn.__name__}.{attr}"
-
-
 def launch_counts():
     """Every kernel launch counter of the port, ``{"fn.attr": count}``."""
-    return {_key(fn, attr): getattr(fn, attr) for fn, attr in _COUNTERS}
-
-
-def _add_launches(deltas):
-    for fn, attr in _COUNTERS:
-        d = deltas.get(_key(fn, attr))
-        if d:
-            setattr(fn, attr, getattr(fn, attr) + d)
+    return {_counts.key(fn, attr): getattr(fn, attr)
+            for fn, attr in _COUNTERS}
 
 
 # One side stream a device for every warm-up and capture: PyTorch keeps a
@@ -72,12 +72,21 @@ def _add_launches(deltas):
 # (32 MiB each on the H100).  Warming up on the capture stream also
 # allocates that workspace before the capture begins.
 _STREAMS: dict = {}
+# One lock a device: its captures take turns on its one capture stream
+# (reentrant: a body's warm-up run may capture a program of its own).
+_LOCKS: dict = {}
+_LOCKS_GUARD = threading.Lock()
 
 
 def _capture_stream(device):
     if device not in _STREAMS:
         _STREAMS[device] = torch.cuda.Stream(device)
     return _STREAMS[device]
+
+
+def _capture_lock(device):
+    with _LOCKS_GUARD:
+        return _LOCKS.setdefault(device, threading.RLock())
 
 
 def graph_pool(device):
@@ -106,6 +115,7 @@ class CapturedProgram:
         self.replays = 0
         self.eager = 0               # calls of run_eager()
         self.capture_s = 0.0
+        self.capture_wait_s = 0.0    # waiting for another capture's turn
 
     @property
     def ready(self):
@@ -119,6 +129,7 @@ class CapturedProgram:
         return {"runs": self.runs, "captures": self.captures,
                 "replays": self.replays, "eager": self.eager,
                 "capture_s": self.capture_s,
+                "capture_wait_s": self.capture_wait_s,
                 "launches_a_replay": dict(self.launches)}
 
     def _stage(self, inputs):
@@ -154,7 +165,7 @@ class CapturedProgram:
             out = self._capture()
         else:
             self.graph.replay()
-            _add_launches(self.launches)
+            _counts.add(_COUNTERS, self.launches)
             self.replays += 1
             out = self.outputs
         return self._copy_out(out, host, take)
@@ -168,28 +179,37 @@ class CapturedProgram:
 
     def _capture(self):
         """Run the body on the side stream (this call's result), then
-        capture it there.  The capture's kernels do not run, so the
-        counters it moved are put back and kept as the launches of one
-        replay."""
+        capture it there, in the device's turn.  The capture's kernels do
+        not run: the launches its thread counted are kept as those of one
+        replay, off the counters."""
         t0 = time.perf_counter()
-        main = torch.cuda.current_stream(self.device)
-        side = _capture_stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = self.body(self.buffers)
-        main.wait_stream(side)
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=side):
-                outputs = self.body(self.buffers)
-        finally:
-            after = launch_counts()
-            _add_launches({k: before[k] - after[k] for k in after})
-        self.launches = {k: after[k] - before[k] for k in after
-                         if after[k] != before[k]}
-        self.graph, self.outputs = graph, outputs
-        torch.cuda.synchronize(self.device)
+        with _capture_lock(self.device):
+            t_turn = time.perf_counter()
+            main = torch.cuda.current_stream(self.device)
+            side = _capture_stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                out = self.body(self.buffers)
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # no cyclic collection while capturing (torch.cuda.graph
+            # collects once before it begins): a collection inside the
+            # body could free a dead engine's graph, whose destruction is
+            # not permitted while a stream captures, and the capture fails
+            collect = gc.isenabled()
+            gc.disable()
+            try:
+                with _counts.recording() as tally:
+                    with torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                          capture_error_mode="thread_local"):
+                        outputs = self.body(self.buffers)
+            finally:
+                if collect:
+                    gc.enable()
+            self.launches = {k: n for k, n in tally.items() if n}
+            self.graph, self.outputs = graph, outputs
+            torch.cuda.synchronize(self.device)
         self.captures += 1
-        self.capture_s += time.perf_counter() - t0
+        self.capture_wait_s += t_turn - t0
+        self.capture_s += time.perf_counter() - t_turn
         return out

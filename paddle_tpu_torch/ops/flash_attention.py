@@ -48,7 +48,7 @@ import math
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _counts
 from ..core.flags import flag
 
 __all__ = ["flash_attention_bshd", "flash_fwd_ref", "flash_bwd_ref",
@@ -422,9 +422,9 @@ def _launch_fwd(q, k, v, causal, s, direct=False):
             int(direct), _stream(q))
     _raise_on(err, "forward (K4)" if direct else "forward (K1)")
     if direct:
-        flash_attention_bshd.launches_direct_fwd += 1
+        _counts.count(flash_attention_bshd, "launches_direct_fwd")
     else:
-        flash_attention_bshd.launches_fwd += 1
+        _counts.count(flash_attention_bshd, "launches_fwd")
     return o, lse
 
 
@@ -442,9 +442,9 @@ def _launch_dq(q, k, v, o, lse, do, causal, s, direct=False):
             _stream(q))
     _raise_on(err, "dq (K4)" if direct else "dq (K2)")
     if direct:
-        flash_attention_bshd.launches_direct_dq += 1
+        _counts.count(flash_attention_bshd, "launches_direct_dq")
     else:
-        flash_attention_bshd.launches_dq += 1
+        _counts.count(flash_attention_bshd, "launches_dq")
     return dq, delta
 
 
@@ -461,9 +461,9 @@ def _launch_dkv(q, k, v, o, lse, do, delta, causal, s, direct=False):
             _stream(q))
     _raise_on(err, "dk/dv (K4)" if direct else "dk/dv (K3)")
     if direct:
-        flash_attention_bshd.launches_direct_dkv += 1
+        _counts.count(flash_attention_bshd, "launches_direct_dkv")
     else:
-        flash_attention_bshd.launches_dkv += 1
+        _counts.count(flash_attention_bshd, "launches_dkv")
     return dk, dv
 
 

@@ -34,7 +34,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _counts
 
 __all__ = ["paged_attention", "paged_attention_ref",
            "paged_attention_multiquery", "paged_attention_multiquery_ref",
@@ -247,9 +247,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     out = _launch(q, k_pages, v_pages, block_tables, context_lens, k_scales,
                   v_scales, scale)
     if k_scales is None:
-        paged_attention.launches += 1
+        _counts.count(paged_attention, "launches")
     else:
-        paged_attention.launches_int8 += 1
+        _counts.count(paged_attention, "launches_int8")
     return out
 
 
@@ -290,9 +290,9 @@ def paged_attention_multiquery(q, k_pages, v_pages, block_tables,
     out = _launch(q, k_pages, v_pages, block_tables, context_lens, k_scales,
                   v_scales, scale)
     if k_scales is None:
-        paged_attention_multiquery.launches += 1
+        _counts.count(paged_attention_multiquery, "launches")
     else:
-        paged_attention_multiquery.launches_int8 += 1
+        _counts.count(paged_attention_multiquery, "launches_int8")
     return out
 
 

@@ -36,7 +36,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _counts
 
 __all__ = ["quant_matmul", "quant_matmul_ref", "supported", "unpack_int4",
            "launch_plan", "body_plan", "compiled_plan", "max_clusters", "BK",
@@ -249,9 +249,9 @@ def _launch(x, qw, scale, int4):
                            + _kernel_lib().paddle_cuda_error_string(
                                err).decode())
     if int4:
-        quant_matmul.launches_int4 += 1
+        _counts.count(quant_matmul, "launches_int4")
     else:
-        quant_matmul.launches += 1
+        _counts.count(quant_matmul, "launches")
     return y
 
 

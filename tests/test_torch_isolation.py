@@ -63,11 +63,86 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.quantization\n"
             "import paddle_tpu_torch.nn.quant\n"
             "import paddle_tpu_torch.ops.quant_matmul\n"
+            "import paddle_tpu_torch.inference.frontend\n"
+            "import paddle_tpu_torch.distributed.store\n"
+            "import paddle_tpu_torch.distributed.membership\n"
+            "import paddle_tpu_torch.core.native.build\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_worker_entry_loads_no_jax():
+    """``python -m paddle_tpu_torch.inference.frontend.worker`` in a fresh
+    process, with everything it imports (store, membership, RPC, replica,
+    disagg) and the port's engine: its engine-spec hook exits 0 only when
+    neither JAX nor the JAX package is in ``sys.modules``."""
+    r = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.inference.frontend.worker",
+         "--engine-spec",
+         f"{REPO / 'tests' / '_torch_fleet_worker_spec.py'}"
+         ":exit_if_jax_loaded",
+         "--name", "iso", "--store-port", "1"],
+        capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert r.returncode == 0, r.stdout + r.stderr[-2000:]
+    assert "forbidden modules: []" in r.stdout
+
+
+def _sibling_imports(pkg):
+    """{module: the sibling modules it imports} of one package directory,
+    lazy imports inside functions included."""
+    deps = {}
+    for path in sorted(pkg.glob("*.py")):
+        sibs = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.level == 1:
+                if node.module:
+                    sibs.add(node.module.split(".")[0])
+                else:
+                    sibs.update(a.name for a in node.names)
+        deps[path.stem] = sibs - {path.stem}
+    return deps
+
+
+def _cycle(deps):
+    """One import cycle of ``deps`` as a list of modules, or None."""
+    state = {}
+
+    def visit(mod, stack):
+        state[mod] = "visiting"
+        for dep in sorted(deps.get(mod, ())):
+            if dep not in deps:
+                continue
+            if state.get(dep) == "visiting":
+                return stack[stack.index(dep):] + [dep]
+            if dep not in state:
+                found = visit(dep, stack + [dep])
+                if found:
+                    return found
+        state[mod] = "done"
+        return None
+
+    for mod in sorted(deps):
+        if mod not in state:
+            found = visit(mod, [mod])
+            if found:
+                return found
+    return None
+
+
+@pytest.mark.parametrize("package", ["engine", "frontend"])
+def test_serving_packages_have_no_import_cycles(package):
+    """The port's mirror of the JAX package's engine layering guard
+    (``tests/test_analysis.py``, ``test_engine_package_has_no_import_cycles``),
+    for the engine and the front door: acyclic, and the engine's
+    ``request`` imports no sibling."""
+    deps = _sibling_imports(REPO / "paddle_tpu_torch" / "inference" / package)
+    assert len(deps) > 5
+    if package == "engine":
+        assert deps["request"] == set()
+    assert _cycle(deps) is None
 
 
 @pytest.fixture
