@@ -107,7 +107,32 @@ Phases (any failure raises and the script exits non-zero):
    here from the same seed checks every stream within ``GAP``.  Each
    worker's memory, the time from the kill to the resumed streams' first
    token and to the rejoin are printed.
-5. training, after the engines have freed their memory: a tiny float32
+5. disaggregation, ``DisaggEngine`` (prefill and decode engines with
+   KV-page handoff between their pools): tiny float32 pools at head_dim
+   128, 16 and 64, each token-exact with the tiny colocated engine of the
+   same options, with speculative decoding on the decode side (K5 + K7),
+   int8 pages with it (K6 + K7q), fixed-seed sampling, transient
+   ``serving.kv_handoff`` faults retried, one poisoned handoff
+   quarantining only its request, a cancel in the handoff queue releasing
+   its pages, and a thread-hosted prefill worker over RPC; then
+   Llama-3-8B bf16 in the engine phase's geometry through pools of 1:1
+   (pipelined hop, prefix caching on the prefill side and the shared-
+   prefix pair), 1:1 (blocking hop), 2:1, 1:2 and 2:2, every request
+   token-exact with the direct bf16 engine, one handoff each, the pools'
+   combined page audit clean, and on each engine 0 eager dispatches and
+   K5 = layers x its dispatches (prefill engines only prefill, decode
+   engines only decode); TTFT, decode-only rounds, queue wait, transfer
+   and overlap seconds and peak memory a pool.  Then ``bench.py``'s mixed
+   trace (6 short requests decoding while three 600-token prompts arrive
+   at steps 2, 6 and 10) colocated, through a 1:1 pool with the blocking
+   hop and a 2:1 pool with the pipelined one, warmed first: the short
+   requests' inter-token gaps and TTFT, tokens equal three ways.  Last a
+   worker process with ``--role prefill`` (``make_engine``) leased into a
+   native ``TCPStore``, handed by ``FleetReplicaSet.prefill_tiers`` to a
+   pool whose decode engine runs here: the eight requests token-exact,
+   the worker's page audit folded in, the bytes and seconds of each pull;
+   the worker stopped, the card's memory must come back.
+6. training, after the engines have freed their memory: a tiny float32
    GPT-2 bridged from seeded numpy weights takes two AdamW steps on the
    card (K1-K3) and on the CPU (their plain versions), held together; then
    GPT-2 124M in bf16 at ``bench.py``'s geometry (B16 S1024, AdamW 3e-4,
@@ -123,7 +148,7 @@ Phases (any failure raises and the script exits non-zero):
    GPT-2 from the same seed trains with ``FLAGS_flash_layout_direct`` set
    (K4's path), its first step held to the default path's, with K4's three
    bodies launched layers x steps times each and K1-K3 never.
-6. weight-only, K8's path: Llama-3-8B's 224 projection weights (32
+7. weight-only, K8's path: Llama-3-8B's 224 projection weights (32
    layers, random bf16 from a seeded generator on the card) quantized to
    int8 and int4 through ``weight_quantize``; one decode step of linear
    layers (M = 8) through ``nn.quant.weight_only_linear``, K8 launched
@@ -139,7 +164,7 @@ Phases (any failure raises and the script exits non-zero):
    allocates (less than its bf16 weight); the pass timed beside its bound,
    the host's time a call, the dequant formulation, F.linear on
    dequantized bf16 weights, and the library's int8 / int4 calls.
-7. the decode and verify windows' lines, the ``kernels`` JSON line (all
+8. the decode and verify windows' lines, the ``kernels`` JSON line (all
    twelve kernels, each launched on its path, with their design and tile,
    split or launch plan), the card line, and last the result line.
 """
@@ -1299,6 +1324,15 @@ def tiny_f32_model(dev, hidden=256, heads=2, kv_heads=1, ffn=512):
     return llama_from_numpy(state, cfg, device=dev), rng
 
 
+def tiny_prompts(rng, vocab):
+    """The tiny engines' four prompts, drawn from ``rng`` after the
+    weights: 5, 16 and 21 random tokens, and a 6-token pattern three times
+    (something for the n-gram proposer to draft from)."""
+    pattern = list(rng.randint(0, vocab, 6))
+    prompts = [rng.randint(0, vocab, n) for n in (5, 16, 21)]
+    return prompts + [np.asarray(pattern * 3)]
+
+
 def tiny_f32_engine(dev, hidden=256, heads=2, kv_heads=1, ffn=512):
     """The tiny float32 Llama (:func:`tiny_f32_model`) served on the card
     and checked token by token; then the same requests with int8 pages,
@@ -1306,11 +1340,8 @@ def tiny_f32_engine(dev, hidden=256, heads=2, kv_heads=1, ffn=512):
     token-identical to the plain engine of its KV dtype."""
     from paddle_tpu_torch.inference.serving import LLMEngine, SpecConfig
     model, rng = tiny_f32_model(dev, hidden, heads, kv_heads, ffn)
-    cfg = model.config
     d = hidden // heads
-    pattern = list(rng.randint(0, cfg.vocab_size, 6))
-    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (5, 16, 21)]
-    prompts.append(np.asarray(pattern * 3))      # something to draft from
+    prompts = tiny_prompts(rng, model.config.vocab_size)
 
     def serve(kernels, **kw):
         """Serve the prompts; check that the kernels named (and no other
@@ -1615,6 +1646,7 @@ def serve_full_width(model, tag, gap, dev, profile=False, spec=False,
                        "verify": n_verify},
         "launches": launches,
         "peak_mem_gib": peak,
+        "outputs": [[int(t) for t in eng.result(r)] for r in rids],
         "argmax_flips": int(counts[1]),
         "worst_shortfall": worst,
         "window": window,
@@ -1991,16 +2023,22 @@ def engine_results(eng):
             for rid, r in eng.sched.finished.items()}
 
 
+def _dispatches(eng):
+    """The engine's prefill, decode and verify dispatches, from its
+    registry series (observability on)."""
+    snap = eng.metrics()
+    return {kind: int(sum(s["value"] for s in
+                          snap["serving_dispatches_total"]["series"]
+                          if s["labels"].get("kind") == kind))
+            for kind in ("prefill", "decode", "verify")}
+
+
 def replica_identity(tag, name, eng, L):
     """One in-process replica's programs: captured, 0 eager, and its K5
     launches (each program's runs times the launches a replay makes) =
     layers x its prefill + decode dispatches.  Returns its dispatches and
     a printable line."""
-    snap = eng.metrics()
-    n = {kind: int(sum(s["value"] for s in
-                       snap["serving_dispatches_total"]["series"]
-                       if s["labels"].get("kind") == kind))
-         for kind in ("prefill", "decode", "verify")}
+    n = _dispatches(eng)
     progs = eng.runner.program_stats()
     totals = program_totals(eng, None)
     k5 = sum((st["captures"] + st["replays"])
@@ -2521,7 +2559,9 @@ def tiny_front_door(dev, store):
 def front_door_phase(dev, card, direct):
     """The serving front door and fleet: K5 from a fresh thread; the tiny
     float32 gateway and fleet; Llama-3-8B bf16 behind the in-process
-    gateway; the fleet of worker processes with a SIGKILL."""
+    gateway; the fleet of worker processes with a SIGKILL.  Returns the
+    phases' numbers and the ``TCPStore`` master (the process's one native
+    daemon) for the disaggregation phase."""
     from paddle_tpu_torch.distributed.store import TCPStore
     # the engine phase's models sit in reference cycles (their programs'
     # bodies): collect them before the front door's engines and workers
@@ -2536,7 +2576,661 @@ def front_door_phase(dev, card, direct):
     tiny_front_door(dev, store)
     gateway = gateway_phase(dev, card, direct)
     fleet = fleet_phase(dev, card, store)
-    return {"gateway": gateway, "fleet": fleet}
+    return {"gateway": gateway, "fleet": fleet, "store": store}
+
+
+# ------------------------------------------------- phase: disaggregation
+# the in-process pools at full width: (tag, DisaggEngine knobs); the first
+# keeps prefix caching on its prefill side and serves the shared-prefix
+# pair, the second serves the pair without it (the pair's reference)
+DISAGG_POOLS = (("1:1", dict(prefix_cache=True)),
+                ("1:1 sync", dict(async_handoff=False)),
+                ("2:1", dict(n_prefill=2)), ("1:2", dict(n_decode=2)),
+                ("2:2", dict(n_prefill=2, n_decode=2)))
+# bench.py's disagg trace: short requests decoding while long prompts
+# arrive mid-stream; decode_block 1, so the gap series is the TPOT series
+MIXED_SHORT_AT = tuple(range(6))       # the steps the short requests arrive
+MIXED_LONG_AT = (2, 6, 10)             # the steps the long prompts arrive
+MIXED_SHORT, MIXED_LONG, MIXED_LONG_NEW = 8, 600, 4
+DISAGG_GROUP = "smoke-disagg"
+
+
+def pool_engine(model, dev, **kw):
+    """A ``DisaggEngine`` with the direct bf16 engine's geometry."""
+    from paddle_tpu_torch.inference.serving import DisaggEngine
+    return DisaggEngine(model, device=dev, max_batch=8, max_len=1024,
+                        page_size=PAGE, prefill_chunk=32, **kw)
+
+
+def pool_members(pool):
+    """(name, engine, role) of each local engine of a pool."""
+    return ([(f"prefill[{i}]", e, "prefill")
+             for i, e in enumerate(pool.prefills)]
+            + [(f"decode[{j}]", e, "decode")
+               for j, e in enumerate(pool.decodes)])
+
+
+def pool_identity(tag, pool, L):
+    """Each local engine of a greedy pool as :func:`replica_identity`
+    holds a replica (captured, 0 eager, K5 = layers x its dispatches), the
+    prefill engines dispatching only prefill and the decode engines only
+    decode; returns the pool's dispatches."""
+    total = 0
+    for name, eng, role in pool_members(pool):
+        n, line = replica_identity(f"disagg {tag}", name, eng, L)
+        print(line, flush=True)
+        kinds = _dispatches(eng)
+        other = ("decode", "verify") if role == "prefill" else ("prefill",)
+        check(all(kinds[k] == 0 for k in other),
+              f"disagg {tag} {name}: a {role} engine dispatched {kinds}")
+        total += n
+    return total
+
+
+def drive_pool(pool, prompts, n_new):
+    """Serve ``prompts`` through ``pool`` round by round; returns the
+    request ids, the wall seconds and each round's (seconds, whether a
+    prefill engine dispatched, whether a program was captured, tokens
+    emitted)."""
+    members = [e for _, e, _ in pool_members(pool)]
+    rids = [pool.add_request(p, max_new_tokens=n_new) for p in prompts]
+    rounds = []
+    t0 = time.perf_counter()
+    while pool.has_work():
+        check(len(rounds) < 20000, "the pool did not drain")
+        pf = sum(e.prefill_dispatches for e in pool.prefills)
+        caps = sum(program_totals(e, None)["captures"] for e in members)
+        toks = sum(len(pool._lookup(r).out) for r in rids)
+        a = time.perf_counter()
+        pool.step()
+        torch.cuda.synchronize()
+        rounds.append((
+            time.perf_counter() - a,
+            sum(e.prefill_dispatches for e in pool.prefills) != pf,
+            sum(program_totals(e, None)["captures"] for e in members) != caps,
+            sum(len(pool._lookup(r).out) for r in rids) - toks))
+    return rids, time.perf_counter() - t0, rounds
+
+
+def decode_rounds(rounds):
+    """The rounds in which only decode ran (no prefill engine dispatched,
+    nothing was captured): tokens a second, ms a round and tokens a round
+    (the decode batch).  A pool decodes each request as soon as its prompt
+    is in, so these rounds are mostly the tail of the last prompts: the
+    batch, not the step, sets their rate."""
+    pure = [(dt, n) for dt, pf, cap, n in rounds if not pf and not cap and n]
+    secs = sum(dt for dt, _ in pure)
+    if not pure:
+        return {"decode_tok_s": None, "decode_step_ms": None,
+                "decode_batch": None}
+    return {"decode_tok_s": sum(n for _, n in pure) / secs,
+            "decode_step_ms": 1e3 * secs / len(pure),
+            "decode_batch": sum(n for _, n in pure) / len(pure)}
+
+
+def check_pool(tag, pool, rids, want, L, launches):
+    """A greedy pool's run: every request FINISHED with its reference's
+    tokens, one handoff each and none failed, the combined page audit
+    clean, each engine's identity, and K5 = layers x the pool's dispatches
+    with no other paged kernel launched."""
+    from paddle_tpu_torch.inference.serving import RequestStatus
+    for i, (rid, w) in enumerate(zip(rids, want)):
+        check(pool.status(rid) == RequestStatus.FINISHED,
+              f"disagg {tag}: request {i} ended {pool.status(rid)} "
+              f"({pool.error(rid)})")
+        check([int(t) for t in pool.result(rid)] == w,
+              f"disagg {tag}: request {i}'s tokens differ from the "
+              f"reference's")
+    st = pool.handoff_stats()
+    check(st["handoffs"] == len(rids) and st["failures"] == 0
+          and st["retries"] == 0, f"disagg {tag}: handoffs {st}")
+    audit = pool.audit_refcounts()
+    check(audit == [], f"disagg {tag}: page audit {audit}")
+    total = pool_identity(tag, pool, L)
+    expected = {k: 0 for k in launches}
+    expected["K5"] = L * total
+    check(launches == expected, f"disagg {tag}: launches {launches} != "
+          f"{expected} (layers x the pool's dispatches)")
+    return st, total
+
+
+def handoff_device_ms(pool, n_pages, n=10):
+    """Device time of one in-process handoff of ``n_pages`` pages, as
+    ``_stage`` and ``_land`` queue it: the prefill runner's
+    ``gather_pages`` and the decode runner's ``scatter_pages`` (their page
+    index copies included), summed over the profiler's device activity and
+    taken per call; with the bytes they move (the block read and written by
+    each) and that traffic's bound.  Run on a drained pool: the decode
+    pages it overwrites hold no request."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    src, dst = pool.pre.runner, pool.dec.runner
+    pages = list(range(n_pages))
+
+    def handoff():
+        dst.scatter_pages(pages, src.gather_pages(pages))
+
+    handoff()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            handoff()
+        torch.cuda.synchronize()
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3 / n
+    block = sum(a[:, :n_pages].numel() * a.element_size() for a in src.cache)
+    return {"handoff_pages": n_pages, "handoff_mib": block / 2 ** 20,
+            "handoff_dev_ms": dev_ms,
+            "handoff_bound_ms": 4 * block / HBM_BYTES_PER_S * 1e3}
+
+
+def serve_pool(model, tag, dev, direct, prompts, pair=None, **kw):
+    """One in-process pool at full width: the eight prompts, timed round by
+    round and held token-exact to the direct bf16 engine; then, with
+    ``pair``, two requests sharing a two-page prefix, the second sent once
+    the first has its first token.  Returns the pool's numbers and the
+    pair's tokens.  The pool is freed before returning."""
+    from paddle_tpu_torch import observability as obs
+    L = model.config.num_hidden_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pool = pool_engine(model, dev, **kw)
+    obs.enable()
+    try:
+        reset_launch_counts()
+        rids, wall, rounds = drive_pool(pool, prompts, NEW_TOKENS)
+        hits, pair_out = 0, None
+        if pair is not None:
+            hits0 = pool.prefix_cache_stats().get("hits", 0)
+            first = pool.add_request(pair[0], max_new_tokens=NEW_TOKENS)
+            while not pool._lookup(first).out:
+                pool.step()
+            second = pool.add_request(pair[1], max_new_tokens=NEW_TOKENS)
+            pool.run_until_done()
+            hits = pool.prefix_cache_stats().get("hits", 0) - hits0
+            rids = rids + [first, second]
+            pair_out = [[int(t) for t in pool.result(r)]
+                        for r in (first, second)]
+        launches = launch_counts()
+        want = direct["outputs"] + (pair_out or [])
+        st, total = check_pool(tag, pool, rids, want, L, launches)
+    finally:
+        obs.disable()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    handoff = handoff_device_ms(pool, -(-max(PROMPT_LENS) // PAGE))
+    if kw.get("prefix_cache"):
+        check(hits >= 2, f"disagg {tag}: the pair's second request hit "
+              f"{hits} cached pages, its prefix is two")
+    ttft = sorted(pool.ttft(r) for r in rids[:len(prompts)])
+    res = {"ttft_p50_s": float(np.median(ttft)), "ttft_max_s": ttft[-1],
+           **decode_rounds(rounds), "wall_s": wall,
+           "tok_s": len(prompts) * NEW_TOKENS / wall,
+           "handoffs": st["handoffs"], "queue_wait_s": st["queue_wait_s"],
+           "transfer_s": st["transfer_s"],
+           "transfer_overlap_s": st["transfer_overlap_s"],
+           "prefix_hits": hits, "dispatches": total,
+           "launches_k5": launches["K5"],
+           "peak_mem_gib": peak, **handoff}
+    del pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, pair_out
+
+
+def pool_line(tag, res, direct, card):
+    def f(x, spec):
+        return "n/a" if x is None else format(x, spec)
+    pair = (f" (and the shared-prefix pair, {res['prefix_hits']} cached "
+            f"pages hit)" if res["prefix_hits"] else "")
+    print(f"disagg {tag}: 8 requests token-exact with the direct bf16 "
+          f"engine{pair}; {res['handoffs']} handoffs, K5 "
+          f"{res['launches_k5']} launches = layers x {res['dispatches']} "
+          f"dispatches; TTFT p50 {res['ttft_p50_s']:.4f} s, max "
+          f"{res['ttft_max_s']:.4f} s (direct {direct['ttft_p50_s']:.4f} / "
+          f"{direct['ttft_max_s']:.4f}); decode-only rounds "
+          f"{f(res['decode_step_ms'], '.2f')} ms at batch "
+          f"{f(res['decode_batch'], '.2f')}, {f(res['decode_tok_s'], '.1f')}"
+          f" tokens/s (direct {f(direct['decode_step_ms'], '.2f')} ms a "
+          f"step, {f(direct['decode_tok_s'], '.1f')} tokens/s); 8 x "
+          f"{NEW_TOKENS} tokens in {res['wall_s']:.2f} s "
+          f"({res['tok_s']:.1f} tokens/s; direct "
+          f"{8 * NEW_TOKENS / direct['wall_s']:.1f}, captures included); "
+          f"queue wait {res['queue_wait_s']:.4f} s, transfer "
+          f"{res['transfer_s']:.4f} s, transfer overlap "
+          f"{res['transfer_overlap_s']:.4f} s (host time); one "
+          f"{res['handoff_pages']}-page handoff ({res['handoff_mib']:.1f} "
+          f"MiB) {res['handoff_dev_ms']:.4f} ms on the device (bound "
+          f"{res['handoff_bound_ms']:.4f} ms); peak memory "
+          f"{res['peak_mem_gib']:.2f} GiB, on {card}", flush=True)
+
+
+def mixed_engine(model, dev, kind):
+    """The mixed trace's engines: colocated, the 1:1 pool with the
+    blocking hop, the 2:1 pool with the pipelined one."""
+    from paddle_tpu_torch.inference.serving import LLMEngine
+    if kind == "colocated":
+        return LLMEngine(model, device=dev, max_batch=8, max_len=1024,
+                         page_size=PAGE, prefill_chunk=32, decode_block=1)
+    if kind == "1:1 sync":
+        return pool_engine(model, dev, async_handoff=False, decode_block=1)
+    return pool_engine(model, dev, n_prefill=2, decode_block=1)
+
+
+def drive_mixed(eng, arrivals, warm):
+    """bench.py's ``_drive``: warm the engine's programs (one long prompt a
+    prefill engine, then two short ones), then feed ``arrivals`` (step,
+    prompt, new tokens, short?) at their steps, stepping once between
+    polls; returns the short requests' inter-token gaps, every request's
+    TTFT and tokens (in arrival order), and a pool's handoff counters as
+    the warm-up left them."""
+    for _ in range(max(len(getattr(eng, "prefills", ())), 1)):
+        eng.add_request(warm[0], max_new_tokens=MIXED_LONG_NEW)
+    eng.run_until_done()
+    for _ in range(2):
+        eng.add_request(warm[1], max_new_tokens=MIXED_LONG_NEW)
+    eng.run_until_done()
+    warmed = eng.handoff_stats() if hasattr(eng, "handoff_stats") else None
+    pend = list(arrivals)
+    rids, shorts, last, gaps, step = [], set(), {}, [], 0
+    while pend or any(not eng.status(r).terminal for r in rids):
+        while pend and pend[0][0] <= step:
+            _, p, new, short = pend.pop(0)
+            rids.append(eng.add_request(p, max_new_tokens=new))
+            if short:
+                shorts.add(rids[-1])
+        eng.step()
+        now = time.perf_counter()
+        for rid in rids:
+            for _ in eng.new_tokens(rid):
+                if rid in last and rid in shorts:
+                    gaps.append(now - last[rid])
+                last[rid] = now
+        step += 1
+        check(step < 5000, "the mixed trace did not drain")
+    return gaps, [eng.ttft(r) for r in rids], [
+        [int(t) for t in eng.result(r)] for r in rids], warmed
+
+
+def mixed_trace(model, dev, card):
+    """The mixed trace served colocated, by a 1:1 pool with the blocking
+    hop and by a 2:1 pool with the pipelined one, each warmed first: the
+    short requests' inter-token gaps (p50 / p95), TTFT, handoffs and mean
+    queue wait; every request's tokens equal across the three and within
+    ``GAP`` of the dense reference."""
+    V = model.config.vocab_size
+    rng = np.random.RandomState(SEED + 1)
+    warm = (rng.randint(0, V, MIXED_LONG), rng.randint(0, V, MIXED_SHORT))
+    arrivals = sorted(
+        [(s, rng.randint(0, V, MIXED_SHORT), NEW_TOKENS, True)
+         for s in MIXED_SHORT_AT]
+        + [(s, rng.randint(0, V, MIXED_LONG), MIXED_LONG_NEW, False)
+           for s in MIXED_LONG_AT], key=lambda a: a[0])
+    out = {}
+    for kind in ("colocated", "1:1 sync", "2:1 async"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = mixed_engine(model, dev, kind)
+        gaps, ttft, toks, warmed = drive_mixed(eng, arrivals, warm)
+        engines = ([eng] if kind == "colocated"
+                   else [e for _, e, _ in pool_members(eng)])
+        for e in engines:
+            check(e.step_failures == 0, f"mixed {kind}: a step failed")
+            check(program_totals(e, None)["eager"] == 0,
+                  f"mixed {kind}: an eager dispatch, all requests greedy")
+        handoffs, wait = 0, 0.0
+        if warmed is not None:
+            st = eng.handoff_stats()
+            check(st["failures"] == 0 and eng.audit_refcounts() == [],
+                  f"mixed {kind}: {st}, audit {eng.audit_refcounts()}")
+            handoffs = st["handoffs"] - warmed["handoffs"]
+            wait = st["queue_wait_s"] - warmed["queue_wait_s"]
+            check(handoffs == len(arrivals), f"mixed {kind}: {handoffs} "
+                  f"handoffs for {len(arrivals)} requests")
+        out[kind] = {
+            "gap_ms_p50": float(np.percentile(gaps, 50)) * 1e3,
+            "gap_ms_p95": float(np.percentile(gaps, 95)) * 1e3,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)) * 1e3,
+            "ttft_ms_p95": float(np.percentile(ttft, 95)) * 1e3,
+            "handoffs": handoffs,
+            "queue_wait_ms": 1e3 * wait / max(handoffs, 1),
+            "tokens": toks}
+        del eng, engines
+    base = out["colocated"]["tokens"]
+    for kind in ("1:1 sync", "2:1 async"):
+        check(out[kind]["tokens"] == base, f"mixed {kind}: tokens differ "
+              f"from the colocated engine's")
+    counts, worst = np.zeros(3, int), 0.0
+    for (_, p, _, _), toks in zip(arrivals, base):
+        c, w = teacher_forced_check(model, p, toks, GAP, dev)
+        counts, worst = counts + c, max(worst, w)
+    for kind, r in out.items():
+        print(f"mixed trace {kind}: short requests' inter-token gap p50 "
+              f"{r['gap_ms_p50']:.2f} ms, p95 {r['gap_ms_p95']:.2f} ms; TTFT "
+              f"p50 {r['ttft_ms_p50']:.2f} ms, p95 {r['ttft_ms_p95']:.2f} ms;"
+              f" {r['handoffs']} handoffs, mean queue wait "
+              f"{r['queue_wait_ms']:.3f} ms, on {card}", flush=True)
+    print(f"mixed trace: {len(arrivals)} requests (6 x {MIXED_SHORT}-token "
+          f"prompts, {NEW_TOKENS} new; 3 x {MIXED_LONG}-token prompts at "
+          f"steps {MIXED_LONG_AT}, {MIXED_LONG_NEW} new) token-identical "
+          f"three ways; teacher-forced check passed: "
+          f"{describe(counts, worst, GAP)}", flush=True)
+    return {k: {m: v for m, v in r.items() if m != "tokens"}
+            for k, r in out.items()}
+
+
+def remote_prefill(model, dev, direct, prompts, store, card):
+    """The cross-process tier: one worker process on the card with
+    ``--role prefill`` (:func:`make_engine`), joined through ``store``'s
+    leases; the ``FleetReplicaSet`` hands it over as a prefill tier (never
+    a replica) to a pool whose decode engine runs here.  The eight prompts
+    token-exact with the direct bf16 engine, the worker's page audit folded
+    into the pool's; the worker is then stopped and its memory must come
+    back to the card."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.inference.frontend import FleetReplicaSet
+    L = model.config.num_hidden_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info(dev)[0]
+    log = ROOT / "build" / "chip_smoke_prefill_worker.log"
+    log.parent.mkdir(exist_ok=True)
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.inference.frontend.worker",
+             "--engine-spec", FLEET_ENGINE_SPEC, "--name", "pf0",
+             "--store-port", str(store.port), "--group", DISAGG_GROUP,
+             "--ttl", str(FLEET_TTL), "--role", "prefill"],
+            cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT)
+    fleet = FleetReplicaSet(TCPStore(port=store.port, timeout=60),
+                            group=DISAGG_GROUP, ttl=FLEET_TTL,
+                            page_size=PAGE)
+    pool = None
+    pulls = []
+    t0 = time.perf_counter()
+    try:
+        fleet.start_sync(0.2)
+        deadline = time.monotonic() + WORKER_READY_S
+        while "pf0" not in fleet.prefill_tiers and time.monotonic() < deadline:
+            check(proc.poll() is None, "the prefill worker exited while "
+                  "starting")
+            time.sleep(0.5)
+        check("pf0" in fleet.prefill_tiers, f"the prefill worker did not "
+              f"join within {WORKER_READY_S} s")
+        ready_s = time.perf_counter() - t0
+        check(fleet.replicas == [], "a prefill-role member became a "
+              "serving replica")
+        tier = fleet.prefill_tiers["pf0"]
+        pull = tier.pull
+
+        def timed_pull(rid):
+            a = time.perf_counter()
+            payload = pull(rid)
+            block = payload["block"] or ()
+            pulls.append((time.perf_counter() - a,
+                          sum(b.nbytes for b in block)))
+            return payload
+
+        tier.pull = timed_pull
+        torch.cuda.reset_peak_memory_stats()
+        pool = pool_engine(model, dev, n_prefill=0, remote_prefill=[tier])
+        obs.enable()
+        try:
+            reset_launch_counts()
+            rids, wall, rounds = drive_pool(pool, prompts, NEW_TOKENS)
+            launches = launch_counts()
+            st, total = check_pool("remote", pool, rids, direct["outputs"],
+                                   L, launches)
+        finally:
+            obs.disable()
+        check(st["cross_device"] and st["n_prefill"] == 1,
+              f"disagg remote: {st}")
+        health = tier.client.call("health", ctx=None)
+        check(health["step_failures"] == 0,
+              f"the prefill worker: {health['step_failures']} steps failed")
+        ttft = sorted(pool.ttft(r) for r in rids)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    except BaseException:
+        _worker_logs([log])
+        raise
+    finally:
+        del pool
+        fleet.close()
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_end = torch.cuda.mem_get_info(dev)[0]
+    check(free_end >= free0 - 2 ** 30, f"the card's memory did not come "
+          f"back after the prefill worker: {free0 / 2 ** 30:.2f} GiB free "
+          f"before it, {free_end / 2 ** 30:.2f} after")
+    secs = [s for s, _ in pulls]
+    nbytes = [b for _, b in pulls]
+    res = {"ready_s": ready_s, "ttft_p50_s": float(np.median(ttft)),
+           "ttft_max_s": ttft[-1], **decode_rounds(rounds),
+           "wall_s": wall, "tok_s": len(prompts) * NEW_TOKENS / wall, "pull_s": secs, "pull_bytes": nbytes,
+           "transfer_s": st["transfer_s"], "queue_wait_s": st["queue_wait_s"],
+           "worker_peak_gib": health["peak_mem_gib"],
+           "worker_mem_gib": health["mem_gib"], "peak_mem_gib": peak}
+    print(f"disagg remote: a prefill worker process joined in "
+          f"{ready_s:.1f} s and served as a tier (no replica); 8 requests "
+          f"token-exact with the direct bf16 engine, {st['handoffs']} "
+          f"handoffs pulled over RPC, K5 {launches['K5']} launches = layers "
+          f"x {total} decode dispatches here; the worker's audit folded in "
+          f"clean", flush=True)
+    print(f"disagg remote: a handoff {min(nbytes) / 2 ** 20:.1f}-"
+          f"{max(nbytes) / 2 ** 20:.1f} MiB ({sum(nbytes) / 2 ** 20:.1f} in "
+          f"all), pull {1e3 * min(secs):.1f}-{1e3 * max(secs):.1f} ms "
+          f"({1e3 * sum(secs):.1f} in all; the longest prompt's "
+          f"{1e3 * secs[int(np.argmax(nbytes))]:.1f} ms); transfer (put + "
+          f"scatter) {st['transfer_s']:.4f} s; TTFT p50 "
+          f"{res['ttft_p50_s']:.4f} s, max {res['ttft_max_s']:.4f} s "
+          f"(direct {direct['ttft_p50_s']:.4f} / {direct['ttft_max_s']:.4f})"
+          f"; decode-only rounds {res['decode_step_ms'] or 0:.2f} ms at "
+          f"batch {res['decode_batch'] or 0:.2f}; 8 x {NEW_TOKENS} tokens "
+          f"in {wall:.2f} s ({res['tok_s']:.1f} tokens/s); the "
+          f"worker {health['mem_gib']:.2f} GiB allocated, peak "
+          f"{health['peak_mem_gib']:.2f}; this process's peak "
+          f"{peak:.2f} GiB; card free {free0 / 2 ** 30:.2f} GiB before the "
+          f"worker, {free_end / 2 ** 30:.2f} after it stopped, on {card}",
+          flush=True)
+    return res
+
+
+def tiny_disagg(dev, store, hidden, heads, kv_heads, ffn):
+    """The tiny float32 Llama through ``DisaggEngine`` on the card, each
+    case token-exact with the tiny colocated engine of the same options:
+    speculative decoding on the decode side (K5 + K7), with int8 pages (K6
+    + K7q), fixed-seed sampling, transient ``serving.kv_handoff`` faults
+    retried, one poisoned handoff quarantining only its request, a cancel
+    in the handoff queue releasing its pages, and a thread-hosted prefill
+    worker over RPC."""
+    from paddle_tpu_torch.inference.frontend import WorkerServer
+    from paddle_tpu_torch.inference.frontend.disagg import RemotePrefillTier
+    from paddle_tpu_torch.inference.serving import (DisaggEngine, LLMEngine,
+                                                    RequestStatus,
+                                                    SpecConfig)
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.testing import FAULTS, Always, FailNth, injected
+    model, rng = tiny_f32_model(dev, hidden, heads, kv_heads, ffn)
+    d = hidden // heads
+    prompts = tiny_prompts(rng, model.config.vocab_size)
+    knobs = dict(device=dev, max_batch=2, max_len=64, page_size=8,
+                 prefill_chunk=8)
+    sampled = dict(do_sample=True, temperature=0.8, top_p=0.9, top_k=20)
+
+    def serve(eng, req=None):
+        req = req or {}
+        rids = [eng.add_request(p, max_new_tokens=8,
+                                **({**req, "seed": 10 + i} if req else {}))
+                for i, p in enumerate(prompts)]
+        eng.run_until_done()
+        return rids, [[int(t) for t in eng.result(r)] for r in rids]
+
+    def held(tag, pool, handoffs=len(prompts), failures=0):
+        """The pool's engines stepped without failure, its audit is clean
+        and its handoffs are as expected."""
+        for _, e, _ in pool_members(pool):
+            check(e.step_failures == 0, f"tiny disagg D={d} {tag}: a step "
+                  f"failed")
+        st = pool.handoff_stats()
+        check(st["handoffs"] == handoffs and st["failures"] == failures,
+              f"tiny disagg D={d} {tag}: {st}")
+        audit = pool.audit_refcounts()
+        check(audit == [], f"tiny disagg D={d} {tag}: audit {audit}")
+        return st
+
+    def ran(before):
+        after = launch_counts()
+        return {k for k in ("K5", "K6", "K7", "K7q") if after[k] > before[k]}
+
+    _, base = serve(LLMEngine(model, **knobs))
+    lines = []
+    for tag, kernels, kw in (
+            ("spec", {"K5", "K7"}, dict(spec_decode=SpecConfig(
+                max_draft=MAX_DRAFT))),
+            ("int8 + spec", {"K6", "K7q"}, dict(
+                kv_cache_dtype="int8",
+                spec_decode=SpecConfig(max_draft=MAX_DRAFT)))):
+        _, want = serve(LLMEngine(model, **knobs, **kw))
+        pool = DisaggEngine(model, **knobs, **kw)
+        before = launch_counts()
+        _, got = serve(pool)
+        check(ran(before) == kernels, f"tiny disagg D={d} {tag}: launched "
+              f"{sorted(ran(before))}, expected {sorted(kernels)}")
+        check(got == want, f"tiny disagg D={d} {tag}: tokens differ from "
+              f"the colocated engine's")
+        held(tag, pool)
+        check(pool.spec_stats()["verify_dispatches"] > 0,
+              f"tiny disagg D={d} {tag}: no verify step")
+        lines.append(f"{tag} ({'+'.join(sorted(kernels))})")
+    _, want = serve(LLMEngine(model, **knobs), sampled)
+    pool = DisaggEngine(model, **knobs)
+    _, got = serve(pool, sampled)
+    check(got == want, f"tiny disagg D={d}: fixed-seed sampling differs "
+          f"from the colocated engine's")
+    held("sampled", pool)
+    lines.append("fixed-seed sampling")
+    pool = DisaggEngine(model, **knobs)
+    with injected("serving.kv_handoff", FailNth({1, 3}), transient=True):
+        _, got = serve(pool)
+    st = held("transient", pool)
+    check(got == base and st["retries"] >= 2,
+          f"tiny disagg D={d}: transient faults not retried losslessly "
+          f"({st})")
+    lines.append(f"{st['retries']} transient faults retried")
+    pool = DisaggEngine(model, **knobs)
+    rids = [pool.add_request(p, max_new_tokens=8) for p in prompts]
+    poison = rids[1]
+    FAULTS.install("serving.kv_handoff", Always(),
+                   match=lambda ctx: poison in ctx.get("rids", ()))
+    try:
+        pool.run_until_done()
+    finally:
+        FAULTS.reset()
+    check(pool.status(poison) == RequestStatus.FAILED,
+          f"tiny disagg D={d}: the poisoned request ended "
+          f"{pool.status(poison)}")
+    for i in (0, 2, 3):
+        check([int(t) for t in pool.result(rids[i])] == base[i],
+              f"tiny disagg D={d}: request {i} moved under the poison")
+    held("poison", pool, handoffs=len(prompts) - 1, failures=1)
+    lines.append("a poisoned handoff quarantined alone")
+    pool = DisaggEngine(model, **knobs)
+    rids = [pool.add_request(p, max_new_tokens=8) for p in prompts]
+    steps = 0
+    while not pool._queue and steps < 200:
+        pool.pre.step()
+        steps += 1
+    check(bool(pool._queue), f"tiny disagg D={d}: nothing reached the "
+          f"handoff queue")
+    h = pool._queue[0]
+    free, held_pages = pool.pre.pool.n_available(), len(h.pages)
+    check(pool.cancel(h.r.rid), f"tiny disagg D={d}: cancel refused")
+    check(pool.pre.pool.n_available() == free + held_pages
+          and pool.status(h.r.rid) == RequestStatus.CANCELLED,
+          f"tiny disagg D={d}: the cancel released "
+          f"{pool.pre.pool.n_available() - free} of {held_pages} pages")
+    pool.run_until_done()
+    for i, rid in enumerate(rids):
+        if rid != h.r.rid:
+            check([int(t) for t in pool.result(rid)] == base[i],
+                  f"tiny disagg D={d}: request {i} moved under the cancel")
+    held("cancel", pool, handoffs=len(prompts) - 1)
+    lines.append("a cancel in the queue released its pages")
+    worker = WorkerServer(f"tiny-pf-{d}", LLMEngine(model, **knobs),
+                          TCPStore(port=store.port, timeout=60),
+                          group=f"{DISAGG_GROUP}-tiny", ttl=60.0,
+                          role="prefill").start(heartbeat=False)
+    tier = RemotePrefillTier(worker.rpc.host, worker.rpc.port,
+                             name=worker.name)
+    try:
+        pool = DisaggEngine(model, n_prefill=0, remote_prefill=[tier],
+                            **knobs)
+        _, got = serve(pool)
+        held("remote", pool)
+    finally:
+        tier.close()
+        worker.close(drain=False)
+    check(got == base, f"tiny disagg D={d}: the thread-hosted prefill "
+          f"worker's tokens differ from the colocated engine's")
+    lines.append("a thread-hosted prefill worker over RPC")
+    print(f"disagg tiny f32 D={d}: token-exact with the colocated engine: "
+          + "; ".join(lines), flush=True)
+
+
+def disagg_phase(dev, card, direct, store):
+    """Disaggregated serving (``DisaggEngine``): the tiny float32 pools with
+    every option, fault and transport; Llama-3-8B bf16 through the
+    in-process pools of ``DISAGG_POOLS``, the mixed trace, and a prefill
+    worker process behind the fleet.  ``direct``: the direct bf16 engine's
+    run (tokens and rates); ``store``: a ``TCPStore`` master (a process
+    hosts one native daemon).  The card's memory is handed back whole."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info(dev)[0]
+    for kw in TINY_ENGINES:
+        tiny_disagg(dev, store, *kw)
+    model = full_width_model(torch.bfloat16, dev)
+    cfg = model.config
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    shared = list(rng.randint(0, cfg.vocab_size, 2 * PAGE))
+    pair = [shared + list(rng.randint(0, cfg.vocab_size, n)) for n in (5, 9)]
+    pools, pair_outs = {}, []
+    for tag, kw in DISAGG_POOLS:
+        with_pair = tag in ("1:1", "1:1 sync")
+        pools[tag], pair_out = serve_pool(model, tag, dev, direct, prompts,
+                                          pair if with_pair else None, **kw)
+        pool_line(tag, pools[tag], direct, card)
+        if pair_out is not None:
+            pair_outs.append(pair_out)
+    check(pair_outs[0] == pair_outs[1], "the shared-prefix pair's tokens "
+          "differ between the prefix-cached pool and the one without")
+    counts, worst = np.zeros(3, int), 0.0
+    for p, out in zip(pair, pair_outs[0]):
+        c, w = teacher_forced_check(model, np.asarray(p), out, GAP, dev)
+        counts, worst = counts + c, max(worst, w)
+    print(f"disagg: the shared-prefix pair token-identical with and without "
+          f"the prefill side's prefix cache; teacher-forced check passed: "
+          f"{describe(counts, worst, GAP)}", flush=True)
+    mixed = mixed_trace(model, dev, card)
+    remote = remote_prefill(model, dev, direct, prompts, store, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_end = torch.cuda.mem_get_info(dev)[0]
+    check(free_end >= free0 - 2 ** 30, f"the disaggregation phase kept the "
+          f"card's memory: {free0 / 2 ** 30:.2f} GiB free before it, "
+          f"{free_end / 2 ** 30:.2f} after")
+    print(f"disagg: card free {free0 / 2 ** 30:.2f} GiB before the phase, "
+          f"{free_end / 2 ** 30:.2f} after", flush=True)
+    return {"pools": pools, "mixed": mixed, "remote": remote}
 
 
 # -------------------------------------------------------- phase 4: training
@@ -3549,8 +4243,10 @@ def main():
     torch.cuda.empty_cache()
     launches, windows, direct = engine_phase(dev, card)
     mark("engines")
-    front_door_phase(dev, card, direct)
+    store = front_door_phase(dev, card, direct)["store"]
     mark("front door")
+    disagg_phase(dev, card, direct, store)
+    mark("disaggregation")
     launches.update(training_phase(dev, card))
     mark("training")
     wo_lines, wo_launches = weight_only_phase(dev, card)

@@ -17,8 +17,9 @@ Layering (each module imports only what is below it):
                preemption, slot/page-table state
     core       LLMEngine — the facade composing the above; owns step
                policy, failure isolation, and the auto-fits
+    disagg     DisaggEngine — prefill and decode LLMEngines, each on one
+               device, with KV-page handoff between their pools
 
-``DisaggEngine`` (disaggregated prefill/decode) is not ported yet.
 ``paddle_tpu_torch.inference.serving`` re-exports the public names.
 """
 from .request import Request, RequestStatus, prefix_page_keys
@@ -27,8 +28,9 @@ from .runner import ModelRunner
 from .spec import SpecConfig
 from .scheduler import Scheduler
 from .core import LLMEngine
+from .disagg import DisaggEngine
 
 __all__ = [
-    "LLMEngine", "Scheduler", "PagePool", "ModelRunner",
+    "LLMEngine", "DisaggEngine", "Scheduler", "PagePool", "ModelRunner",
     "Request", "RequestStatus", "SpecConfig", "prefix_page_keys",
 ]

@@ -193,8 +193,11 @@ class ModelRunner:
 
     @property
     def devices(self):
-        """The device set this runner's buffers live on."""
-        return (self.device,)
+        """The device set this runner's buffers live on, as their tensors
+        report it: two runners on one device report the same set however
+        their callers spelled it (``"cpu"`` / ``"cpu:0"``, ``"cuda"`` /
+        ``"cuda:0"``)."""
+        return (self.cache[0].device,)
 
     # ---------------------------------------------------------------- layers
     def _forward(self, x, pos, page_idx, within, tables, ctx, q_len=None):

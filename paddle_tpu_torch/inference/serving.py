@@ -8,12 +8,14 @@ scales under ``kv_cache_dtype="int8"``), with host-managed per-slot page
 tables, on-demand growth, youngest-slot preemption-recompute, automatic
 prefix caching, and speculative decoding (``spec_decode=SpecConfig()``: an
 n-gram or draft-model proposer, one multi-query VERIFY step, paged-KV
-rollback).  On the card, attention runs the hand-written paged-attention
-CUDA kernels.  ``DisaggEngine`` is not ported yet.
+rollback).  ``DisaggEngine`` serves through prefill and decode engines with
+KV-page handoff between them.  On the card, attention runs the
+hand-written paged-attention CUDA kernels.
 """
 from __future__ import annotations
 
 from .engine import (  # noqa: F401
+    DisaggEngine,
     LLMEngine,
     ModelRunner,
     PagePool,
@@ -25,5 +27,6 @@ from .engine import (  # noqa: F401
 )
 from .engine.spec import _NgramProposer  # noqa: F401  (test import)
 
-__all__ = ["LLMEngine", "Request", "RequestStatus", "SpecConfig",
-           "prefix_page_keys", "Scheduler", "PagePool", "ModelRunner"]
+__all__ = ["LLMEngine", "DisaggEngine", "Request", "RequestStatus",
+           "SpecConfig", "prefix_page_keys", "Scheduler", "PagePool",
+           "ModelRunner"]

@@ -43,10 +43,18 @@ from paddle_tpu_torch.testing import FAULTS, Always, FailNth
 
 REPO = Path(__file__).resolve().parent.parent
 
+
+
+def _statement(src):
+    """The unit key of one top-level statement other than a function or a
+    class (an import, an assignment), as ``_units`` names it."""
+    return f"statement {ast.dump(ast.parse(src).body[0])}"
+
+
 # port path (under paddle_tpu_torch/, the reference's under paddle_tpu/) ->
 # the units that differ on purpose (ROADMAP queue 3): a top-level function
 # or class by name, a method as "Class.method", the module docstring as
-# "__doc__"
+# "__doc__", any other top-level statement by ``_statement``
 DIVERGENT = {
     "inference/frontend/__init__.py": set(),
     "inference/frontend/admission.py": set(),
@@ -65,6 +73,13 @@ DIVERGENT = {
     "distributed/membership.py": set(),
     # the store daemon builds into build/paddle_tpu_torch/native/
     "core/native/build.py": {"__doc__", "_cache_dir"},
+    # no jax; engines on devices, not mesh slices: split_mesh is not
+    # carried, the pool's __init__ takes one device and refuses the mesh
+    # knobs
+    "inference/engine/disagg.py": {
+        "__doc__", _statement("import jax"), "split_mesh",
+        _statement('__all__ = ["DisaggEngine", "split_mesh"]'),
+        _statement('__all__ = ["DisaggEngine"]'), "DisaggEngine.__init__"},
 }
 
 

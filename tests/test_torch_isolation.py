@@ -16,7 +16,8 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.inference.engine import ModelRunner
-from paddle_tpu_torch.inference.serving import LLMEngine, SpecConfig
+from paddle_tpu_torch.inference.serving import (DisaggEngine, LLMEngine,
+                                                SpecConfig)
 from paddle_tpu_torch.models.gpt2 import GPT2ForCausalLM
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops.flash_attention import flash_attention_bshd
@@ -52,6 +53,7 @@ def test_port_files_import_no_jax_and_nothing_of_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import paddle_tpu_torch.inference.serving\n"
+            "import paddle_tpu_torch.inference.engine.disagg\n"
             "import paddle_tpu_torch.jit\n"
             "import paddle_tpu_torch.models.convert\n"
             "import paddle_tpu_torch.models.gpt2\n"
@@ -210,12 +212,20 @@ def test_paged_attention_takes_only_cpu_or_cuda_tensors():
     assert paged_attention.launches == before
 
 
+# LLMEngine's mesh, then DisaggEngine's mesh knobs
 @pytest.mark.parametrize("knob,value,what", [
     ("mesh", object(), "multi-device"),
+    ("prefill_mesh", object(), "multi-device"),
+    ("decode_mesh", object(), "multi-device"),
+    ("prefill_meshes", [object()], "multi-device"),
+    ("decode_meshes", [object()], "multi-device"),
+    ("mp_axis", "mp", "multi-device"),
+    ("pp_axis", "pp", "multi-device"),
 ])
 def test_unported_options_are_refused(model, knob, value, what):
+    engine = LLMEngine if knob == "mesh" else DisaggEngine
     with pytest.raises(NotImplementedError, match=what):
-        LLMEngine(model, device="cpu", **{knob: value})
+        engine(model, device="cpu", **{knob: value})
 
 
 def test_unported_runner_paths_are_refused():
