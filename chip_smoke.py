@@ -148,6 +148,21 @@ Phases (any failure raises and the script exits non-zero):
    GPT-2 from the same seed trains with ``FLAGS_flash_layout_direct`` set
    (K4's path), its first step held to the default path's, with K4's three
    bodies launched layers x steps times each and K1-K3 never.
+   Then the spine: the same GPT-2 124M (bf16, B16 S1024) written in the
+   Paddle Tensor API (``spine_gpt2_loss``: ``Tensor`` ops through
+   ``apply_op``, the Tensor-level ``scaled_dot_product_attention``, torch's
+   autograd as the tape) over the seeded model's weights as
+   ``Parameter``s: three plain SGD steps with in-place Tensor ops under
+   ``no_grad``, the first held to the torch.nn model's flash step (loss and
+   every gradient at the training bar), the loss falling, K1-K3 launched
+   12 x 3 times and K4 never; one step with ``FLAGS_flash_layout_direct``
+   (K4-fwd / dq / dkv 12 each); ``paddle.grad`` leaving every ``.grad``
+   alone, a hook on an attention output doubling its upstream gradient, a
+   ``stop_gradient`` weight getting none, a ``PyLayer`` GELU matching its
+   plain twin; the step's wall against the torch.nn eager step, apply_op
+   dispatches a step and host microseconds each, a small add against
+   ``torch.add``, peak memory, and a profiled step of each (device busy,
+   the top kernels).
 7. weight-only, K8's path: Llama-3-8B's 224 projection weights (32
    layers, random bf16 from a seeded generator on the card) quantized to
    int8 and int4 through ``weight_quantize``; one decode step of linear
@@ -173,6 +188,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import signal
 import subprocess
@@ -3613,6 +3629,388 @@ def training_phase(dev, card):
             **{k: direct[k] for k in ("K4-fwd", "K4-dq", "K4-dkv")}}
 
 
+# ------------------------------------------------- phase 6b: the spine (M1)
+SPINE_LR = 0.1           # plain SGD on one repeated batch
+SPINE_STEPS = 3
+SPINE_TIMED_NN = 3       # timed torch.nn steps on the same batch
+SPINE_ADDS = 2000        # small adds timed back to back, each way
+
+
+def spine_layer_norm(x, w, b, eps):
+    """LayerNorm over the last axis from ``mean``, subtraction and
+    ``rsqrt``, in float32, as torch's LayerNorm computes a bf16 input."""
+    import paddle_tpu_torch as paddle
+    xf = x.astype("float32")
+    xc = xf - xf.mean(axis=-1, keepdim=True)
+    var = (xc * xc).mean(axis=-1, keepdim=True)
+    y = xc * paddle.rsqrt(var + eps) * w.astype("float32") + b.astype("float32")
+    return y.astype(x.dtype)
+
+
+def spine_gelu(x):
+    """tanh-GELU from ``tanh`` and ``pow``, in float32."""
+    import paddle_tpu_torch as paddle
+    xf = x.astype("float32")
+    inner = math.sqrt(2.0 / math.pi) * (xf + 0.044715 * xf.pow(3))
+    return (0.5 * xf * (1.0 + paddle.tanh(inner))).astype(x.dtype)
+
+
+def spine_gpt2_loss(params, x, y, num_heads=12, eps=1e-5, gelu=spine_gelu,
+                    tap=None):
+    """GPT-2's mean next-token loss written in the Paddle Tensor API with the
+    port's ops only: ``params`` maps the JAX model's ``state_dict`` names to
+    Tensors in Paddle's layout (Linear weights ``[in, out]``); ``x`` and
+    ``y`` are ``[B, S]`` token ids.  Embeddings by ``wte[x]`` and
+    ``wpe[:S]``, layer norms and tanh-GELU in float32 from elementwise ops,
+    ``@`` for the linear layers, the Tensor-level
+    ``scaled_dot_product_attention(..., is_causal=True)`` (K1-K3, or K4 with
+    FLAGS_flash_layout_direct), the tied head, and the loss from
+    ``logsumexp`` and ``take_along_axis`` in float32.  ``tap(name,
+    tensor)``, when given, sees the embedding output ("emb") and each
+    layer's attention output ("attn0", ...)."""
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+    import paddle_tpu_torch as paddle
+    B, S = x.shape
+    wte = params["gpt2.wte.weight"]
+    hidden = wte.shape[1]
+    h = wte[x] + params["gpt2.wpe.weight"][:S]
+    if tap is not None:
+        tap("emb", h)
+    n_layers = sum(1 for n in params if n.endswith(".attn.qkv.weight"))
+    for i in range(n_layers):
+        def p(s):
+            return params[f"gpt2.blocks.{i}.{s}"]
+        a = spine_layer_norm(h, p("ln1.weight"), p("ln1.bias"), eps)
+        qkv = (a @ p("attn.qkv.weight") + p("attn.qkv.bias")).reshape(
+            [B, S, 3, num_heads, hidden // num_heads])
+        q, k, v = qkv.unbind(axis=2)
+        o = scaled_dot_product_attention(q, k, v, is_causal=True)
+        if tap is not None:
+            tap(f"attn{i}", o)
+        h = h + (o.reshape([B, S, hidden]) @ p("attn.proj.weight")
+                 + p("attn.proj.bias"))
+        a = spine_layer_norm(h, p("ln2.weight"), p("ln2.bias"), eps)
+        m = gelu(a @ p("mlp.fc.weight") + p("mlp.fc.bias"))
+        h = h + (m @ p("mlp.proj.weight") + p("mlp.proj.bias"))
+    h = spine_layer_norm(h, params["gpt2.ln_f.weight"],
+                         params["gpt2.ln_f.bias"], eps)
+    logits = (h @ wte.T).astype("float32")
+    lse = paddle.logsumexp(logits, axis=2)
+    picked = paddle.take_along_axis(logits, y.unsqueeze(2), axis=2)
+    return (lse - picked.squeeze(2)).mean()
+
+
+def spine_gelu_layer():
+    """tanh-GELU as a PyLayer: forward ``spine_gelu``, backward its
+    analytic derivative in float32."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.autograd import PyLayer
+    c = math.sqrt(2.0 / math.pi)
+
+    class Gelu(PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return spine_gelu(x)
+
+        @staticmethod
+        def backward(ctx, dy):
+            (x,) = ctx.saved_tensor
+            xf = x.astype("float32")
+            t = paddle.tanh(c * (xf + 0.044715 * xf.pow(3)))
+            d = 0.5 * (1.0 + t) + 0.5 * xf * (1.0 - t * t) * c * (
+                1.0 + 3 * 0.044715 * xf * xf)
+            return (dy.astype("float32") * d).astype(x.dtype)
+    return Gelu
+
+
+def spine_params(model):
+    """The torch.nn model's weights as Paddle ``Parameter``s (copies, Linear
+    weights transposed to ``[in, out]``), by the JAX model's names."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.convert import gpt2_linear
+    out = {}
+    for n, p in model.named_parameters():
+        w = p.detach()
+        out[n] = paddle.Parameter((w.t() if gpt2_linear(n) else w)
+                                  .contiguous().clone(), name=n)
+    return out
+
+
+def _spine_grads(params):
+    """Each parameter's gradient as float32, in torch's layout."""
+    from paddle_tpu_torch.models.convert import gpt2_linear
+    return {n: (p.grad._buf.t() if gpt2_linear(n) else p.grad._buf).float()
+            for n, p in params.items() if p.grad is not None}
+
+
+def _grad_errors(got, want):
+    """{name: largest error over the largest element} of two gradient
+    sets (missing gradients count as infinitely off)."""
+    return {n: ((got[n] - g).abs().max() / g.abs().max()).item()
+            if n in got else float("inf") for n, g in want.items()}
+
+
+def _sgd(params, lr):
+    """Plain SGD with in-place Tensor ops under no_grad, then clear_grad."""
+    import paddle_tpu_torch as paddle
+    with paddle.no_grad():
+        for p in params.values():
+            if p.grad is not None:
+                p.subtract_(p.grad * lr)
+            p.clear_grad()
+
+
+def _profiled(fn, dev):
+    """One call of fn under torch.profiler: (wall ms, device busy ms, the
+    kernels by device time as (name, launches, ms)).  A small kernel,
+    synchronised, opens the window (CUPTI may miss the first launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    warm = torch.zeros(1, device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        warm += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation), key=lambda r: -r[2])
+    return wall, sum(ms for _, _, ms in rows), rows
+
+
+def spine_phase(dev, card):
+    """GPT-2 124M (``gpt2_bench_config``: bf16, B16 S1024) trained through
+    the Paddle Tensor API.  The torch.nn model's flash step on a seeded
+    batch is the reference; ``spine_gpt2_loss`` over the same weights as
+    Parameters takes SPINE_STEPS plain SGD steps, the first held to it
+    (loss at TRAIN_LOSS_TOL, every gradient at TRAIN_GRAD_TOL of its
+    largest element), the loss falling, K1-K3 launched layers x steps and
+    K4 never; one step with FLAGS_flash_layout_direct (K4 only, held the
+    same way); the spine's semantics at full width (paddle.grad, a hook,
+    stop_gradient, a PyLayer); and its costs: the step's wall against the
+    torch.nn eager step's, dispatches a step and host microseconds each,
+    a small add against torch.add, peak memory, and one profiled step of
+    each program (device busy, the top kernels).  Returns the numbers."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, batch, seq = gpt2_bench_config()
+    L, heads = cfg.num_layers, cfg.num_heads
+    model = GPT2ForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                            generator=torch.Generator(device=dev).manual_seed(
+                                SEED))
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                           (batch, seq + 1))
+    tx = torch.as_tensor(ids[:, :-1], device=dev)
+    ty = torch.as_tensor(ids[:, 1:], device=dev)
+    x = paddle.to_tensor(ids[:, :-1], place=dev)
+    y = paddle.to_tensor(ids[:, 1:], place=dev)
+
+    # the reference: the torch.nn model's flash step (K1-K3)
+    with layout_direct(False):
+        _, ref = model(tx, labels=ty)
+        ref.backward()
+    ref_loss = ref.item()
+    ref_grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+
+    def spine_step(params, **kw):
+        loss = spine_gpt2_loss(params, x, y, num_heads=heads, **kw)
+        loss.backward()
+        return loss
+
+    def hold(tag, loss, grads):
+        errs = _grad_errors(grads, ref_grads)
+        worst = max(errs, key=errs.get)
+        check(abs(loss - ref_loss) <= TRAIN_LOSS_TOL,
+              f"spine {tag}: loss {loss} vs the torch.nn flash step's "
+              f"{ref_loss}")
+        check(errs[worst] <= TRAIN_GRAD_TOL,
+              f"spine {tag}: gradient of {worst} off by {errs[worst]} of its "
+              f"largest")
+        print(f"spine {tag}: first loss {loss:.5f} vs the torch.nn flash "
+              f"step {ref_loss:.5f} (tol {TRAIN_LOSS_TOL}); {len(errs)} "
+              f"gradients, largest error {errs[worst]:.3e} of the largest "
+              f"element ({worst}; tol {TRAIN_GRAD_TOL})", flush=True)
+
+    # the Tensor-API steps on the default path (K1-K3)
+    params = spine_params(model)
+    losses, walls = [], []
+    with layout_direct(False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        for step in range(SPINE_STEPS):
+            t0 = time.perf_counter()
+            loss = spine_step(params)
+            if step == 0:
+                hold("default path", loss.item(), _spine_grads(params))
+            _sgd(params, SPINE_LR)
+            losses.append(loss.item())
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: L * SPINE_STEPS if k in ("K1", "K2", "K3") else 0
+            for k in FLASH_COUNTERS}
+    print(f"spine gpt2-124m bf16 B{batch} S{seq}: SGD({SPINE_LR}) losses "
+          f"{[round(v, 4) for v in losses]}; flash launches {launches} "
+          f"(expected {want}: {L} layers x {SPINE_STEPS} steps)", flush=True)
+    check(all(np.isfinite(losses)), "spine: a loss is not finite")
+    check(losses[-1] < losses[0], f"spine: the loss did not fall ({losses})")
+    check(launches == want, f"spine: launches {launches}, expected {want}")
+
+    # one step with FLAGS_flash_layout_direct (K4), from the model's weights
+    direct_params = spine_params(model)
+    with layout_direct(True):
+        reset_launch_counts()
+        loss = spine_step(direct_params)
+        hold("layout-direct", loss.item(), _spine_grads(direct_params))
+        direct = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+    want_d = {k: L if k.startswith("K4") else 0 for k in FLASH_COUNTERS}
+    print(f"spine layout-direct step: flash launches {direct} (expected "
+          f"{want_d})", flush=True)
+    check(direct == want_d, f"spine layout-direct: launches {direct}")
+    del direct_params
+
+    # semantics at full width, on fresh Parameters of the model's weights
+    sem = spine_params(model)
+    up, down = "gpt2.blocks.0.attn.qkv.weight", "gpt2.ln_f.weight"
+    frozen = "gpt2.blocks.0.mlp.fc.weight"
+
+    def clear():
+        for p in sem.values():
+            p.clear_grad()
+    with layout_direct(False):
+        first = spine_step(sem).item()              # every .grad is set
+        plain = _spine_grads(sem)
+        before = {n: (p.grad, p.grad._buf.clone()) for n, p in sem.items()}
+        taps = {}
+        loss = spine_gpt2_loss(sem, x, y, num_heads=heads,
+                               tap=lambda k, t: taps.setdefault(k, t))
+        (g_emb,) = paddle.grad(loss, [taps["emb"]])
+        untouched = all(sem[n].grad is g and torch.equal(g._buf, v)
+                        for n, (g, v) in before.items())
+        check(untouched and taps["emb"].grad is None,
+              "spine: paddle.grad changed a .grad")
+        check(g_emb.shape == [batch, seq, cfg.hidden_size]
+              and bool(torch.isfinite(g_emb._buf).all()),
+              f"spine: paddle.grad of the embedding: {g_emb.shape}")
+        del before, taps, g_emb
+        clear()
+
+        def double_attn0(k, t):
+            if k == "attn0":
+                t.register_hook(lambda g: g * 2)
+        spine_step(sem, tap=double_attn0)
+        hooked = _spine_grads(sem)
+        twice = ((hooked[up] - 2 * plain[up]).abs().max()
+                 / (2 * plain[up]).abs().max()).item()
+        same = ((hooked[down] - plain[down]).abs().max()
+                / plain[down].abs().max()).item()
+        check(twice <= 1e-2 and same <= TRAIN_GRAD_TOL,
+              f"spine: a hook doubling attn0's gradient left {up} off 2x by "
+              f"{twice} and {down} off by {same}")
+        del hooked
+        clear()
+        sem[frozen].stop_gradient = True
+        spine_step(sem)
+        check(sem[frozen].grad is None
+              and all(p.grad is not None for n, p in sem.items()
+                      if n != frozen),
+              "spine: a stop_gradient weight got a gradient, or another none")
+        sem[frozen].stop_gradient = False
+        clear()
+        pl = spine_step(sem, gelu=spine_gelu_layer().apply).item()
+        errs = _grad_errors(_spine_grads(sem), plain)
+        worst = max(errs, key=errs.get)
+        check(abs(pl - first) <= TRAIN_LOSS_TOL
+              and errs[worst] <= TRAIN_GRAD_TOL,
+              f"spine: the PyLayer GELU's loss {pl} vs {first}, gradient "
+              f"of {worst} off by {errs[worst]}")
+    print(f"spine semantics: paddle.grad left all {len(sem)} .grad "
+          f"untouched; a hook doubling attn0's gradient doubled {up}'s "
+          f"(error {twice:.2e}) and left {down}'s ({same:.2e}); the "
+          f"stop_gradient {frozen} got none; the PyLayer GELU matched its "
+          f"plain twin (loss {pl:.5f} vs {first:.5f}, largest gradient error "
+          f"{errs[worst]:.2e}, {worst})", flush=True)
+    del sem, plain
+
+    # costs: dispatches a step and host time each (the observability
+    # recorder), outside the counted steps
+    obs.reset()
+    obs.enable()
+    try:
+        spine_step(params)
+        _sgd(params, SPINE_LR)
+        torch.cuda.synchronize()
+    finally:
+        obs.disable()
+    ops = obs.snapshot(prefix="dispatch_ops_total")["dispatch_ops_total"]
+    n_disp = int(sum(s["value"] for s in ops["series"]))
+    hist = obs.DISPATCH_SECONDS.labels()
+    host_us = hist.sum / max(hist.count, 1) * 1e6
+
+    def tensor_api_step():
+        spine_step(params)
+        _sgd(params, SPINE_LR)
+
+    def nn_step():
+        _, loss = model(tx, labels=ty)
+        loss.backward()
+        with torch.no_grad():
+            for p in model.parameters():
+                p.sub_(p.grad * SPINE_LR)
+                p.grad = None
+        return loss
+
+    profiles = {"Tensor-API": _profiled(tensor_api_step, dev)}
+    del params
+    # the torch.nn eager step on the same batch (plain SGD, the same lr)
+    nn_walls = []
+    for _ in range(SPINE_TIMED_NN):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nn_step().item()
+        nn_walls.append((time.perf_counter() - t0) * 1e3)
+    profiles["torch.nn"] = _profiled(nn_step, dev)
+    for tag, (wall, busy, rows) in profiles.items():
+        print(f"profile spine {tag} step: {wall:.1f} ms (profiled), device "
+              f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "
+              f"{sum(n for _, n, _ in rows)} kernels", flush=True)
+        for key, count, ms in rows[:10]:
+            print(f"profile spine {tag}:   {ms:9.3f} ms "
+                  f"{100 * ms / busy:5.1f}%  x{count:<5d} {key[:90]}")
+    # one small add: the Tensor's dispatch against the raw torch call
+    a = paddle.to_tensor(np.ones(8, np.float32), place=dev)
+    ta = a._buf
+    t_port = Timer.host_us(lambda: a + a, n=SPINE_ADDS)
+    t_raw = Timer.host_us(lambda: torch.add(ta, ta), n=SPINE_ADDS)
+    step_ms = float(np.median(walls[1:]))
+    nn_ms = float(np.median(nn_walls))
+    print(f"spine cost: Tensor-API step {step_ms:.2f} ms (median of steps "
+          f"2-{SPINE_STEPS}; {[round(w, 2) for w in walls]}) vs the torch.nn "
+          f"eager step {nn_ms:.2f} ms ({[round(w, 2) for w in nn_walls]}), "
+          f"{step_ms / nn_ms:.3f}x; {n_disp} apply_op dispatches a step at "
+          f"{host_us:.2f} host us each; a small add {t_port:.2f} us vs "
+          f"torch.add {t_raw:.2f} us ({t_port / t_raw:.2f}x); peak memory "
+          f"{peak:.2f} GiB over the Tensor-API steps; on {card}", flush=True)
+    del model, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "nn_step_ms": nn_ms, "dispatches": n_disp,
+            "host_us": host_us, "add_us": t_port, "torch_add_us": t_raw,
+            "peak_gib": peak, "launches": launches, "direct": direct,
+            "busy_ms": {k: v[1] for k, v in profiles.items()}}
+
+
 # --------------------------------------------------- phase 5: weight-only
 # Llama-3-8B's seven projections of a layer, (name, in_features K,
 # out_features N), as weight_only_linear stores them: [K, N]
@@ -4249,6 +4647,8 @@ def main():
     mark("disaggregation")
     launches.update(training_phase(dev, card))
     mark("training")
+    spine_phase(dev, card)
+    mark("spine")
     wo_lines, wo_launches = weight_only_phase(dev, card)
     mark("weight-only")
     kernels += wo_lines

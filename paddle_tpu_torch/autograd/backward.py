@@ -1,0 +1,96 @@
+"""Reverse-mode entry points: counterpart of ``paddle_tpu/autograd/backward.py``.
+
+Analog of egr::Backward / RunBackward (fluid/eager/backward.cc:439,:105).
+The reference sweeps its own tape; here torch's engine does, and these
+functions map Paddle's semantics onto it:
+
+- a root that stops gradients is skipped (torch would raise);
+- a non-scalar root's cotangent defaults to ones (torch refuses one);
+- ``paddle.grad`` leaves every ``.grad`` alone and returns Tensors,
+  differentiable under ``create_graph``; an input that received no gradient
+  raises unless ``allow_unused``.
+
+Torch raises on a second sweep over a freed graph only where a node needs
+a tensor it saved; the reference raises on any second sweep.
+
+``backward_split`` (the zero-bubble pipeline's deferred weight gradients)
+has no caller before pipeline parallelism (M12) and raises.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.tensor import Tensor, _wrap
+
+
+def _cotangent(t: Tensor, g):
+    b = t._buf
+    if g is None:
+        return torch.ones_like(b)
+    if isinstance(g, Tensor):
+        return g._buf
+    return torch.as_tensor(np.asarray(g), dtype=b.dtype, device=b.device)
+
+
+def backward(tensors, grad_tensors=None, retain_graph=False,
+             create_graph=False, defer_param_ids=None):
+    """paddle.autograd.backward analog: accumulate into the ``.grad`` of
+    every leaf that requires grad (and of tensors with retain_grads())."""
+    if defer_param_ids is not None:
+        backward_split(tensors, grad_tensors, defer_param_ids)
+    tensors = tensors if isinstance(tensors, (list, tuple)) else [tensors]
+    if grad_tensors is None:
+        grad_tensors = [None] * len(tensors)
+    elif not isinstance(grad_tensors, (list, tuple)):
+        grad_tensors = [grad_tensors]
+    roots, cots = [], []
+    for t, g in zip(tensors, grad_tensors):
+        if not t._buf.requires_grad:
+            continue
+        roots.append(t._buf)
+        cots.append(_cotangent(t, g))
+    if roots:
+        torch.autograd.backward(roots, cots, retain_graph=retain_graph,
+                                create_graph=create_graph)
+
+
+def backward_split(tensors, grad_tensors=None, param_ids=frozenset()):
+    """Zero-bubble B-phase backward (deferred W closures): not ported."""
+    raise NotImplementedError(
+        "backward_split / defer_param_ids (zero-bubble pipeline schedules) "
+        "come with pipeline parallelism (M12)")
+
+
+def grad(outputs, inputs, grad_outputs=None, retain_graph=None, create_graph=False,
+         only_inputs=True, allow_unused=False, no_grad_vars=None):
+    """paddle.grad analog (python/paddle/autograd/__init__.py) over
+    ``torch.autograd.grad``: ``.grad`` of no tensor changes."""
+    if not only_inputs:
+        raise NotImplementedError(
+            "paddle.grad(only_inputs=False) is not supported")
+    outputs = outputs if isinstance(outputs, (list, tuple)) else [outputs]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    if grad_outputs is not None and not isinstance(grad_outputs, (list, tuple)):
+        grad_outputs = [grad_outputs]
+    if grad_outputs is None:
+        grad_outputs = [None] * len(outputs)
+    roots, cots = [], []
+    for t, g in zip(outputs, grad_outputs):
+        if t._buf.requires_grad:
+            roots.append(t._buf)
+            cots.append(_cotangent(t, g))
+    want = [i for i, t in enumerate(inputs) if t._buf.requires_grad]
+    res = [None] * len(inputs)
+    if roots and want:
+        gs = torch.autograd.grad(
+            roots, [inputs[i]._buf for i in want], cots,
+            retain_graph=bool(retain_graph) or create_graph,
+            create_graph=create_graph, allow_unused=True)
+        for i, g in zip(want, gs):
+            res[i] = g
+    if not allow_unused and any(g is None for g in res):
+        raise RuntimeError(
+            "one of the input tensors received no gradient; pass "
+            "allow_unused=True to get None instead")
+    return [None if g is None else _wrap(g) for g in res]

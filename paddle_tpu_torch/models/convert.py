@@ -14,7 +14,7 @@ import torch
 from .gpt2 import GPT2Config, GPT2ForCausalLM
 from .llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["llama_from_numpy", "gpt2_from_numpy"]
+__all__ = ["llama_from_numpy", "gpt2_from_numpy", "gpt2_linear"]
 
 
 def _load(model, state, is_linear):
@@ -51,6 +51,13 @@ def llama_from_numpy(state, config: LlamaConfig, device="cuda", dtype=None):
                  or n == "lm_head.weight")
 
 
+def gpt2_linear(name):
+    """Whether GPT-2's parameter ``name`` is a Linear weight (stored
+    ``[in, out]`` by the JAX model, ``[out, in]`` by the port's)."""
+    return name.endswith(".weight") and name not in (
+        "gpt2.wte.weight", "gpt2.wpe.weight") and ".ln" not in name
+
+
 def gpt2_from_numpy(state, config: GPT2Config, device="cuda", dtype=None):
     """Build a :class:`GPT2ForCausalLM` on ``device`` (in ``dtype``, default
     float32) holding ``state``'s weights: Linear weights transposed, biases,
@@ -59,5 +66,4 @@ def gpt2_from_numpy(state, config: GPT2Config, device="cuda", dtype=None):
     raise."""
     model = GPT2ForCausalLM(config, device=device,
                             dtype=dtype or torch.float32)
-    return _load(model, state, lambda n: n.endswith(".weight") and n not in (
-        "gpt2.wte.weight", "gpt2.wpe.weight") and ".ln" not in n)
+    return _load(model, state, gpt2_linear)

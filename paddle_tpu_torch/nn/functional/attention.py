@@ -1,15 +1,21 @@
 """Attention functionals: counterpart of
 ``paddle_tpu/nn/functional/attention.py``.
 
-Both functionals take ``[B, S, H, D]`` tensors.  Dispatch follows the
+Both functionals take ``[B, S, H, D]`` tensors: port ``Tensor``s, which go
+through ``apply_op`` as the reference's do (one dispatch; the flash
+wrapper's own ``torch.autograd.Function`` is the tape node, with no second
+wrapper around it), or ``torch.Tensor``s, which the ``torch.nn`` models
+pass until ``nn.Layer`` is ported.  Dispatch follows the
 reference: with no mask, no dropout in training and a shape the kernels
 take (:func:`~paddle_tpu_torch.ops.flash_attention.supported`), attention
 goes through :func:`~paddle_tpu_torch.ops.flash_attention.flash_attention_bshd`
 — the flash kernels K1-K3 on the card, their plain twins on the CPU (the
 wrapper, not this module, looks at the device) — and otherwise through
 :func:`_sdpa_ref`, the reference's own dense path, which is not a kernel's
-twin.  Dropout draws from a ``torch.Generator`` (the given one, else
-torch's default), so its random bits cannot match JAX's.
+twin.  Dropout draws from a ``torch.Generator`` (the given one; else, for
+``Tensor`` inputs, the global generator's on their device, as the
+reference draws a key from its own; for torch inputs torch's default), so
+its random bits cannot match JAX's.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import math
 
 import torch
 
+from ...core.dispatch import apply_op, unwrap
+from ...core.tensor import Tensor
 from ...ops.flash_attention import flash_attention_bshd, supported
 
 __all__ = ["scaled_dot_product_attention", "flash_attention", "_sdpa_ref"]
@@ -55,10 +63,8 @@ def _sdpa_ref(q, k, v, mask=None, causal=False, dropout_p=0.0, scale=None,
     return out.reshape(B, sq, hq, d).to(q.dtype)
 
 
-def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 dropout_p=0.0, is_causal=False,
-                                 training=True, name=None, generator=None):
-    """paddle.nn.functional.scaled_dot_product_attention ([B, S, H, D])."""
+def _sdpa(query, key, value, attn_mask, dropout_p, is_causal, training,
+          generator):
     drop = dropout_p if training else 0.0
     if attn_mask is None and drop == 0.0 and supported(query.shape,
                                                         key.shape):
@@ -67,15 +73,49 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                      dropout_p=drop, generator=generator)
 
 
+def _flash(query, key, value, dropout, causal, training, generator):
+    drop = dropout if training else 0.0
+    if drop == 0.0 and supported(query.shape, key.shape):
+        return flash_attention_bshd(query, key, value, causal=causal)
+    return _sdpa_ref(query, key, value, causal=causal, dropout_p=drop,
+                     generator=generator)
+
+
+def _generator(query, drop, generator):
+    """The dropout generator of a Tensor-level call: the given one, else
+    the global generator's on the query's device."""
+    if generator is not None or drop == 0.0:
+        return generator
+    from ...core.rng import next_generator
+    return next_generator(query._buf.device)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None, generator=None):
+    """paddle.nn.functional.scaled_dot_product_attention ([B, S, H, D])."""
+    if not isinstance(query, Tensor):
+        return _sdpa(query, key, value, attn_mask, dropout_p, is_causal,
+                     training, generator)
+    m = unwrap(attn_mask)
+    gen = _generator(query, dropout_p if training else 0.0, generator)
+    return apply_op("scaled_dot_product_attention",
+                    lambda q, k, v: _sdpa(q, k, v, m, dropout_p, is_causal,
+                                          training, gen),
+                    query, key, value)
+
+
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None, rng_name="",
                     training=True, name=None, generator=None):
     """Flash attention ([B, S, H, D]); returns ``(out, None)``, as the
     reference does (the softmax is never returned)."""
-    drop = dropout if training else 0.0
-    if drop == 0.0 and supported(query.shape, key.shape):
-        out = flash_attention_bshd(query, key, value, causal=causal)
-    else:
-        out = _sdpa_ref(query, key, value, causal=causal, dropout_p=drop,
-                        generator=generator)
+    if not isinstance(query, Tensor):
+        return _flash(query, key, value, dropout, causal, training,
+                      generator), None
+    gen = _generator(query, dropout if training else 0.0, generator)
+    out = apply_op("flash_attention",
+                   lambda q, k, v: _flash(q, k, v, dropout, causal, training,
+                                          gen),
+                   query, key, value)
     return out, None

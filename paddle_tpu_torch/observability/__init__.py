@@ -19,9 +19,11 @@ Usage::
     obs.disable()
 
 Cost model: disabled (the default), every instrumented call site pays one
-global-bool check.  The port has no op-dispatch layer, so the ``dispatch_*``
-families are declared (the names stay those of the JAX package) but nothing
-feeds them yet.
+global-bool check, and dispatch (``core/dispatch.py``) one recorder-slot
+check.  ``enable()`` installs the dispatch recorder in that slot, which feeds
+the ``dispatch_*`` families: one op count and host-seconds observation a
+dispatch, ``taped`` when an input required grad (autocast and capture lifts
+stay 0: neither is ported).
 
 Standard metric families are declared here, in one place, so instrumented
 modules share names and label schemas instead of inventing their own.
@@ -291,14 +293,39 @@ COLLECTIVE_TRACED_BYTES = REGISTRY.counter(
     "per-shard payload bytes of traced in-mesh collectives", ("collective",))
 
 
+# ---- dispatch recorder -------------------------------------------------------
+class _DispatchRecorder:
+    """Lives in core.dispatch's single ``op_recorder`` slot while metrics are
+    on, so apply_op keeps exactly one instrumentation branch."""
+
+    __slots__ = ()
+
+    def record(self, name, dt, amp=False, taped=False, lifted=False):
+        DISPATCH_OPS.inc(op=name)
+        DISPATCH_SECONDS.observe(dt)
+        if amp:
+            DISPATCH_AUTOCAST.inc()
+        if taped:
+            DISPATCH_TAPED.inc()
+        if lifted:
+            DISPATCH_LIFTS.inc()
+
+
+_DISPATCH_RECORDER = _DispatchRecorder()
+
+
 def enable() -> None:
-    """Flip the process-wide telemetry switch on."""
+    """Flip the process-wide telemetry switch on and install the dispatch
+    recorder (threads pick it up on their next dispatch-state access)."""
+    from ..core import dispatch as _dispatch
     _registry._set_enabled(True)
+    _dispatch.set_metrics_recorder(_DISPATCH_RECORDER)
 
 
 def disable() -> None:
-    """Switch telemetry off; instrumented call sites return to one flag
-    check."""
+    """Switch telemetry off; dispatch returns to its zero-cost fast path."""
+    from ..core import dispatch as _dispatch
+    _dispatch.set_metrics_recorder(None)
     _registry._set_enabled(False)
 
 

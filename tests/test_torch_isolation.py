@@ -69,6 +69,9 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.distributed.store\n"
             "import paddle_tpu_torch.distributed.membership\n"
             "import paddle_tpu_torch.core.native.build\n"
+            "import paddle_tpu_torch.autograd.functional\n"
+            "import paddle_tpu_torch.device\n"
+            "import paddle_tpu_torch.nn.functional.attention\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -270,3 +273,47 @@ def test_ported_options_serve_on_the_cpu(model, case):
     rid = eng.add_request([5, 6, 7, 5, 6, 7, 5, 6], max_new_tokens=6)
     eng.run_until_done()
     assert len(eng.result(rid)) == 6
+
+
+def test_creation_needs_the_card_or_an_explicit_cpu(no_cuda):
+    """The default place is the card: without CUDA, ``to_tensor`` with no
+    place raises through ``resolve_device``; after ``set_device("cpu")``
+    (or with ``place="cpu"``) it works, and the previous place comes
+    back."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as core_device
+    prev = core_device._current_device
+    core_device._current_device = None
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            paddle.to_tensor([1.0])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            paddle.zeros([2])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            paddle.get_device()
+        assert paddle.to_tensor([1.0], place="cpu").place.is_cpu_place()
+        paddle.set_device("cpu")
+        t = paddle.to_tensor([1.0, 2.0])
+        assert t.place.is_cpu_place() and paddle.get_device() == "cpu"
+        assert (t + 1).numpy().tolist() == [2.0, 3.0]
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            paddle.set_device("gpu")
+    finally:
+        core_device._current_device = prev
+
+
+def test_resolve_device_still_imports_from_the_device_package():
+    from paddle_tpu_torch import device as device_pkg
+    from paddle_tpu_torch.core.device import resolve_device as core_resolve
+    assert resolve_device is core_resolve is device_pkg.resolve_device
+    assert device_pkg.is_compiled_with_cuda()
+    assert not device_pkg.is_compiled_with_xpu()
+
+
+def test_enforce_is_a_copy_of_the_reference():
+    """``core/enforce.py`` has no JAX in it, so the port carries a copy; its
+    AST equals the reference's."""
+    ref = ast.parse((REPO / "paddle_tpu" / "core" / "enforce.py").read_text())
+    port = ast.parse((REPO / "paddle_tpu_torch" / "core" / "enforce.py")
+                     .read_text())
+    assert ast.dump(port) == ast.dump(ref)
