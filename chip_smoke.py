@@ -2315,13 +2315,21 @@ def fleet_phase(dev, card, store):
         # other has streamed its first tokens), killed once each of those
         # has FLEET_KILL_AT tokens
         deadline = time.monotonic() + 600
-        victim = None
+        victim = before = None
+        pids = {n: m.meta["pid"]
+                for n, m in fleet.membership.members().items()}
         while victim is None and time.monotonic() < deadline:
             on = {}
             for k in keys:
                 r = gw.plane.get(k)
                 if r is not None and r.handle is not None:
                     on[k] = r.handle.replica.name
+            if len(on) == len(keys) and before is None:
+                # the workers' health under load, read before the victim
+                # is picked: the RPCs take long enough for a worker near
+                # its last tokens to finish every stream before the kill
+                before = {n: fleet.replica(n).health() for n in ("w0", "w1")}
+                continue
             if len(on) == len(keys):
                 open_ = {n: [progress[i] for i, k in enumerate(keys)
                              if on[k] == n and progress[i] < NEW_TOKENS]
@@ -2332,9 +2340,7 @@ def fleet_phase(dev, card, store):
             time.sleep(0.002)
         check(victim is not None, f"streams never reached {FLEET_KILL_AT} "
               f"tokens ({progress})")
-        members = fleet.membership.members()
-        before = {n: fleet.replica(n).health() for n in ("w0", "w1")}
-        pid = members[victim].meta["pid"]
+        pid = pids[victim]
         at_kill = list(progress)
         t_kill = time.perf_counter()
         os.kill(pid, signal.SIGKILL)
@@ -3293,7 +3299,7 @@ def dense_attention():
     """The models attend through the reference's dense path (``_sdpa_ref``,
     float32 softmax) instead of the flash kernels: the same model, the
     check the flash path is held against."""
-    from paddle_tpu_torch.models import gpt2, llama
+    from paddle_tpu_torch.models import gpt2_module as gpt2, llama
     from paddle_tpu_torch.nn.functional.attention import _sdpa_ref
     saved = gpt2.scaled_dot_product_attention, llama.flash_attention
     gpt2.scaled_dot_product_attention = (
@@ -3325,7 +3331,8 @@ def tiny_f32_training(dev):
     or within 2 lr where a gradient element was ever under 1e-4 of its
     tensor's largest (Adam's first update is about lr * sign(g))."""
     from paddle_tpu_torch.models.convert import gpt2_from_numpy
-    from paddle_tpu_torch.models.gpt2 import GPT2Config, GPT2ForCausalLM
+    from paddle_tpu_torch.models.gpt2 import GPT2Config
+    from paddle_tpu_torch.models.gpt2_module import GPT2ForCausalLM
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
     cfg = GPT2Config(vocab_size=256, hidden_size=128, num_layers=2,
@@ -3568,7 +3575,7 @@ def training_phase(dev, card):
     with FLAGS_flash_layout_direct, and the Llama-3-shaped model in bf16
     (each model freed before the next).  Returns K1-K3's launches on the
     default GPT-2 run and K4's on the layout-direct one."""
-    from paddle_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    from paddle_tpu_torch.models.gpt2_module import GPT2ForCausalLM
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
     # the serving models die with the engines' reference cycles: collect
     # them, or the training peaks count their weights
@@ -3724,24 +3731,45 @@ def spine_gelu_layer():
     return Gelu
 
 
+def paddle_layout(tensors):
+    """GPT-2 tensors by the JAX model's names in Paddle's layout: Linear
+    weights (and their gradients) ``[in, out]``, the rest as they are."""
+    from paddle_tpu_torch.models.convert import gpt2_linear
+    return {n: t.t() if gpt2_linear(n) else t for n, t in tensors.items()}
+
+
 def spine_params(model):
     """The torch.nn model's weights as Paddle ``Parameter``s (copies, Linear
     weights transposed to ``[in, out]``), by the JAX model's names."""
     import paddle_tpu_torch as paddle
-    from paddle_tpu_torch.models.convert import gpt2_linear
-    out = {}
-    for n, p in model.named_parameters():
-        w = p.detach()
-        out[n] = paddle.Parameter((w.t() if gpt2_linear(n) else w)
-                                  .contiguous().clone(), name=n)
-    return out
+    return {n: paddle.Parameter(w.contiguous().clone(), name=n)
+            for n, w in paddle_layout({n: p.detach() for n, p in
+                                       model.named_parameters()}).items()}
 
 
 def _spine_grads(params):
     """Each parameter's gradient as float32, in torch's layout."""
-    from paddle_tpu_torch.models.convert import gpt2_linear
-    return {n: (p.grad._buf.t() if gpt2_linear(n) else p.grad._buf).float()
-            for n, p in params.items() if p.grad is not None}
+    return {n: g.float() for n, g in paddle_layout(
+        {n: p.grad._buf for n, p in params.items()
+         if p.grad is not None}).items()}
+
+
+def _dispatch_costs(fn):
+    """(apply_op dispatches, mean host microseconds each) of one call of fn,
+    read from the observability dispatch families."""
+    from paddle_tpu_torch import observability as obs
+    obs.reset()
+    obs.enable()
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        obs.disable()
+    snap = obs.snapshot(prefix="dispatch_ops_total").get(
+        "dispatch_ops_total", {"series": []})
+    n = int(sum(s["value"] for s in snap["series"]))
+    hist = obs.DISPATCH_SECONDS.labels()
+    return n, hist.sum / max(hist.count, 1) * 1e6
 
 
 def _grad_errors(got, want):
@@ -3798,8 +3826,7 @@ def spine_phase(dev, card):
     a small add against torch.add, peak memory, and one profiled step of
     each program (device busy, the top kernels).  Returns the numbers."""
     import paddle_tpu_torch as paddle
-    from paddle_tpu_torch import observability as obs
-    from paddle_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    from paddle_tpu_torch.models.gpt2_module import GPT2ForCausalLM
     gc.collect()
     torch.cuda.empty_cache()
     cfg, batch, seq = gpt2_bench_config()
@@ -3943,24 +3970,13 @@ def spine_phase(dev, card):
           f"{errs[worst]:.2e}, {worst})", flush=True)
     del sem, plain
 
-    # costs: dispatches a step and host time each (the observability
-    # recorder), outside the counted steps
-    obs.reset()
-    obs.enable()
-    try:
-        spine_step(params)
-        _sgd(params, SPINE_LR)
-        torch.cuda.synchronize()
-    finally:
-        obs.disable()
-    ops = obs.snapshot(prefix="dispatch_ops_total")["dispatch_ops_total"]
-    n_disp = int(sum(s["value"] for s in ops["series"]))
-    hist = obs.DISPATCH_SECONDS.labels()
-    host_us = hist.sum / max(hist.count, 1) * 1e6
-
     def tensor_api_step():
         spine_step(params)
         _sgd(params, SPINE_LR)
+
+    # costs: dispatches a step and host time each (the observability
+    # recorder), outside the counted steps
+    n_disp, host_us = _dispatch_costs(tensor_api_step)
 
     def nn_step():
         _, loss = model(tx, labels=ty)
@@ -4009,6 +4025,239 @@ def spine_phase(dev, card):
             "host_us": host_us, "add_us": t_port, "torch_add_us": t_raw,
             "peak_gib": peak, "launches": launches, "direct": direct,
             "busy_ms": {k: v[1] for k, v in profiles.items()}}
+
+
+# ------------------------------------- phase 6c: nn.Layer and optimizers (M2)
+LAYER_TIMED = 6          # timed steps after the checked first one (median)
+LAYER_LR = 3e-4          # bench.py's AdamW rate
+# bf16 agreement of a parameter after the first AdamW step with the torch.nn
+# model's, as a share of its largest element.  Adam's first update is about
+# lr * sign(g), so where the reference gradient is within the gradient bar
+# of zero (TRAIN_GRAD_TOL of its largest element) the two runs may step in
+# opposite directions: there the bar is 2 lr plus one bf16 rounding.
+LAYER_PARAM_TOL = 2e-2
+LAYER_ROUND_TRIP_B = 2   # batch of the state_dict round trip's forward
+
+
+def layer_phase(dev, card):
+    """The reference's own GPT-2 124M written on ``nn.Layer``
+    (``models/gpt2.py``; ``gpt2_bench_config``: bf16, B16 S1024, one 16384-
+    token bf16 loss chunk) trained with ``paddle.optimizer.AdamW`` and
+    ``ClipGradByGlobalNorm`` through ``bench.py``'s ``train_step``, on the
+    card.  The torch.nn model's weights load through ``set_state_dict``
+    from numpy; its first step (the port's AdamW on torch tensors) is the
+    reference: one step with FLAGS_flash_layout_direct (K4 only) and the
+    first default step (K1-K3) held to its loss and block 0's attention
+    gradients, every parameter after the first AdamW step held to its, the
+    loss falling over the timed steps, K1-K3 launched layers x steps and
+    K4 never; a state_dict round trip into a fresh model gives an equal
+    forward.  Then the costs beside the torch.nn AdamW step of this run:
+    step ms, tokens/s, MFU, apply_op dispatches and host us each, peak
+    memory, one profiled step each.  Returns the numbers."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.models.gpt2 import GPT2ForCausalLM as LayerGPT2
+    from paddle_tpu_torch.models.gpt2_module import GPT2ForCausalLM
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, batch, seq = gpt2_bench_config()
+    L = cfg.num_layers
+    paddle.set_device(dev)           # the Layer's parameters go there
+    ref = GPT2ForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              SEED))
+    paddle.seed(SEED)
+    model = LayerGPT2(cfg)
+    params = model.parameters()
+    model.to(dtype="bfloat16")
+    check(all(a is b and b.dtype == torch.bfloat16 and b.is_leaf
+              and not b.stop_gradient
+              for a, b in zip(params, model.parameters())),
+          "layer: to(dtype=) did not keep the parameters trainable leaves")
+    weights = {n: p.detach() for n, p in ref.named_parameters()}
+    missing, unexpected = model.set_state_dict(
+        {n: w.float().cpu().numpy() for n, w in paddle_layout(weights).items()})
+    check(not missing and not unexpected,
+          f"layer: set_state_dict missing {missing}, unexpected {unexpected}")
+    opt = paddle.optimizer.AdamW(LAYER_LR, weight_decay=0.01,
+                                 parameters=model.parameters(),
+                                 grad_clip=pnn.ClipGradByGlobalNorm(1.0))
+    n_params = sum(p.size for p in model.parameters())
+
+    def step(x, y):                  # bench.py _train's train_step, verbatim
+        _, loss = model(x, labels=y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                           (batch, seq + 1))
+    x = paddle.to_tensor(ids[:, :-1])
+    y = paddle.to_tensor(ids[:, 1:])
+    tx, ty = x._buf.long(), y._buf.long()
+
+    # the reference: the torch.nn model's first step (K1-K3) and the port's
+    # AdamW on its torch tensors
+    topt = new_adamw(ref)
+    with layout_direct(False):
+        _, rl = ref(tx, labels=ty)
+        rl.backward()
+        ref_loss = rl.item()
+        ref_grads = {n: g.float() for n, g in paddle_layout(
+            {n: p.grad for n, p in ref.named_parameters()}).items()}
+        topt.step()
+        topt.clear_grad()
+    ref_after = {n: w.float() for n, w in paddle_layout(weights).items()}
+    attn0 = [n for n in ref_grads if n.startswith("gpt2.blocks.0.attn.")]
+
+    def hold(tag, loss):
+        got = {n: p.grad._buf.float() for n, p in model.named_parameters()}
+        errs = _grad_errors(got, ref_grads)
+        worst = max(errs, key=errs.get)
+        check(abs(loss - ref_loss) <= TRAIN_LOSS_TOL,
+              f"layer {tag}: loss {loss} vs the torch.nn step's {ref_loss}")
+        bad = {n: errs[n] for n in attn0 if not errs[n] <= TRAIN_GRAD_TOL}
+        check(not bad, f"layer {tag}: block 0's attention gradients off by "
+              f"{bad} of their largest")
+        print(f"layer {tag}: first loss {loss:.5f} vs the torch.nn step "
+              f"{ref_loss:.5f} (tol {TRAIN_LOSS_TOL}); block 0 attention "
+              f"gradients off by "
+              + ", ".join(f"{n.split('.', 3)[-1]} {errs[n]:.3e}"
+                          for n in attn0)
+              + f" of their largest (tol {TRAIN_GRAD_TOL}); all {len(errs)} "
+              f"gradients within {errs[worst]:.3e} ({worst})", flush=True)
+
+    # one step's forward and backward with FLAGS_flash_layout_direct (K4)
+    with layout_direct(True):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        _, loss = model(x, labels=y)
+        loss.backward()
+        hold("layout-direct", loss.item())
+        direct = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+    model.clear_gradients()
+    want_d = {k: L if k.startswith("K4") else 0 for k in FLASH_COUNTERS}
+    check(direct == want_d, f"layer layout-direct: launches {direct}, "
+          f"expected {want_d}")
+
+    # the default path: the checked first step, then the timed ones
+    with layout_direct(False):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        _, loss = model(x, labels=y)
+        loss.backward()
+        first = loss.item()
+        hold("default path", first)
+        opt.step()
+        opt.clear_grad()
+        worst, flips = 0.0, 0
+        for n, p in model.named_parameters():
+            want = ref_after[n]
+            diff = (p._buf.float() - want).abs()
+            top = want.abs().max()
+            flip = ref_grads[n].abs() <= TRAIN_GRAD_TOL * ref_grads[n].abs().max()
+            ok = (diff <= LAYER_PARAM_TOL * top) | (
+                flip & (diff <= 2 * LAYER_LR + 2 ** -7 * want.abs()))
+            check(bool(ok.all()), f"layer: parameter {n} after the first "
+                  f"AdamW step off by {diff.max().item()} (largest element "
+                  f"{top.item()})")
+            worst = max(worst, (diff.max() / top).item())
+            flips += int((flip & (diff > LAYER_PARAM_TOL * top)).sum())
+        print(f"layer: every parameter after the first AdamW + clip step vs "
+              f"the torch.nn model's: largest error {worst:.3e} of the "
+              f"largest element (tol {LAYER_PARAM_TOL}); {flips} elements "
+              f"past it, each where the reference gradient is within "
+              f"{TRAIN_GRAD_TOL} of its largest, within 2 lr", flush=True)
+        del ref_after, ref_grads
+        losses, walls = [first], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(LAYER_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(x, y).item())
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = 1 + LAYER_TIMED
+    want = {k: L * steps if k in ("K1", "K2", "K3") else 0
+            for k in FLASH_COUNTERS}
+    print(f"layer gpt2-124m bf16 B{batch} S{seq}: AdamW + clip losses "
+          f"{[round(v, 4) for v in losses]}; flash launches {launches} "
+          f"(expected {want}: {L} layers x {steps} steps)", flush=True)
+    check(all(np.isfinite(losses)), "layer: a loss is not finite")
+    check(losses[-1] < losses[0], f"layer: the loss did not fall ({losses})")
+    check(launches == want, f"layer: launches {launches}, expected {want}")
+
+    # the state_dict round trip: numpy out, a fresh model, an equal forward
+    paddle.seed(SEED + 1)
+    fresh = LayerGPT2(cfg)
+    fresh.to(dtype="bfloat16")
+    fresh.set_state_dict({k: v.numpy() for k, v in model.state_dict().items()})
+    xs = x[:LAYER_ROUND_TRIP_B]
+    model.eval()
+    fresh.eval()
+    with paddle.no_grad(), layout_direct(False):
+        a, b = model(xs), fresh(xs)
+        same = torch.equal(a._buf, b._buf)
+    model.train()
+    check(same, "layer: a fresh model from the state_dict's numpy arrays "
+          "gives another forward")
+    print(f"layer: state_dict -> numpy -> a fresh model: {len(model.state_dict())} "
+          f"arrays, logits [{LAYER_ROUND_TRIP_B}, {seq}, {cfg.vocab_size}] "
+          f"bitwise equal", flush=True)
+    del fresh, a, b
+
+    # costs: dispatches and host time a step, the profiled step, and the
+    # torch.nn AdamW step of this run on the same batch
+    n_disp, host_us = _dispatch_costs(lambda: step(x, y))
+    profiles = {"Layer": _profiled(lambda: step(x, y), dev)}
+    nn_walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(LAYER_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(ref, topt, tx, ty).item()
+        torch.cuda.synchronize()
+        nn_walls.append((time.perf_counter() - t0) * 1e3)
+    nn_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    nn_disp, _ = _dispatch_costs(lambda: train_step(ref, topt, tx, ty))
+    profiles["torch.nn"] = _profiled(
+        lambda: train_step(ref, topt, tx, ty), dev)
+    flops_per_token = 6 * n_params + 12 * L * cfg.hidden_size * seq
+    out = {}
+    for tag, ws, pk, nd in (("Layer", walls, peak, n_disp),
+                            ("torch.nn", nn_walls, nn_peak, nn_disp)):
+        ms = float(np.median(ws))
+        tok_s = batch * seq / (ms / 1e3)
+        wall, busy, rows = profiles[tag]
+        out[tag] = {"step_ms": ms, "tokens_s": tok_s,
+                    "mfu": tok_s * flops_per_token / BF16_FLOPS,
+                    "peak_gib": pk, "dispatches": nd, "busy_ms": busy,
+                    "profiled_ms": wall}
+        print(f"layer cost {tag} AdamW step: median {ms:.2f} ms over "
+              f"{len(ws)} steps ({[round(w, 2) for w in ws]}), {tok_s:.0f} "
+              f"tokens/s, MFU {out[tag]['mfu']:.4f}, {nd} apply_op "
+              f"dispatches a step, peak memory {pk:.2f} GiB; profiled "
+              f"{wall:.1f} ms, device busy {busy:.1f} ms "
+              f"({100 * busy / wall:.1f}%), {sum(n for _, n, _ in rows)} "
+              f"kernels; on {card}", flush=True)
+        for key, count, kms in rows[:10]:
+            print(f"profile layer {tag}:   {kms:9.3f} ms "
+                  f"{100 * kms / busy:5.1f}%  x{count:<5d} {key[:90]}")
+    out["Layer"]["host_us"] = host_us
+    print(f"layer cost: the Layer step {out['Layer']['step_ms']:.2f} ms vs "
+          f"the torch.nn AdamW step {out['torch.nn']['step_ms']:.2f} ms, "
+          f"{out['Layer']['step_ms'] / out['torch.nn']['step_ms']:.3f}x; "
+          f"{n_disp} apply_op dispatches a step at {host_us:.2f} host us "
+          f"each; device busy {out['Layer']['busy_ms']:.1f} vs "
+          f"{out['torch.nn']['busy_ms']:.1f} ms; on {card}", flush=True)
+    del model, opt, ref, topt
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(launches=launches, direct=direct)
+    return out
 
 
 # --------------------------------------------------- phase 5: weight-only
@@ -4649,6 +4898,8 @@ def main():
     mark("training")
     spine_phase(dev, card)
     mark("spine")
+    layer_phase(dev, card)
+    mark("layer")
     wo_lines, wo_launches = weight_only_phase(dev, card)
     mark("weight-only")
     kernels += wo_lines

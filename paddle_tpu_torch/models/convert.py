@@ -1,6 +1,6 @@
 """Weight bridge: the JAX model's parameters, as numpy arrays keyed by its
 ``state_dict()`` names, into the port's :class:`~.llama.LlamaForCausalLM`
-and :class:`~.gpt2.GPT2ForCausalLM`.
+and :class:`~.gpt2_module.GPT2ForCausalLM` (the ``torch.nn`` GPT-2).
 
 Paddle's ``Linear`` stores its weight ``[in, out]``; torch's stores
 ``[out, in]``, so linear weights are transposed.  Embedding and norm
@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .gpt2 import GPT2Config, GPT2ForCausalLM
+from .gpt2 import GPT2Config
+from .gpt2_module import GPT2ForCausalLM
 from .llama import LlamaConfig, LlamaForCausalLM
 
 __all__ = ["llama_from_numpy", "gpt2_from_numpy", "gpt2_linear"]

@@ -1,28 +1,36 @@
-"""GPT-2 in PyTorch: the counterpart of ``paddle_tpu/models/gpt2.py``.
+"""GPT-2 on ``nn.Layer``: counterpart of ``paddle_tpu/models/gpt2.py``
+(BASELINE config #1: 124M single-chip LM pretraining).
 
-``GPT2ForCausalLM`` is an ``nn.Module`` whose parameter names equal the JAX
-model's ``state_dict()`` keys (``gpt2.wte.weight``, ``gpt2.wpe.weight``,
-``gpt2.blocks.{i}.{ln1,attn.qkv,attn.proj,ln2,mlp.fc,mlp.proj}.*``,
-``gpt2.ln_f.*``), so weights cross between the packages by name (see
-:mod:`.convert`); Linear weights are stored the torch way, ``[out, in]``.
-The LM head is tied to ``wte``.  Attention goes through
-:func:`~paddle_tpu_torch.nn.functional.scaled_dot_product_attention`, so a
-training step on the card runs the flash kernels K1 (forward) and K2 + K3
-(backward) at every layer.
+Architecture parity target: PaddleNLP GPT-2 (the reference repo hosts the
+framework; the model recipe lives downstream). Built purely from the
+port's ``nn`` so it exercises the user-facing stack end to end: the same
+classes, parameter names and ``GPT2Config`` as the reference, with
+``Linear`` weights ``[in, out]``, so the JAX model's ``state_dict`` loads
+through ``set_state_dict`` unchanged.  Attention is
+``F.scaled_dot_product_attention`` (K1-K3 on the card, K4 under
+``FLAGS_flash_layout_direct``).  The chunked loss is one ``apply_op`` of
+:func:`_chunked_lm_loss_body`, which the ``torch.nn`` model of
+:mod:`.gpt2_module` calls on torch tensors directly.  Not ported yet:
+``use_recompute`` (``fleet.recompute``, M12) and ``generate`` (``ops.topk``
+/ ``ops.multinomial``, M13), which raise.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
-import torch.nn.functional as F
-from torch import nn
+import torch.nn.functional as TF
 from torch.utils.checkpoint import checkpoint
 
-from ..device import resolve_device
-from ..nn.functional import cross_entropy, scaled_dot_product_attention
-
-__all__ = ["GPT2Config", "GPT2ForCausalLM", "GPT2Model"]
+from .. import ops
+from ..core.tensor import Tensor
+from ..nn.layer.layers import Layer
+from ..nn.layer.common import Linear, Embedding, Dropout
+from ..nn.layer.norm import LayerNorm
+from ..nn.layer.container import LayerList
+from ..nn import functional as F
+from ..nn.initializer import Normal
 
 
 class GPT2Config:
@@ -38,7 +46,8 @@ class GPT2Config:
         # them: O(chunk * V) live memory for one more [chunk, V] product
         self.loss_recompute = loss_recompute
         # "bfloat16": keep the [chunk, V] logits in bf16 with an f32
-        # log-sum-exp (half the bytes of the softmax pass)
+        # log-sum-exp (half the bytes of the softmax pass and of what the
+        # backward keeps when loss_recompute is off)
         self.loss_logits_dtype = loss_logits_dtype
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -62,77 +71,84 @@ class GPT2Config:
         return cls(hidden_size=64, num_layers=2, num_heads=2, **kw)
 
 
-class GPT2Attention(nn.Module):
-    def __init__(self, config: GPT2Config, device=None, dtype=None):
+class GPT2Attention(Layer):
+    def __init__(self, config: GPT2Config):
         super().__init__()
-        h = config.hidden_size
         self.num_heads = config.num_heads
-        self.head_dim = h // config.num_heads
-        self.qkv = nn.Linear(h, 3 * h, device=device, dtype=dtype)
-        self.proj = nn.Linear(h, h, device=device, dtype=dtype)
+        self.head_dim = config.hidden_size // config.num_heads
+        init = Normal(std=config.initializer_range)
+        self.qkv = Linear(config.hidden_size, 3 * config.hidden_size,
+                          weight_attr=init)
+        self.proj = Linear(config.hidden_size, config.hidden_size,
+                           weight_attr=Normal(std=config.initializer_range /
+                                              math.sqrt(2 * config.num_layers)))
         self.attn_drop = config.attention_dropout_prob
-        self.resid_drop = nn.Dropout(config.hidden_dropout_prob)
+        self.resid_drop = Dropout(config.hidden_dropout_prob)
 
     def forward(self, x):
         b, s, h = x.shape
-        qkv = self.qkv(x).view(b, s, 3, self.num_heads, self.head_dim)
-        q, k, v = qkv.unbind(2)
-        out = scaled_dot_product_attention(
+        qkv = self.qkv(x).reshape([b, s, 3, self.num_heads, self.head_dim])
+        q, k, v = qkv.unbind(axis=2)
+        out = F.scaled_dot_product_attention(
             q, k, v, is_causal=True, dropout_p=self.attn_drop,
             training=self.training)
-        return self.resid_drop(self.proj(out.reshape(b, s, h)))
+        out = out.reshape([b, s, h])
+        return self.resid_drop(self.proj(out))
 
 
-class GPT2MLP(nn.Module):
-    def __init__(self, config: GPT2Config, device=None, dtype=None):
+class GPT2MLP(Layer):
+    def __init__(self, config: GPT2Config):
         super().__init__()
-        h, m = config.hidden_size, config.intermediate_size
-        self.fc = nn.Linear(h, m, device=device, dtype=dtype)
-        self.proj = nn.Linear(m, h, device=device, dtype=dtype)
-        self.drop = nn.Dropout(config.hidden_dropout_prob)
+        init = Normal(std=config.initializer_range)
+        self.fc = Linear(config.hidden_size, config.intermediate_size, weight_attr=init)
+        self.proj = Linear(config.intermediate_size, config.hidden_size,
+                           weight_attr=Normal(std=config.initializer_range /
+                                              math.sqrt(2 * config.num_layers)))
+        self.drop = Dropout(config.hidden_dropout_prob)
 
     def forward(self, x):
-        return self.drop(self.proj(F.gelu(self.fc(x), approximate="tanh")))
+        return self.drop(self.proj(F.gelu(self.fc(x), approximate=True)))
 
 
-class GPT2Block(nn.Module):
-    def __init__(self, config: GPT2Config, device=None, dtype=None):
+class GPT2Block(Layer):
+    def __init__(self, config: GPT2Config):
         super().__init__()
-        h, eps = config.hidden_size, config.layer_norm_epsilon
-        self.ln1 = nn.LayerNorm(h, eps=eps, device=device, dtype=dtype)
-        self.attn = GPT2Attention(config, device, dtype)
-        self.ln2 = nn.LayerNorm(h, eps=eps, device=device, dtype=dtype)
-        self.mlp = GPT2MLP(config, device, dtype)
+        self.ln1 = LayerNorm(config.hidden_size, epsilon=config.layer_norm_epsilon)
+        self.attn = GPT2Attention(config)
+        self.ln2 = LayerNorm(config.hidden_size, epsilon=config.layer_norm_epsilon)
+        self.mlp = GPT2MLP(config)
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        x = x + self.mlp(self.ln2(x))
+        return x
 
 
-class GPT2Model(nn.Module):
-    def __init__(self, config: GPT2Config, device=None, dtype=None):
+class GPT2Model(Layer):
+    def __init__(self, config: GPT2Config):
         super().__init__()
         self.config = config
-        h = config.hidden_size
-        self.wte = nn.Embedding(config.vocab_size, h, device=device,
-                                dtype=dtype)
-        self.wpe = nn.Embedding(config.max_position_embeddings, h,
-                                device=device, dtype=dtype)
-        self.drop = nn.Dropout(config.hidden_dropout_prob)
-        self.blocks = nn.ModuleList([GPT2Block(config, device, dtype)
-                                     for _ in range(config.num_layers)])
-        self.ln_f = nn.LayerNorm(h, eps=config.layer_norm_epsilon,
-                                 device=device, dtype=dtype)
+        init = Normal(std=config.initializer_range)
+        self.wte = Embedding(config.vocab_size, config.hidden_size, weight_attr=init)
+        self.wpe = Embedding(config.max_position_embeddings, config.hidden_size,
+                             weight_attr=Normal(std=config.initializer_range))
+        self.drop = Dropout(config.hidden_dropout_prob)
+        self.blocks = LayerList([GPT2Block(config) for _ in range(config.num_layers)])
+        self.ln_f = LayerNorm(config.hidden_size, epsilon=config.layer_norm_epsilon)
 
     def forward(self, input_ids, position_ids=None):
-        s = input_ids.shape[1]
+        b, s = input_ids.shape
         if position_ids is None:
-            position_ids = torch.arange(s, device=input_ids.device)[None]
-        x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
+            position_ids = ops.arange(s, dtype="int64").unsqueeze(0)
+        x = self.wte(input_ids) + self.wpe(position_ids)
+        x = self.drop(x)
         remat = self.config.use_recompute and self.training
+        if remat:
+            raise NotImplementedError(
+                "use_recompute needs fleet.recompute, which the port does not "
+                "have yet (M12)")
         for block in self.blocks:
-            x = checkpoint(block, x, use_reentrant=False) if remat else \
-                block(x)
+            x = block(x)
         return self.ln_f(x)
 
 
@@ -156,8 +172,8 @@ def _chunk_loss(hc, w, yc, ignore_index, bf16_logits):
     return per_tok.sum(), valid.sum()
 
 
-def _chunked_lm_loss(hidden, wte, labels, chunk, ignore_index=-100,
-                     recompute=True, logits_dtype="float32"):
+def _chunked_lm_loss_body(hidden, wte, labels, chunk, ignore_index=-100,
+                          recompute=True, logits_dtype="float32"):
     """Tied-head LM loss without [B * S, V] logits: a loop over token
     chunks of ``chunk`` rows (the reference's lax.scan), the last padded
     with ``ignore_index`` labels; with ``recompute`` each chunk is
@@ -172,7 +188,7 @@ def _chunked_lm_loss(hidden, wte, labels, chunk, ignore_index=-100,
     c = min(chunk, n)
     pad = (-n) % c
     if pad:
-        flat_h = F.pad(flat_h, (0, 0, 0, pad))
+        flat_h = TF.pad(flat_h, (0, 0, 0, pad))
         flat_y = torch.cat([flat_y, flat_y.new_full((pad,), ignore_index)])
     bf16 = logits_dtype in ("bfloat16", torch.bfloat16)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -186,55 +202,55 @@ def _chunked_lm_loss(hidden, wte, labels, chunk, ignore_index=-100,
     return total / count.clamp_min(1).float()
 
 
-class GPT2ForCausalLM(nn.Module):
-    """GPT-2 causal LM with the head tied to ``wte``.  ``device`` defaults
-    to the card (raises without CUDA unless ``device="cpu"``).  The weights
-    are drawn as the JAX layers draw them — Linear and embedding weights
-    N(0, initializer_range), the two ``proj`` weights of each block
-    N(0, initializer_range / sqrt(2 * num_layers)), biases 0, LayerNorm
-    weights 1 — from ``generator`` (torch's default when None), in
-    parameter order, on the model's device."""
+def _chunked_lm_loss(hidden, wte, labels, chunk, ignore_index=-100,
+                     recompute=True, logits_dtype="float32"):
+    """Tied-head LM loss WITHOUT materializing [B*S, V] logits (see
+    :func:`_chunked_lm_loss_body`): one dispatch for port Tensors, the body
+    itself for torch tensors."""
+    def f(h, w, y):
+        return _chunked_lm_loss_body(h, w, y, chunk, ignore_index, recompute,
+                                     logits_dtype)
+    if not isinstance(hidden, Tensor):
+        return f(hidden, wte, labels)
+    from ..core.dispatch import apply_op
+    return apply_op("chunked_lm_loss", f, hidden, wte, labels)
 
-    def __init__(self, config: GPT2Config = None, device="cuda", dtype=None,
-                 generator=None):
+
+class GPT2ForCausalLM(Layer):
+    """LM head ties wte weights (standard GPT-2)."""
+
+    def __init__(self, config: GPT2Config):
         super().__init__()
-        dev = resolve_device(device)
-        self.config = config = config or GPT2Config()
-        self.gpt2 = GPT2Model(config, dev, dtype)
-        self.init_weights(generator)
-
-    @torch.no_grad()
-    def init_weights(self, generator=None):
-        std = self.config.initializer_range
-        proj_std = std / math.sqrt(2 * self.config.num_layers)
-        for name, p in self.named_parameters():
-            if name.endswith(".bias"):
-                p.zero_()
-            elif ".ln" in name:
-                p.fill_(1.0)
-            else:
-                p.normal_(0.0, proj_std if name.endswith("proj.weight")
-                          else std, generator=generator)
-
-    @property
-    def device(self):
-        return self.gpt2.wte.weight.device
+        self.gpt2 = GPT2Model(config)
+        self.config = config
 
     def forward(self, input_ids, labels=None, position_ids=None):
-        """Logits [B, S, V] in the model's dtype; with ``labels``
-        ``(logits, loss)``, or ``(None, loss)`` when
-        ``config.loss_chunk_size`` streams the loss in chunks.  Labels are
-        the targets of each position as given (no shift), -100 ignored."""
-        cfg = self.config
         hidden = self.gpt2(input_ids, position_ids)
-        w = self.gpt2.wte.weight
-        if labels is not None and cfg.loss_chunk_size:
-            return None, _chunked_lm_loss(
-                hidden, w, labels, cfg.loss_chunk_size,
-                recompute=cfg.loss_recompute,
-                logits_dtype=cfg.loss_logits_dtype)
-        logits = hidden @ w.T
+        if labels is not None and self.config.loss_chunk_size:
+            loss = _chunked_lm_loss(
+                hidden, self.gpt2.wte.weight, labels,
+                self.config.loss_chunk_size,
+                recompute=self.config.loss_recompute,
+                logits_dtype=getattr(self.config, "loss_logits_dtype",
+                                     "float32"))
+            return None, loss
+        logits = ops.matmul(hidden, self.gpt2.wte.weight, transpose_y=True)
         if labels is not None:
-            return logits, cross_entropy(logits.reshape(-1, cfg.vocab_size),
-                                         labels.reshape(-1))
+            loss = F.cross_entropy(
+                logits.reshape([-1, self.config.vocab_size]),
+                labels.reshape([-1]))
+            return logits, loss
         return logits
+
+    def generate(self, input_ids, max_new_tokens=20, temperature=1.0, top_k=None):
+        raise NotImplementedError(
+            "generate needs ops.topk and ops.multinomial (ops/search.py, "
+            "ops/random.py), which the port does not have yet (M13)")
+
+
+def gpt2_small():
+    return GPT2ForCausalLM(GPT2Config.gpt2_small())
+
+
+def gpt2_tiny():
+    return GPT2ForCausalLM(GPT2Config.tiny())

@@ -1,8 +1,14 @@
-"""The ``nn`` pieces training needs: gradient clipping (``clip``) and the
-attention and loss functionals (``functional``); and ``quant``, the
-weight-only functions serving uses."""
+"""paddle.nn surface: counterpart of ``paddle_tpu/nn/__init__.py``
+(reference: python/paddle/nn/__init__.py): ``Layer`` and the layers of
+``layer/``, the functionals, the initializers and ``ParamAttr``, gradient
+clipping, and ``quant``, the weight-only functions serving uses.  Not
+ported yet: ``nn.utils`` and the layer modules ``layer/__init__.py``
+names."""
+from .layer import *  # noqa: F401,F403
+from .layer.layers import Layer  # noqa: F401
+from . import functional  # noqa: F401
+from . import initializer  # noqa: F401
 from . import quant  # noqa: F401
-from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
-                   ClipGradByValue)
-
-__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue"]
+from .initializer import ParamAttr  # noqa: F401
+from .clip import (ClipGradByValue, ClipGradByNorm, ClipGradByGlobalNorm,  # noqa: F401
+                   clip_grad_norm_, clip_grad_value_)

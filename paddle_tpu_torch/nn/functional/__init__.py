@@ -1,7 +1,11 @@
-"""Functionals of ``paddle.nn.functional`` that the ported models use."""
-from .attention import (flash_attention,  # noqa: F401
-                        scaled_dot_product_attention)
-from .loss import cross_entropy  # noqa: F401
-
-__all__ = ["flash_attention", "scaled_dot_product_attention",
-           "cross_entropy"]
+"""paddle.nn.functional surface: counterpart of
+``paddle_tpu/nn/functional/__init__.py`` (reference:
+python/paddle/nn/functional/__init__.py), less the modules the port does
+not have yet (``conv``, ``pooling``, ``rope``, ``extras``,
+``extra_losses``)."""
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .attention import (scaled_dot_product_attention, flash_attention,  # noqa: F401
+                        sequence_mask, paged_attention)

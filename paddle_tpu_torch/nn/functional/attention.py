@@ -5,7 +5,7 @@ Both functionals take ``[B, S, H, D]`` tensors: port ``Tensor``s, which go
 through ``apply_op`` as the reference's do (one dispatch; the flash
 wrapper's own ``torch.autograd.Function`` is the tape node, with no second
 wrapper around it), or ``torch.Tensor``s, which the ``torch.nn`` models
-pass until ``nn.Layer`` is ported.  Dispatch follows the
+(``models/gpt2_module.py``, ``models/llama.py``) pass.  Dispatch follows the
 reference: with no mask, no dropout in training and a shape the kernels
 take (:func:`~paddle_tpu_torch.ops.flash_attention.supported`), attention
 goes through :func:`~paddle_tpu_torch.ops.flash_attention.flash_attention_bshd`
@@ -27,7 +27,8 @@ from ...core.dispatch import apply_op, unwrap
 from ...core.tensor import Tensor
 from ...ops.flash_attention import flash_attention_bshd, supported
 
-__all__ = ["scaled_dot_product_attention", "flash_attention", "_sdpa_ref"]
+__all__ = ["scaled_dot_product_attention", "flash_attention", "sequence_mask",
+           "paged_attention", "_sdpa_ref"]
 
 
 def _sdpa_ref(q, k, v, mask=None, causal=False, dropout_p=0.0, scale=None,
@@ -119,3 +120,28 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
                                           gen),
                    query, key, value)
     return out, None
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    """[..., maxlen] mask of the positions below each length (``maxlen``
+    defaults to the largest length)."""
+    from ...core.dtype import convert_dtype
+    from ...core.tensor import _wrap
+    lengths = unwrap(x)
+    ml = int(maxlen) if maxlen is not None else int(lengths.max())
+    row = torch.arange(ml, device=lengths.device)
+    mask = row < lengths[..., None]
+    return _wrap(mask.to(convert_dtype(dtype)))
+
+
+def paged_attention(query, key_pages, value_pages, block_tables, context_lens,
+                    scale=None, name=None):
+    """Decode attention against a paged KV cache (reference:
+    phi/kernels/fusion block_multi_head_attention): the Tensor-level wrapper
+    of :func:`~paddle_tpu_torch.ops.paged_attention.paged_attention` (K5 on
+    the card, its plain version on the CPU)."""
+    from ...ops.paged_attention import paged_attention as _kern
+    bt, cl = unwrap(block_tables), unwrap(context_lens)
+    return apply_op("paged_attention",
+                    lambda q, kp, vp: _kern(q, kp, vp, bt, cl, scale=scale),
+                    query, key_pages, value_pages)

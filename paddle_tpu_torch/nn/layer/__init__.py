@@ -1,0 +1,9 @@
+"""paddle.nn layers: counterpart of ``paddle_tpu/nn/layer/__init__.py``,
+less the modules the port does not have yet (``conv``, ``pooling``,
+``rnn``, ``transformer``, ``extras``)."""
+from .layers import Layer  # noqa: F401
+from .common import *  # noqa: F401,F403
+from .container import Sequential, LayerList, ParameterList, LayerDict  # noqa: F401
+from .activation import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403

@@ -1,64 +1,84 @@
-"""Optimizer base: counterpart of ``paddle_tpu/optimizer/optimizer.py``.
+"""Optimizer base: counterpart of ``paddle_tpu/optimizer/optimizer.py``
+(reference: python/paddle/optimizer/optimizer.py:127).
 
-Parameters are torch tensors and their gradients torch's ``.grad``; the
-update is Paddle's, not ``torch.optim``'s: accumulators are float32 (as
-each optimizer asks), the update is computed in float32 on the master copy
-(``multi_precision`` with a bf16 / fp16 parameter) or on the parameter
-cast up, and the result is cast down to the parameter's dtype when
-committed.  ``step`` clips over all groups at once, so a global-norm clip
-sees the true global norm.  Scalars the reference computes in float32
-(learning rate, beta powers, decay factors) are computed in float32 here
-too.  The elementwise work uses ``torch._foreach_*`` ops: it is what XLA
-fused in the reference, and no Pallas kernel computed it.
+Parameters are port ``Parameter``s (a ``Tensor`` over a torch leaf) or
+``torch.Tensor``s; the update is Paddle's, not ``torch.optim``'s, and is
+written into each parameter's torch leaf in place, under ``no_grad``.  A
+gradient is the leaf's ``.grad`` (a port parameter's ``.grad`` is a
+``Tensor`` over it).  ``step`` clips over all groups at once, so a
+global-norm clip sees the true global norm.
 
-``parameters`` is a list of tensors, ``named_parameters()`` (then
-``apply_decay_param_fun`` receives each parameter's name; otherwise it
-receives None), or a list of group dicts (``{"params": ...,
-"learning_rate": multiplier, "weight_decay": ...}``).  A learning rate is a
-number; the schedulers of ``optimizer/lr.py`` are not ported.
+The optimizer's state is Tensors on the parameters' device, as in the
+reference, so a captured step reads and advances it there: the learning
+rate ``_lr_t`` (a 0-d float32 tensor; ``set_lr`` and a bound
+``LRScheduler``'s ``step`` fill it in place), ``_global_step`` (0-d int32)
+and the accumulators (the moments, the per-parameter beta powers, the
+float32 master weights under ``multi_precision``).  The update's arithmetic
+is float32 whatever the parameter's dtype, on the master copy or on the
+parameter cast up, cast down when committed; Python scalars enter it as
+float32, as the reference's weakly typed ones do.
+
+``parameters`` is a list of parameters, ``named_parameters()`` pairs (then
+``apply_decay_param_fun`` receives each pair's name; otherwise the
+parameter's ``name``), or a list of group dicts (``{"params": ...,
+"learning_rate": multiplier, "weight_decay": ...}``); a ``Parameter``'s
+``optimize_attr["learning_rate"]`` multiplies its rate too.
 """
 from __future__ import annotations
 
-import numbers
 from collections import defaultdict
 
 import numpy as np
 import torch
 
+from ..core.device import current_device
+from ..core.dispatch import unwrap
+from ..core.tensor import Parameter, Tensor, _wrap
+
 __all__ = ["Optimizer", "L1Decay", "L2Decay"]
 
-f32 = np.float32
-# per-parameter scalars kept on the host: reading them never waits for the
-# card
-_HOST = ("beta1_pow", "beta2_pow")
+
+def _leaf(p):
+    """The torch tensor a parameter's update is written into."""
+    return p._buf if isinstance(p, Tensor) else p
 
 
-class L2Decay:
-    def __init__(self, coeff=0.0):
-        self.coeff = coeff
+def _trainable(p):
+    return not p.stop_gradient if isinstance(p, Tensor) else p.requires_grad
 
 
-class L1Decay:
-    def __init__(self, coeff=0.0):
-        self.coeff = coeff
+def _state(buf, name):
+    """A persistable Tensor of optimizer state over ``buf``."""
+    t = _wrap(buf)
+    t.persistable = True
+    t.name = name
+    return t
 
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, name=None):
-        if not isinstance(learning_rate, numbers.Real):
-            raise NotImplementedError(
-                "learning-rate schedulers are not ported; pass a number")
+        from .lr import LRScheduler
         if parameters is None:
-            raise ValueError("parameters must be provided (dygraph-style "
-                             "optimizer)")
-        self._lr = float(learning_rate)
+            raise ValueError("parameters must be provided (dygraph-style optimizer)")
         self._names = {}                      # id(param) -> name
         self._param_groups = self._build_groups(parameters)
+        self._lr = learning_rate
+        self._lr_scheduler = learning_rate if isinstance(learning_rate, LRScheduler) else None
+        lr0 = float(self._lr_scheduler()) if self._lr_scheduler is not None else float(learning_rate)
+        plist = self._parameter_list
+        dev = _leaf(plist[0]).device if plist else current_device()
+        self._lr_t = _state(torch.tensor(lr0, dtype=torch.float32, device=dev),
+                            "learning_rate")
+        if self._lr_scheduler is not None:
+            if not hasattr(self._lr_scheduler, "_bound_opts"):
+                self._lr_scheduler._bound_opts = []
+            self._lr_scheduler._bound_opts.append(self)
         self._weight_decay = weight_decay
         self._grad_clip = grad_clip
-        self._accumulators = defaultdict(dict)   # name -> {id(p): tensor}
-        self._global_step = 0
+        self._accumulators: dict[str, dict[int, Tensor]] = defaultdict(dict)
+        self._global_step = _state(torch.zeros((), dtype=torch.int32, device=dev),
+                                   "global_step")
         self._multi_precision = False
 
     def _params_of(self, items):
@@ -87,113 +107,179 @@ class Optimizer:
     def _parameter_list(self):
         return [p for g in self._param_groups for p in g["params"]]
 
-    # ---- lr ----------------------------------------------------------------
+    def _name_of(self, p):
+        return self._names.get(id(p), getattr(p, "name", None))
+
+    # ---- lr ------------------------------------------------------------------
     def get_lr(self) -> float:
+        if self._lr_scheduler is not None:
+            return float(self._lr_scheduler())
         return float(self._lr)
 
     def set_lr(self, value):
-        self._lr = float(value)
+        if self._lr_scheduler is not None:
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
+        self._lr = value
+        self._lr_t._data.fill_(float(value))
 
-    # ---- accumulators ------------------------------------------------------
-    def _acc(self, name, p, init=None):
-        """The accumulator ``name`` of ``p``, created on first use as
-        float32 zeros of its shape, or as a copy of ``init``, on the
-        parameter's device (the beta powers on the host)."""
+    def set_lr_scheduler(self, scheduler):
+        self._lr_scheduler = scheduler
+
+    # ---- accumulators --------------------------------------------------------
+    def _acc(self, name, p, init=None, dtype=None):
+        """The accumulator ``name`` of ``p``, created on first use on the
+        parameter's device: zeros of its shape in ``dtype`` (float32 under
+        multi_precision, else the parameter's), or a copy of ``init``."""
         store = self._accumulators[name]
-        t = store.get(id(p))
-        if t is None:
-            dev = "cpu" if name in _HOST else p.device
-            t = (torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                 if init is None else init.to(dev).clone())
-            store[id(p)] = t
-        return t
+        key = id(p)
+        if key not in store:
+            leaf = _leaf(p)
+            dt = dtype or (torch.float32 if self._multi_precision else leaf.dtype)
+            buf = torch.zeros(leaf.shape, dtype=dt, device=leaf.device) \
+                if init is None else init.detach().to(leaf.device).clone()
+            store[key] = _state(buf, f"{name}_{getattr(p, 'name', None) or key}")
+        return store[key]
 
-    # ---- step --------------------------------------------------------------
+    # ---- step ----------------------------------------------------------------
     @torch.no_grad()
     def step(self):
-        pg = [(p, p.grad) for g in self._param_groups for p in g["params"]
-              if p.requires_grad and p.grad is not None]
+        lr = self._lr_t._data
+        # clip over ALL groups at once so ClipGradByGlobalNorm sees the true
+        # global norm (reference: Optimizer._create_optimization_pass clips the
+        # concatenated params_grads)
+        all_pg = [(p, p.grad) for g in self._param_groups for p in g["params"]
+                  if _trainable(p) and p.grad is not None]
         if self._grad_clip is not None:
-            pg = self._grad_clip(pg)
-        clipped = {id(p): g for p, g in pg}
+            all_pg = self._grad_clip(all_pg)
+        clipped = {id(p): unwrap(g) for p, g in all_pg}
         for group in self._param_groups:
-            glr = f32(self._lr) * f32(group.get("learning_rate", 1.0))
+            mult = group.get("learning_rate", 1.0)
+            glr = lr if mult == 1.0 else lr * mult
             wd = group.get("weight_decay", self._weight_decay)
-            ps = [p for p in group["params"] if id(p) in clipped]
-            if ps:
-                self._update_group(ps, [clipped[id(p)] for p in ps], glr, wd)
-        self._global_step += 1
+            by_rate = {}
+            for p in group["params"]:
+                if id(p) in clipped:
+                    m = p.optimize_attr.get("learning_rate", 1.0) \
+                        if isinstance(p, Parameter) else 1.0
+                    by_rate.setdefault(m, []).append(p)
+            for m, ps in by_rate.items():
+                self._update_group(ps, [clipped[id(p)] for p in ps],
+                                   glr if m == 1.0 else glr * m, wd)
+        self._global_step._data.add_(1)
 
     def _update_group(self, params, grads, lr, weight_decay):
+        """Update ``params`` (one group, one rate) from their gradients
+        (torch tensors); ``lr`` is a 0-d float32 tensor."""
+        for p, g in zip(params, grads):
+            self._update_param(p, g, lr, weight_decay)
+
+    def _update_param(self, p, g, lr, weight_decay):
         raise NotImplementedError
 
-    # ---- master weights ----------------------------------------------------
+    # ---- master weights ------------------------------------------------------
     def _master(self, p):
-        """(master tensor or None, float32 working value): with
-        multi_precision and a bf16 / fp16 parameter, a persistent float32
-        master copy is the update's source of truth (else updates under one
-        bf16 ulp are lost); otherwise the parameter cast up."""
-        if self._multi_precision and p.dtype in (torch.bfloat16,
-                                                 torch.float16):
-            mw = self._acc("master_weight", p, init=p.detach().float())
-            return mw, mw
-        return None, p.detach().float()
+        """(master_tensor_or_None, f32 working value).
 
-    def _commit(self, params, masters, values):
-        """Store the updated float32 values: a master keeps full
-        precision, the parameter gets the cast-down copy."""
-        for p, mw, pw in zip(params, masters, values):
-            if mw is not None and mw is not pw:
-                mw.copy_(pw)
-            p.copy_(pw)
+        With multi_precision set and a low-precision parameter, keep a
+        persistent f32 master copy as the update's source of truth — otherwise
+        updates smaller than one bf16 ulp are permanently lost (reference:
+        adamw multi_precision master-weight path,
+        python/paddle/optimizer/adamw.py).  The working value may share the
+        parameter's storage: updates compute out of place."""
+        leaf = _leaf(p)
+        if self._multi_precision and leaf.dtype in (torch.bfloat16, torch.float16):
+            mw = self._acc("master_weight", p, dtype=torch.float32,
+                           init=leaf.to(torch.float32))
+            return mw, mw._data
+        return None, leaf.detach().to(torch.float32)
+
+    def _commit(self, p, mw, pw):
+        """Store the updated f32 value: master keeps full precision, the model
+        copy is a cast-down copy, both written in place."""
+        self._commit_all([p], [mw], [pw])
+
+    def _commit_all(self, params, masters, values):
+        ms = [(mw._data, pw) for mw, pw in zip(masters, values)
+              if mw is not None and mw._data is not pw]
+        if ms:
+            torch._foreach_copy_([m for m, _ in ms], [v for _, v in ms])
+        torch._foreach_copy_([_leaf(p) for p in params], list(values))
 
     def clear_grad(self, set_to_zero=False):
         for p in self._parameter_list:
-            if p.grad is not None:
+            if isinstance(p, Tensor):
+                p.clear_grad(set_to_zero)
+            elif p.grad is not None:
                 if set_to_zero:
                     p.grad.zero_()
                 else:
                     p.grad = None
 
-    # ---- state dict --------------------------------------------------------
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None, no_grad_set=None):
+        loss.backward()
+        self.step()
+        return None, None
+
+    # ---- state dict ----------------------------------------------------------
     def state_dict(self):
-        """Accumulators keyed ``{name}_{index in the parameter list}`` (the
-        reference's keys), plus ``global_step``."""
         sd = {}
         plist = self._parameter_list
         for name, store in self._accumulators.items():
             for i, p in enumerate(plist):
                 if id(p) in store:
                     sd[f"{name}_{i}"] = store[id(p)]
-        sd["global_step"] = torch.tensor(self._global_step, dtype=torch.int32)
+        sd["global_step"] = self._global_step
+        if self._lr_scheduler is not None:
+            sd["LR_Scheduler"] = self._lr_scheduler.state_dict()
         return sd
 
     def set_state_dict(self, state_dict):
         plist = self._parameter_list
         for key, value in state_dict.items():
             if key == "LR_Scheduler":
+                if self._lr_scheduler is not None:
+                    # the scheduler keeps the optimizers bound to it (the
+                    # saved state lists the saving run's), and the rate
+                    # tensor takes the restored rate at once
+                    self._lr_scheduler.set_state_dict(
+                        {k: v for k, v in value.items() if k != "_bound_opts"})
+                    self._lr_t._data.fill_(float(self._lr_scheduler()))
                 continue
             if key == "global_step":
-                self._global_step = int(value)
+                self._global_step._data.fill_(int(value))
                 continue
             name, _, idx = key.rpartition("_")
             p = plist[int(idx)]
-            v = (value if isinstance(value, torch.Tensor)
-                 else torch.as_tensor(np.asarray(value)))
-            # a new accumulator takes the SAVED dtype: float32 moments of a
-            # bf16 parameter stay float32 on resume
-            old = self._accumulators[name].get(id(p))
-            self._accumulators[name][id(p)] = v.detach().to(
-                device="cpu" if name in _HOST else p.device,
-                dtype=v.dtype if old is None else old.dtype).clone()
+            v = unwrap(value) if isinstance(value, (Tensor, torch.Tensor)) \
+                else torch.as_tensor(np.asarray(value))
+            # a new accumulator keeps the SAVED dtype: creating it with the
+            # parameter's would downcast checkpointed f32 Adam moments of a
+            # bf16 parameter on resume, degrading training after restart
+            store = self._accumulators[name]
+            if id(p) in store:
+                store[id(p)]._data.copy_(v)
+            else:
+                self._acc(name, p, init=v)
 
-    def _l2(self, pws, gs, wd):
-        """Fold a regularizer into the float32 gradients (Adam-style): L2
-        adds coeff * p, L1 adds coeff * sign(p)."""
+    def _apply_weight_decay_l2(self, pw, g, wd):
+        """Fold regularizer into grad (SGD/Momentum/Adam style): L2 adds coeff*p,
+        L1 adds coeff*sign(p) (reference: python/paddle/regularizer.py).
+        `pw` is the f32 working value of the parameter (master weight if set)."""
         if wd is None:
-            return gs
-        coeff = float(f32(wd.coeff if hasattr(wd, "coeff") else wd))
+            return g
+        coeff = wd.coeff if hasattr(wd, "coeff") else float(wd)
         if isinstance(wd, L1Decay):
-            return torch._foreach_add(
-                gs, torch._foreach_mul([pw.sign() for pw in pws], coeff))
-        return torch._foreach_add(gs, torch._foreach_mul(pws, coeff))
+            return g + coeff * torch.sign(pw)
+        return g + coeff * pw
+
+
+class L2Decay:
+    def __init__(self, coeff=0.0):
+        self.coeff = coeff
+
+
+class L1Decay:
+    def __init__(self, coeff=0.0):
+        self.coeff = coeff

@@ -17,8 +17,6 @@ against the JAX package's, on the CPU.
   decodes a paced stream, through the engine condition's lock granted in
   arrival order (``_FairRLock``).
 - The launch counters stay exact across threads (``ops._counts``)."""
-import ast
-import copy
 import sys
 import threading
 import time
@@ -27,6 +25,7 @@ from pathlib import Path
 import pytest
 
 import _torch_serving as ts
+from _torch_copies import differing_units, statement
 from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.inference.frontend import (ReplicaSet, make_trace,
                                                  run_closed_loop,
@@ -44,17 +43,10 @@ from paddle_tpu_torch.testing import FAULTS, Always, FailNth
 REPO = Path(__file__).resolve().parent.parent
 
 
-
-def _statement(src):
-    """The unit key of one top-level statement other than a function or a
-    class (an import, an assignment), as ``_units`` names it."""
-    return f"statement {ast.dump(ast.parse(src).body[0])}"
-
-
 # port path (under paddle_tpu_torch/, the reference's under paddle_tpu/) ->
 # the units that differ on purpose (ROADMAP queue 3): a top-level function
 # or class by name, a method as "Class.method", the module docstring as
-# "__doc__", any other top-level statement by ``_statement``
+# "__doc__", any other top-level statement by ``statement``
 DIVERGENT = {
     "inference/frontend/__init__.py": set(),
     "inference/frontend/admission.py": set(),
@@ -77,46 +69,15 @@ DIVERGENT = {
     # carried, the pool's __init__ takes one device and refuses the mesh
     # knobs
     "inference/engine/disagg.py": {
-        "__doc__", _statement("import jax"), "split_mesh",
-        _statement('__all__ = ["DisaggEngine", "split_mesh"]'),
-        _statement('__all__ = ["DisaggEngine"]'), "DisaggEngine.__init__"},
+        "__doc__", statement("import jax"), "split_mesh",
+        statement('__all__ = ["DisaggEngine", "split_mesh"]'),
+        statement('__all__ = ["DisaggEngine"]'), "DisaggEngine.__init__"},
 }
-
-
-def _units(src):
-    """{unit: AST dump} of a module: the docstring, each top-level function,
-    each class without its methods, each method; any other statement is
-    keyed by its own dump."""
-    tree = ast.parse(src)
-    body, out = tree.body, {}
-    if ast.get_docstring(tree) is not None:
-        out["__doc__"], body = ast.dump(body[0]), body[1:]
-    funcs = (ast.FunctionDef, ast.AsyncFunctionDef)
-    for node in body:
-        if isinstance(node, funcs):
-            out[node.name] = ast.dump(node)
-        elif isinstance(node, ast.ClassDef):
-            methods = [n for n in node.body if isinstance(n, funcs)]
-            out.update((f"{node.name}.{m.name}", ast.dump(m))
-                       for m in methods)
-            rest = copy.copy(node)
-            rest.body = [n for n in node.body if not isinstance(n, funcs)]
-            out[node.name] = ast.dump(rest)
-        else:
-            out[f"statement {ast.dump(node)}"] = ""
-    return out
 
 
 @pytest.mark.parametrize("path", sorted(DIVERGENT))
 def test_copy_matches_the_reference(path):
-    ref = _units((REPO / "paddle_tpu" / path).read_text())
-    port = _units((REPO / "paddle_tpu_torch" / path).read_text()
-                  .replace("paddle_tpu_torch", "paddle_tpu"))
-    both = ref.keys() & port.keys()
-    # a class on one side only counts once, not method by method
-    differ = {k if k.split(".")[0] in both else k.split(".")[0]
-              for k in ref.keys() | port.keys() if ref.get(k) != port.get(k)}
-    assert differ == DIVERGENT[path]
+    assert differing_units(path) == DIVERGENT[path]
 
 
 def test_store_daemon_source_is_the_reference():

@@ -17,7 +17,7 @@ import torch
 import paddle_tpu as pt
 import paddle_tpu.nn as jnn
 from paddle_tpu.models import gpt2 as jgpt2
-from paddle_tpu_torch.models import gpt2 as tgpt2
+from paddle_tpu_torch.models import gpt2_module as tgpt2
 from paddle_tpu_torch.models.convert import gpt2_from_numpy
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import AdamW
