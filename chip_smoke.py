@@ -162,7 +162,25 @@ Phases (any failure raises and the script exits non-zero):
    plain twin; the step's wall against the torch.nn eager step, apply_op
    dispatches a step and host microseconds each, a small add against
    ``torch.add``, peak memory, and a profiled step of each (device busy,
-   the top kernels).
+   the top kernels).  Then the layer phase (the reference's GPT-2 on
+   ``nn.Layer`` with Paddle AdamW + clip, held to the torch.nn model), and
+   the capture phase (``capture_phase``): the same ``Layer`` GPT-2 124M
+   (bf16, B16 S1024, the torch.nn model's weights) with bench.py's
+   ``train_step`` under ``paddle.jit.to_static``, one CUDA graph a step:
+   spied, captured and replayed beside an eager twin taking the same steps
+   from the same weights (losses and every parameter at the bf16 bar;
+   K1-K3 launched layers x replays and K4 never, through the replay tally;
+   no Python body and 0 apply_op dispatches in a replay; step ms, tokens/s,
+   MFU, capture seconds, peak memory and a profiled replay beside the eager
+   Layer and torch.nn AdamW steps); the same with
+   ``FLAGS_flash_layout_direct`` (K4 only); ``paddle.jit.scan_steps`` at
+   K = 1 and 6 timed by bench.py's differential; a guarded and broken step
+   (a loss guard, a ``float(loss)`` metric through the echo pass, one
+   forced guard flip rolled back from the snapshot) against its eager
+   twin; and the float32 model under ``amp.auto_cast("O1")`` with a
+   ``GradScaler`` and after ``amp.decorate(level="O2")``, each captured and
+   held to its eager twin with K1-K3 launched, and one step's
+   ``low_precision_op_list``.
 7. weight-only, K8's path: Llama-3-8B's 224 projection weights (32
    layers, random bf16 from a seeded generator on the card) quantized to
    int8 and int4 through ``weight_quantize``; one decode step of linear
@@ -4260,6 +4278,489 @@ def layer_phase(dev, card):
     return out
 
 
+# ------------------------------------ phase 6d: train-step capture (M5b)
+CAPTURE_REPLAYS = 6      # timed replays of a captured step (median)
+CAPTURE_WARM = 4         # calls a step may take to be captured (spies)
+DIRECT_REPLAYS = 3       # replays of the layout-direct capture
+SCAN_K = (1, 6)          # scan_steps' K: the differential's low and high
+SCAN_TRIALS = 3          # (t_hi - t_lo) / (k_hi - k_lo) samples, median
+GUARD_REPLAYS = 6        # timed replays of the guarded and broken step
+AMP_REPLAYS = 3          # replays of each AMP capture
+
+
+def _programs(static):
+    """The CapturedPrograms of a StaticFunction's variants."""
+    return [v.compiled for g in static._cache.values() for v in g.variants
+            if v.compiled is not None]
+
+
+def _graphs(static):
+    return sum(p.graph is not None for p in _programs(static))
+
+
+def _synced(fn):
+    """(fn's result, wall ms), the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _bench_step(model, opt):
+    def train_step(x, y):            # bench.py _train's train_step, verbatim
+        _, loss = model(x, labels=y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return train_step
+
+
+def _warm_capture(static, call, tag, graphs=1):
+    """Call a to_static step until it has ``graphs`` graphs (the spy, a
+    re-spy for state the spy made, the capture): the losses, and the peak
+    memory allocated during the call that captured (GiB)."""
+    losses = []
+    while _graphs(static) < graphs:
+        check(len(losses) < CAPTURE_WARM,
+              f"capture {tag}: no graph after {len(losses)} calls")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses.append(call())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(not any(g.eager_only for g in static._cache.values()),
+          f"capture {tag}: the signature fell back to eager")
+    return losses, peak
+
+
+def _hold_twins(tag, got, want, a, b, bar=LAYER_PARAM_TOL):
+    """Losses of the captured run against the eager twin's (the bf16 bar,
+    TRAIN_LOSS_TOL), then every parameter (``bar`` of its largest
+    element); returns whether everything is bitwise equal."""
+    got, want = [float(v) for v in got], [float(v) for v in want]
+    check(len(got) == len(want) and all(np.isfinite(got)),
+          f"capture {tag}: losses {got} vs the eager twin's {want}")
+    worst_loss = max(abs(g - w) for g, w in zip(got, want))
+    check(worst_loss <= TRAIN_LOSS_TOL, f"capture {tag}: losses {got} vs "
+          f"the eager twin's {want}")
+    worst, same = 0.0, got == want
+    for (n, p), q in zip(a.named_parameters(), b.parameters()):
+        pa, pb = p._buf.float(), q._buf.float()
+        same = same and torch.equal(p._buf, q._buf)
+        top = pb.abs().max().item()
+        err = (pa - pb).abs().max().item()
+        check(err <= bar * top, f"capture {tag}: parameter {n} off the eager "
+              f"twin's by {err} (largest element {top})")
+        worst = max(worst, err / top)
+    print(f"capture {tag}: {len(got)} losses vs the eager twin's, largest "
+          f"difference {worst_loss:.3e} (tol {TRAIN_LOSS_TOL}); every "
+          f"parameter within {worst:.3e} of its largest element (tol {bar}); "
+          f"{'bitwise equal' if same else 'not bitwise equal'}", flush=True)
+    return same
+
+
+def capture_phase(dev, card):
+    """Train-step capture on the card (``jit.to_static``, ``scan_steps``,
+    ``amp``): the reference's GPT-2 124M on ``nn.Layer`` (bf16, B16 S1024,
+    the torch.nn model's weights) with bench.py's AdamW + clip, each
+    captured step held to an eager twin from the same weights taking the
+    same steps: ``to_static(train_step)`` (spy, capture, replays: K1-K3
+    layers x replays and K4 never through the replay tally, the body not
+    run and 0 apply_op dispatches in a replay), the same with
+    FLAGS_flash_layout_direct (K4 only), ``scan_steps`` at K = 1 and 6
+    (bench.py's differential), a guarded and broken step (a loss guard, a
+    float(loss) metric, one forced guard flip) and the float32 model under
+    O1 autocast with a GradScaler and after ``amp.decorate(level="O2")``.
+    Returns the numbers."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.core.dispatch import _state
+    from paddle_tpu_torch.models.gpt2 import GPT2ForCausalLM as LayerGPT2
+    from paddle_tpu_torch.models.gpt2_module import GPT2ForCausalLM
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, batch, seq = gpt2_bench_config()
+    L = cfg.num_layers
+    paddle.set_device(dev)
+    out = {}
+    ref = GPT2ForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              SEED))
+    weights = {n: w.float().cpu().numpy() for n, w in paddle_layout(
+        {n: p.detach() for n, p in ref.named_parameters()}).items()}
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                           (batch, seq + 1))
+    x = paddle.to_tensor(ids[:, :-1])
+    y = paddle.to_tensor(ids[:, 1:])
+    tx, ty = x._buf.long(), y._buf.long()
+    n_params = sum(p.numel() for p in ref.parameters())
+    flops_per_token = 6 * n_params + 12 * L * cfg.hidden_size * seq
+
+    def rate(ms):
+        tok_s = batch * seq / (ms / 1e3)
+        return tok_s, tok_s * flops_per_token / BF16_FLOPS
+
+    # the torch.nn AdamW step of this run, the yardstick
+    topt = new_adamw(ref)
+    nn_ms = [_synced(lambda: train_step(ref, topt, tx, ty))[1]
+             for _ in range(1 + CAPTURE_REPLAYS)][1:]
+    del ref, topt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def layer_model(dtype="bfloat16"):
+        paddle.seed(SEED)
+        m = LayerGPT2(cfg)
+        if dtype != "float32":
+            m.to(dtype=dtype)
+        missing, unexpected = m.set_state_dict(weights)
+        check(not missing and not unexpected, "capture: set_state_dict")
+        return m
+
+    def adamw(m):
+        return paddle.optimizer.AdamW(LAYER_LR, weight_decay=0.01,
+                                      parameters=m.parameters(),
+                                      grad_clip=pnn.ClipGradByGlobalNorm(1.0))
+
+    def reset(*models):
+        for m in models:
+            m.set_state_dict(weights)
+            m.clear_gradients()
+
+    def free(*statics):
+        for s in statics:
+            s._cache.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    A, B = layer_model(), layer_model()
+    body = {"n": 0}
+    A.register_forward_pre_hook(
+        lambda layer, inputs: body.__setitem__("n", body["n"] + 1))
+
+    # 1. to_static(train_step): spy, capture, replays, beside the eager twin
+    optA, optB = adamw(A), adamw(B)
+    stepA, stepB = _bench_step(A, optA), _bench_step(B, optB)
+    static = paddle.jit.to_static(stepA)
+    with layout_direct(False):
+        t0 = time.perf_counter()
+        warm, cap_peak = _warm_capture(static, lambda: static(x, y).item(),
+                                       "step")
+        warm_s = time.perf_counter() - t0
+        (prog,) = _programs(static)
+        want = [stepB(x, y).item() for _ in warm]
+        n0, rep0 = body["n"], prog.replays
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        got, walls = [], []
+        for _ in range(CAPTURE_REPLAYS):
+            loss, wall = _synced(lambda: static(x, y))
+            got.append(loss.item())
+            walls.append(wall)
+        launches = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+        # a replay allocates nothing: its blocks are the graph pool's,
+        # allocated while capturing (cap_peak)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(body["n"] == n0, f"capture step: the Python body ran "
+              f"{body['n'] - n0} times in {CAPTURE_REPLAYS} replays")
+        check(prog.replays - rep0 == CAPTURE_REPLAYS and prog.captures == 1
+              and prog.eager == 0, f"capture step: program {prog.stats()}")
+        wantL = {k: L * CAPTURE_REPLAYS if k in ("K1", "K2", "K3") else 0
+                 for k in FLASH_COUNTERS}
+        check(launches == wantL, f"capture step: replays launched {launches}"
+              f", expected {wantL}")
+        torch.cuda.reset_peak_memory_stats()
+        eager, eager_ms = [], []
+        for _ in range(CAPTURE_REPLAYS):
+            loss, wall = _synced(lambda: stepB(x, y))
+            eager.append(loss.item())
+            eager_ms.append(wall)
+        eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_disp, _ = _dispatch_costs(lambda: static(x, y))
+        e_disp, e_host = _dispatch_costs(lambda: stepB(x, y))
+        check(n_disp == 0, f"capture step: a replay made {n_disp} apply_op "
+              "dispatches")
+        prof = {"captured": _profiled(lambda: static(x, y), dev),
+                "eager": _profiled(lambda: stepB(x, y), dev)}
+        same = _hold_twins("step", warm + got, want + eager, A, B)
+    ms, e_ms = float(np.median(walls)), float(np.median(eager_ms))
+    nn_med = float(np.median(nn_ms))
+    out["step"] = {"ms": ms, "eager_ms": e_ms, "nn_ms": nn_med,
+                   "capture_s": prog.capture_s, "warm_calls": len(warm),
+                   "warm_s": warm_s, "replay_peak_gib": peak,
+                   "capture_peak_gib": cap_peak,
+                   "eager_peak_gib": eager_peak, "launches": launches,
+                   "bitwise": same, "eager_dispatches": e_disp,
+                   "eager_host_us": e_host,
+                   "busy_ms": prof["captured"][1],
+                   "eager_busy_ms": prof["eager"][1]}
+    for tag, w in (("captured", ms), ("eager Layer", e_ms),
+                   ("torch.nn", nn_med)):
+        tok_s, mfu = rate(w)
+        out["step"][f"{tag}_tokens_s"] = tok_s
+        print(f"capture cost {tag} step: median {w:.2f} ms, {tok_s:.0f} "
+              f"tokens/s, MFU {mfu:.4f}; on {card}", flush=True)
+    for tag, (wall, busy, rows) in prof.items():
+        print(f"capture profile {tag}: 1 step in {wall:.1f} ms (profiled), "
+              f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "
+              f"{sum(n for _, n, _ in rows)} kernels", flush=True)
+        for key, count, kms in rows[:6]:
+            print(f"capture profile {tag}:   {kms:9.3f} ms x{count:<5d} "
+                  f"{key[:80]}")
+    print(f"capture step: gpt2-124m bf16 B{batch} S{seq} to_static("
+          f"train_step) captured at call {len(warm)} ({prog.capture_s:.2f} s "
+          f"capturing, {warm_s:.2f} s for the {len(warm)} calls), "
+          f"{CAPTURE_REPLAYS} replays {[round(v, 2) for v in walls]} ms: "
+          f"median {ms:.2f} ms vs the eager Layer step {e_ms:.2f} ms "
+          f"({[round(v, 2) for v in eager_ms]}) and the torch.nn AdamW step "
+          f"{nn_med:.2f} ms; replay launches {launches}; 0 Python bodies and "
+          f"{n_disp} apply_op dispatches a replay (eager: {e_disp} at "
+          f"{e_host:.1f} host us); peak memory over the capturing call "
+          f"{cap_peak:.2f} GiB, over the replays {peak:.2f} (the eager "
+          f"twin's steps {eager_peak:.2f}; both models and optimizers "
+          f"resident); on {card}", flush=True)
+
+    # 2. the same step with FLAGS_flash_layout_direct, captured (K4 only)
+    with layout_direct(True):
+        static_d = paddle.jit.to_static(stepA)
+        warm, _ = _warm_capture(static_d, lambda: static_d(x, y).item(),
+                                "layout-direct")
+        want = [stepB(x, y).item() for _ in warm]
+        reset_launch_counts()
+        got = [static_d(x, y).item() for _ in range(DIRECT_REPLAYS)]
+        launches_d = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+        want += [stepB(x, y).item() for _ in range(DIRECT_REPLAYS)]
+        wantD = {k: L * DIRECT_REPLAYS if k.startswith("K4") else 0
+                 for k in FLASH_COUNTERS}
+        check(launches_d == wantD, f"capture layout-direct: replays "
+              f"launched {launches_d}, expected {wantD}")
+        _hold_twins("layout-direct", warm + got, want, A, B)
+    print(f"capture layout-direct: captured at call {len(warm)}, "
+          f"{DIRECT_REPLAYS} replays launched {launches_d}", flush=True)
+    out["direct"] = {"launches": launches_d}
+    free(static, static_d)
+
+    # 3. scan_steps at K = 1 and K = 6: bench.py's differential
+    scan = paddle.jit.scan_steps(stepA)
+
+    def stacked(k):
+        return (paddle.to_tensor(np.repeat(ids[None, :, :-1], k, 0)),
+                paddle.to_tensor(np.repeat(ids[None, :, 1:], k, 0)))
+
+    lo, hi = SCAN_K
+    lo_data, hi_data = stacked(lo), stacked(hi)
+    with layout_direct(False):
+        t0 = time.perf_counter()
+        # the peak while capturing K steps in one graph: the pool hands a
+        # step the blocks the step before it freed, or it holds K steps
+        scan_peak = {k: _warm_capture(scan, lambda d=d: scan(*d), f"scan K "
+                                      f"= {k}", graphs=n)[1]
+                     for n, (k, d) in enumerate(((lo, lo_data),
+                                                 (hi, hi_data)), 1)}
+        scan_warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses_hi = scan(*hi_data)
+        scan_launch = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+        wantS = {k: L * hi if k in ("K1", "K2", "K3") else 0
+                 for k in FLASH_COUNTERS}
+        check(scan_launch == wantS, f"capture scan: K = {hi} launched "
+              f"{scan_launch}, expected {wantS}")
+        vals = [float(v) for v in losses_hi.numpy()]
+        check(all(np.isfinite(vals)) and vals[-1] < vals[0],
+              f"capture scan: K = {hi} losses {vals}")
+        diffs, uppers = [], []
+        for _ in range(SCAN_TRIALS):
+            _, t_lo = _synced(lambda: scan(*lo_data).numpy())
+            _, t_hi = _synced(lambda: scan(*hi_data).numpy())
+            uppers.append(t_hi / hi)
+            diffs.append((t_hi - t_lo) / (hi - lo))
+        replay_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    diffs.sort()
+    dt, upper = diffs[len(diffs) // 2], min(uppers)
+    scan_cap = sum(p.capture_s for p in _programs(scan))
+    tok_s, mfu = rate(dt)
+    print(f"capture scan_steps: K = {lo} and {hi} captured ({scan_cap:.2f} s "
+          f"capturing, {scan_warm_s:.2f} s for the spies and captures); "
+          f"K = {hi} losses {[round(v, 4) for v in vals]}, launches "
+          f"{scan_launch}; step (t{hi} - t{lo}) / {hi - lo} samples "
+          f"{[round(d, 3) for d in diffs]} ms: median {dt:.2f} ms, upper "
+          f"bound t{hi} / {hi} {upper:.2f} ms; {tok_s:.0f} tokens/s, MFU "
+          f"{mfu:.4f}; peak memory over the capturing call at K = {lo} "
+          f"{scan_peak[lo]:.2f} GiB, at K = {hi} {scan_peak[hi]:.2f} GiB, "
+          f"over the replays {replay_peak:.2f} GiB (the eager twin's steps "
+          f"{eager_peak:.2f}); on {card}", flush=True)
+    out["scan"] = {"ms": dt, "upper_ms": upper, "samples": diffs,
+                   "capture_s": scan_cap, "peak_gib": scan_peak,
+                   "replay_peak_gib": replay_peak,
+                   "tokens_s": tok_s, "mfu": mfu}
+    free(scan)
+
+    # 4. the guarded and broken step: a loss guard, a float(loss) metric
+    reset(A, B)
+    optA, optB = adamw(A), adamw(B)
+    metrics_a, metrics_b = [], []
+
+    def guarded(model, opt, metrics):
+        def step(x, y, thresh):
+            _, loss = model(x, labels=y)
+            loss.backward()
+            if loss > thresh:          # skip the update on a loss explosion
+                opt.clear_grad()
+            else:
+                opt.step()
+                opt.clear_grad()
+            metrics.append(float(loss))
+            return loss
+        return step
+
+    stepB = guarded(B, optB, metrics_b)
+    static_g = paddle.jit.to_static(guarded(A, optA, metrics_a))
+    high = paddle.to_tensor(np.float32(1e6))
+    low = paddle.to_tensor(np.float32(0.0))
+    echo_ms = []
+    real_echo = static_g._echo
+
+    def timed_echo(*a):
+        t0 = time.perf_counter()
+        try:
+            return real_echo(*a)
+        finally:
+            echo_ms.append((time.perf_counter() - t0) * 1e3)
+
+    static_g._echo = timed_echo
+    with layout_direct(False):
+        warm, _ = _warm_capture(static_g,
+                                lambda: static_g(x, y, high).item(),
+                                "guarded")
+        want = [stepB(x, y, high).item() for _ in warm]
+        n0 = body["n"]
+        got, walls = [], []
+        for _ in range(GUARD_REPLAYS):
+            loss, wall = _synced(lambda: static_g(x, y, high))
+            got.append(loss.item())
+            walls.append(wall)
+        want += [stepB(x, y, high).item() for _ in range(GUARD_REPLAYS)]
+        (prog,) = _programs(static_g)
+        check(prog.captures == 1 and prog.replays >= GUARD_REPLAYS
+              and len(echo_ms) >= GUARD_REPLAYS, f"capture guarded: program "
+              f"{prog.stats()}, {len(echo_ms)} echo passes")
+        # the echo pass runs the Python once a call; the body did not
+        check(body["n"] - n0 == len(echo_ms[-GUARD_REPLAYS:]),
+              f"capture guarded: {body['n'] - n0} forwards in "
+              f"{GUARD_REPLAYS} replays")
+        steady_echo = list(echo_ms)
+        check(metrics_a[-GUARD_REPLAYS:] == got,
+              f"capture guarded: the metric hook saw {metrics_a[-6:]}, the "
+              f"steps returned {got}")
+        # one forced flip: the update variant replays, its guard diverges,
+        # the snapshot rolls the step back, the skip branch is captured
+        flip = [static_g(x, y, low).item(), static_g(x, y, high).item(),
+                static_g(x, y, high).item()]
+        want += [stepB(x, y, low).item(), stepB(x, y, high).item(),
+                 stepB(x, y, high).item()]
+        group = next(iter(static_g._cache.values()))
+        check(not group.eager_only and len(group.variants) == 2,
+              f"capture guarded: {len(group.variants)} variants, eager-only "
+              f"{group.eager_only}")
+        same_g = _hold_twins("guarded", warm + got + flip, want, A, B)
+        # (a capture re-runs the Python with the spy's values: one stale
+        # entry per capture, as in the reference)
+        check(metrics_a[-1] == flip[-1], "capture guarded: the metric hook "
+              f"missed the true value after the flip ({metrics_a[-4:]} vs "
+              f"{flip})")
+    g_ms = float(np.median(walls))
+    snap = sum(b.numel() * b.element_size()
+               for b in group.variants[0].snap_src) / 2 ** 30
+    print(f"capture guarded: the loss-guard + float(loss) step captured at "
+          f"call {len(warm)}; {GUARD_REPLAYS} replays "
+          f"{[round(v, 2) for v in walls]} ms, median {g_ms:.2f} ms vs the "
+          f"plain capture's {ms:.2f} ms: {g_ms - ms:.2f} ms more a step (one "
+          f"device->host read of the guard and break, a {snap:.2f} GiB "
+          f"snapshot, the echo pass at "
+          f"{float(np.median(steady_echo)):.2f} host ms); after one forced "
+          f"flip {len(group.variants)} variants, parameters against the "
+          f"eager twin's: {'bitwise equal' if same_g else 'within the bar'};"
+          f" on {card}", flush=True)
+    out["guarded"] = {"ms": g_ms, "extra_ms": g_ms - ms,
+                      "echo_ms": float(np.median(steady_echo)),
+                      "snapshot_gib": snap, "bitwise": same_g}
+    free(static_g)
+    del A, B, optA, optB, stepA, stepB
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. AMP: the float32 model under O1 with a GradScaler, then O2
+    A, B = layer_model("float32"), layer_model("float32")
+    for level in ("O1", "O2"):
+        reset(A, B)
+        optA, optB = adamw(A), adamw(B)
+        if level == "O2":
+            paddle.amp.decorate(A, optA, level="O2")
+            paddle.amp.decorate(B, optB, level="O2")
+
+        def amp_step(model, opt, scaler, level=level):
+            def step(x, y):
+                with paddle.amp.auto_cast(level=level):
+                    _, loss = model(x, labels=y)
+                if scaler is None:
+                    loss.backward()
+                    opt.step()
+                else:
+                    scaler.scale(loss).backward()
+                    scaler.step(opt)
+                opt.clear_grad()
+                return loss
+            return step
+
+        scalers = ((paddle.amp.GradScaler(), paddle.amp.GradScaler())
+                   if level == "O1" else (None, None))
+        static_a = paddle.jit.to_static(amp_step(A, optA, scalers[0]))
+        stepB = amp_step(B, optB, scalers[1])
+        with layout_direct(False):
+            warm, _ = _warm_capture(static_a, lambda: static_a(x, y).item(),
+                                    level)
+            want = [stepB(x, y).item() for _ in warm]
+            reset_launch_counts()
+            got = [static_a(x, y).item() for _ in range(AMP_REPLAYS)]
+            launches_a = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+            want += [stepB(x, y).item() for _ in range(AMP_REPLAYS)]
+            wantA = {k: L * AMP_REPLAYS if k in ("K1", "K2", "K3") else 0
+                     for k in FLASH_COUNTERS}
+            check(launches_a == wantA, f"capture {level}: replays launched "
+                  f"{launches_a}, expected {wantA}")
+            same_a = _hold_twins(level, warm + got, want, A, B)
+            audit = None
+            if level == "O1":
+                paddle.set_flags({"FLAGS_low_precision_op_list": 1})
+                paddle.amp.clear_low_precision_op_list()
+                try:
+                    stepB(x, y)
+                    audit = paddle.amp.low_precision_op_list()
+                finally:
+                    paddle.set_flags({"FLAGS_low_precision_op_list": 0})
+                    paddle.amp.clear_low_precision_op_list()
+                check(audit.get("scaled_dot_product_attention") == L,
+                      f"capture O1: the audit saw {audit}")
+        print(f"capture {level}: float32 GPT-2 124M "
+              f"{'with a GradScaler ' if level == 'O1' else 'decorated O2 '}"
+              f"captured at call {len(warm)}, {AMP_REPLAYS} replays launched "
+              f"{launches_a} (K1-K3 in bf16); "
+              f"{'bitwise equal' if same_a else 'within the bar'}"
+              + (f"; one step's low_precision_op_list {audit}" if audit
+                 else ""), flush=True)
+        out[level] = {"launches": launches_a, "bitwise": same_a,
+                      "audit": audit}
+        free(static_a)
+    del A, B
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(_state.trace_ctx is None, "capture: a trace context leaked")
+    return out
+
+
 # --------------------------------------------------- phase 5: weight-only
 # Llama-3-8B's seven projections of a layer, (name, in_features K,
 # out_features N), as weight_only_linear stores them: [K, N]
@@ -4900,6 +5401,8 @@ def main():
     mark("spine")
     layer_phase(dev, card)
     mark("layer")
+    capture_phase(dev, card)
+    mark("capture")
     wo_lines, wo_launches = weight_only_phase(dev, card)
     mark("weight-only")
     kernels += wo_lines

@@ -77,7 +77,7 @@ def disable_signal_handler():
 # Subpackages load lazily (PEP 562) so `import paddle_tpu_torch` stays light
 # and the core never depends on higher layers.
 _LAZY = {
-    "nn", "optimizer", "jit", "distributed", "device", "models",
+    "nn", "optimizer", "amp", "jit", "distributed", "device", "models",
     "inference", "quantization", "observability", "testing",
 }
 

@@ -15,6 +15,10 @@ a tensor it saved; the reference raises on any second sweep.
 
 ``backward_split`` (the zero-bubble pipeline's deferred weight gradients)
 has no caller before pipeline parallelism (M12) and raises.
+
+Under a break-stitched echo pass (jit/to_static.py) ``backward`` is a
+no-op: the replayed program already produced every grad; the echo's
+placeholder tensors carry no tape.
 """
 from __future__ import annotations
 
@@ -37,6 +41,9 @@ def backward(tensors, grad_tensors=None, retain_graph=False,
              create_graph=False, defer_param_ids=None):
     """paddle.autograd.backward analog: accumulate into the ``.grad`` of
     every leaf that requires grad (and of tensors with retain_grads())."""
+    from ..core.dispatch import in_echo
+    if in_echo():
+        return None
     if defer_param_ids is not None:
         backward_split(tensors, grad_tensors, defer_param_ids)
     tensors = tensors if isinstance(tensors, (list, tuple)) else [tensors]

@@ -16,9 +16,13 @@ dispatch:
 The port's grad mode IS torch's (``torch.is_grad_enabled()``): one switch,
 so ``torch.no_grad()`` and ``paddle_tpu_torch.no_grad()`` are the same.
 
-``_State`` keeps the reference's slots.  Their owners (program capture,
-``jit.to_static``; autocast, ``amp``; ``static.program_guard``) are not
-ported: setting one to anything but its default raises.
+``_State`` keeps the reference's slots.  ``trace_ctx`` belongs to program
+capture (``jit.to_static``): while it is set, Tensor reads, writes,
+creation and host conversions go through it, and in its echo mode an op
+returns shape-only placeholders without running.  ``amp_state`` belongs to
+autocast (``amp``): while it is set, an op's float inputs are cast by the
+O1 / O2 lists.  ``static_record`` (``static.program_guard``) is not
+ported: setting it to anything but its default raises.
 """
 from __future__ import annotations
 
@@ -53,15 +57,24 @@ def _unported(slot, default, owner):
 
 
 class _State(threading.local):
-    trace_ctx = _unported("trace_ctx", None, "program capture (M5b, jit.to_static)")
-    amp_state = _unported("amp_state", None, "autocast (M5b, amp)")
     static_record = _unported("static_record", False, "static.program_guard (M13)")
 
     def __init__(self):
+        self.trace_ctx = None          # active program-capture context (jit/)
+        self.amp_state = None          # active autocast state (amp/)
         self.op_recorder = _metrics_recorder   # host-op instrumentation hook
 
 
 _state = _State()
+
+
+def in_echo() -> bool:
+    """True inside a break-stitched step's echo pass (``jit/to_static.py``):
+    the replayed program already did the step's work, so code that writes
+    state outside ``apply_op`` (an optimizer's update, a loss scaler)
+    returns without doing it."""
+    tc = _state.trace_ctx
+    return tc is not None and tc.mode == "echo"
 
 
 class _FanoutRecorder:
@@ -123,8 +136,13 @@ def set_grad_enabled(mode: bool) -> bool:
 
 
 def unwrap(x):
-    """Tensor -> underlying torch tensor."""
-    return x._buf if isinstance(x, Tensor) else x
+    """Tensor -> underlying torch tensor (trace-aware read)."""
+    if isinstance(x, Tensor):
+        tc = _state.trace_ctx
+        if tc is not None:
+            return tc.on_read(x)
+        return x._buf
+    return x
 
 
 def _requires_grad(args) -> bool:
@@ -162,13 +180,32 @@ def apply_op(name: str, fn: Callable, *inputs, out_treedef_hint=None):
         try:
             return _apply_op_inner(name, fn, *inputs)
         finally:
-            rec.record(name, time.perf_counter() - t0, amp=False,
-                       lifted=False, taped=_requires_grad(inputs))
+            # facts the registry aggregates (autocast/tape/lift counts) are
+            # re-derived here, on the instrumented path only, so the fast
+            # path stays untouched
+            rec.record(name, time.perf_counter() - t0,
+                       amp=_state.amp_state is not None,
+                       lifted=_state.trace_ctx is not None,
+                       taped=_requires_grad(inputs))
     return _apply_op_inner(name, fn, *inputs)
 
 
 def _apply_op_inner(name, fn, *inputs):
-    arrays = tuple(a._buf if isinstance(a, Tensor) else a for a in inputs)
+    tc = _state.trace_ctx
+    if tc is None:
+        arrays = tuple(a._buf if isinstance(a, Tensor) else a for a in inputs)
+    elif tc.mode == "echo":
+        # break-stitched replay (jit/to_static.py): the captured program
+        # already ran; hand back shape-only placeholders with zero compute
+        return tc.on_op_echo(name, inputs)
+    else:
+        # spy or capture: reads go through the context, which records
+        # them (spy) or checks them against the spy's (capture)
+        arrays = tuple(tc.on_read(a) if isinstance(a, Tensor) else a
+                       for a in inputs)
+    if _state.amp_state is not None:
+        from ..amp import maybe_cast_inputs
+        arrays = maybe_cast_inputs(name, arrays)
     taped = _requires_grad(inputs)
     try:
         if taped or not torch.is_grad_enabled():
@@ -184,6 +221,10 @@ def _apply_op_inner(name, fn, *inputs):
     if flags.flag("check_nan_inf"):
         _check_nan_inf(name, outs_t)
     wrapped = [_wrap_out(o, arrays, taped) for o in outs_t]
+    if tc is not None:
+        # op-tape hook: the capture records each dispatch so the echo pass
+        # of a break-stitched signature can validate + placeholder it
+        tc.on_op(name, single, wrapped)
     return wrapped[0] if single else tuple(wrapped)
 
 

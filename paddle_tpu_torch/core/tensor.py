@@ -23,6 +23,13 @@ reference does over immutable jax arrays, so no torch in-place op touches
 a leaf that requires grad.  A trainable leaf stays one across a rebind
 made without a graph (an optimizer update under ``no_grad``), keeping its
 accumulated gradient and hooks.
+
+State access routes through the active program-capture context
+(``dispatch._state.trace_ctx``, set by ``jit.to_static``) as the
+reference's does: ``_data`` reads and writes, ``.grad`` reads and writes,
+creation, and the host conversions (``bool`` / ``int`` are value guards,
+``float`` / ``numpy`` stitched breaks).  Without a context each access
+costs one ``None`` check.
 """
 from __future__ import annotations
 
@@ -70,6 +77,9 @@ def _wrap(buf: torch.Tensor) -> "Tensor":
     t._retain_grad = False
     t._hooks = None
     t._replay_node = None
+    tc = _state.trace_ctx
+    if tc is not None:
+        tc.on_create(t)
     return t
 
 
@@ -102,15 +112,25 @@ class Tensor:
         self._hooks: Optional[list] = None
         if not stop_gradient:
             self.stop_gradient = False
+        tc = _state.trace_ctx
+        if tc is not None:
+            tc.on_create(self)
 
     # -- data access: reads return the buffer; writes rebind it (see the
-    # module docstring)
+    # module docstring).  Under program capture (paddle_tpu_torch.jit)
+    # both go through the context first.
     @property
     def _data(self):
+        tc = _state.trace_ctx
+        if tc is not None:
+            return tc.on_read(self)
         return self._buf
 
     @_data.setter
     def _data(self, value):
+        tc = _state.trace_ctx
+        if tc is not None and tc.on_write(self, value):
+            return
         old = self._buf
         new = value if isinstance(value, torch.Tensor) else torch.as_tensor(
             np.asarray(value), device=old.device)
@@ -164,6 +184,13 @@ class Tensor:
 
     @property
     def grad(self):
+        tc = _state.trace_ctx
+        if tc is not None:
+            return tc.on_grad_read(self)
+        return self._grad_value()
+
+    def _grad_value(self):
+        """``.grad`` as the eager reader sees it (the contexts read it so)."""
         b = self._buf
         if b.grad_fn is not None and not b.retains_grad:
             return None
@@ -178,6 +205,9 @@ class Tensor:
 
     @grad.setter
     def grad(self, value):
+        tc = _state.trace_ctx
+        if tc is not None and tc.on_grad_write(self, value):
+            return
         self._buf.grad = None if value is None else (
             value._buf if isinstance(value, Tensor) else torch.as_tensor(
                 np.asarray(value), dtype=self._buf.dtype,
@@ -228,7 +258,16 @@ class Tensor:
     # ---- host interop --------------------------------------------------------
     def numpy(self) -> np.ndarray:
         """Host copy.  bfloat16 and float8 come back as float32 with the
-        values exact: the card's machine has no ``ml_dtypes``."""
+        values exact: the card's machine has no ``ml_dtypes``.  Under
+        program capture this is a stitched BREAK event (jit/to_static.py):
+        the captured program writes the value into a static output, and the
+        per-call echo pass hands the caller the true array."""
+        tc = _state.trace_ctx
+        if tc is not None:
+            return tc.on_materialize(self)
+        return self._host()
+
+    def _host(self) -> np.ndarray:
         b = self._buf.detach()
         if b.dtype in (dtypes.bfloat16, dtypes.float8_e4m3fn,
                        dtypes.float8_e5m2):
@@ -246,20 +285,36 @@ class Tensor:
             raise TypeError("len() of a 0-D tensor")
         return self._buf.shape[0]
 
+    def _convert_scalar(self, kind, caster):
+        """Host scalar conversion.  Under program capture this is a GUARD
+        point (bool / int: the captured program writes the value into a
+        static output and the runtime re-specializes when a call's value
+        diverges) or a BREAK (float), see jit/to_static.py."""
+        tc = _state.trace_ctx
+        if tc is not None:
+            return tc.on_scalar(self, kind, caster)
+        return caster(self._buf.detach())
+
     def __bool__(self) -> bool:
-        return bool(self._buf)
+        return self._convert_scalar("bool", bool)
 
     def __int__(self) -> int:
-        return int(self._buf)
+        return self._convert_scalar("int", int)
 
     def __float__(self) -> float:
-        return float(self._buf)
+        # a float guard would re-specialize on every distinct value, so under
+        # capture this is a stitched BREAK (the value rides out of the
+        # program; the echo pass returns the true per-call float)
+        return self._convert_scalar("float", float)
 
     def __index__(self) -> int:
-        return int(self._buf)
+        return self._convert_scalar("int", int)
 
     def __format__(self, spec):
         if self.ndim == 0:
+            tc = _state.trace_ctx
+            if tc is not None:
+                return format(np.asarray(tc.on_materialize(self)).item(), spec)
             return format(self.item(), spec)
         return str(self)
 
@@ -302,6 +357,9 @@ class Tensor:
         self._attach_hooks()
 
     def clear_grad(self, set_to_zero: bool = False):
+        tc = _state.trace_ctx
+        if tc is not None and tc.on_grad_write(self, None):
+            return
         b = self._buf
         if b.grad_fn is not None and not b.retains_grad:
             return
@@ -315,7 +373,7 @@ class Tensor:
         self.clear_grad(set_to_zero)
 
     def detach(self) -> "Tensor":
-        t = _wrap(self._buf.detach())
+        t = _wrap(self._data.detach())
         t.name = self.name
         return t
 
@@ -416,3 +474,6 @@ class Parameter(Tensor):
 
     def __repr__(self):
         return "Parameter containing:\n" + super().__repr__()
+
+
+from .dispatch import _state  # noqa: E402  (dispatch imports this module)

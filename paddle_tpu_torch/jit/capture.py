@@ -26,6 +26,18 @@ then
 Outputs are copied out before ``run`` returns (a device clone, or the host
 copy the caller asked for): a later replay never overwrites a tensor a
 caller holds.  A capture that fails raises; nothing retries it eagerly.
+:meth:`CapturedProgram.launch` runs the program on its buffers as they
+stand and hands back its outputs uncopied, for an owner that stages its
+inputs and reads its outputs itself (``jit.to_static``).
+
+A body may also read and write external state in place (parameters,
+optimizer moments, gradients) beside its staged inputs.  Running such a
+body twice would apply its writes twice, so a program made with
+``warm=False`` does not run its body before the capture: the first call
+captures, then replays the graph once for its result (its owner warms
+what the capture needs beforehand, as the spy call of ``to_static``
+does).  ``generators`` are registered with the graph, so that each
+replay draws fresh numbers from them instead of replaying the capture's.
 :meth:`CapturedProgram.run_eager` runs the body (or a variant of it, on
 the same buffers) uncaptured, for a dispatch the graph cannot serve, and
 counts it.
@@ -101,12 +113,16 @@ class CapturedProgram:
     tensors computed from ``buffers`` (name -> static input tensor, all on
     one device).  ``pool``: the graph memory pool (:func:`graph_pool`)."""
 
-    def __init__(self, body, buffers, pool=None, name="program"):
+    def __init__(self, body, buffers, pool=None, name="program", warm=True,
+                 device=None, generators=()):
         self.body = body
         self.buffers = buffers
         self.pool = pool
         self.name = name
-        self.device = next(iter(buffers.values())).device
+        self.warm = warm
+        self.generators = tuple(generators)
+        self.device = torch.device(device) if device is not None else \
+            next(iter(buffers.values())).device
         self.graph = None
         self.outputs = None          # the graph's static outputs
         self.launches = {}           # counter -> launches a replay makes
@@ -153,22 +169,26 @@ class CapturedProgram:
         outs = tuple(t.cpu() if host else t.clone() for t in outs)
         return outs[0] if one else outs
 
+    def launch(self):
+        """Run the program on its buffers as they stand; returns its
+        outputs as the body made them (on the card the graph's static
+        outputs, which the next replay overwrites)."""
+        self.runs += 1
+        if self.device.type != "cuda":
+            return self.body(self.buffers)
+        if self.graph is None:
+            return self._capture()
+        self.graph.replay()
+        _counts.add(_COUNTERS, self.launches)
+        self.replays += 1
+        return self.outputs
+
     def run(self, inputs, host=False, take=None):
         """Stage ``inputs`` ({name: value}) and run the program; returns
         copies of its outputs (on the host with ``host``; with ``take``,
         of output ``take`` alone)."""
         self._stage(inputs)
-        self.runs += 1
-        if self.device.type != "cuda":
-            out = self.body(self.buffers)
-        elif self.graph is None:
-            out = self._capture()
-        else:
-            self.graph.replay()
-            _counts.add(_COUNTERS, self.launches)
-            self.replays += 1
-            out = self.outputs
-        return self._copy_out(out, host, take)
+        return self._copy_out(self.launch(), host, take)
 
     def run_eager(self, inputs, body=None, host=False, take=None):
         """Stage ``inputs`` and run ``body`` (default: the program's own)
@@ -178,20 +198,31 @@ class CapturedProgram:
         return self._copy_out((body or self.body)(self.buffers), host, take)
 
     def _capture(self):
-        """Run the body on the side stream (this call's result), then
-        capture it there, in the device's turn.  The capture's kernels do
-        not run: the launches its thread counted are kept as those of one
-        replay, off the counters."""
+        """Run the body on the side stream (this call's result; not with
+        ``warm=False``), then capture it there, in the device's turn.  The
+        capture's kernels do not run: the launches its thread (or its
+        stream) counted are kept as those of one replay, off the counters.
+        With ``warm=False`` the call's result is one replay of the new
+        graph."""
         t0 = time.perf_counter()
         with _capture_lock(self.device):
             t_turn = time.perf_counter()
             main = torch.cuda.current_stream(self.device)
             side = _capture_stream(self.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                out = self.body(self.buffers)
-            main.wait_stream(side)
+            if self.warm:
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    out = self.body(self.buffers)
+                main.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
+            for gen in self.generators:
+                register = getattr(graph, "register_generator_state", None)
+                if register is None:
+                    raise RuntimeError(
+                        f"{self.name}: this torch cannot register a "
+                        "generator with a CUDA graph, so its replays would "
+                        "repeat the capture's random draws")
+                register(gen)
             # no cyclic collection while capturing (torch.cuda.graph
             # collects once before it begins): a collection inside the
             # body could free a dead engine's graph, whose destruction is
@@ -199,7 +230,7 @@ class CapturedProgram:
             collect = gc.isenabled()
             gc.disable()
             try:
-                with _counts.recording() as tally:
+                with _counts.recording(side) as tally:
                     with torch.cuda.graph(graph, pool=self.pool, stream=side,
                                           capture_error_mode="thread_local"):
                         outputs = self.body(self.buffers)
@@ -208,6 +239,10 @@ class CapturedProgram:
                     gc.enable()
             self.launches = {k: n for k, n in tally.items() if n}
             self.graph, self.outputs = graph, outputs
+            if not self.warm:
+                graph.replay()
+                _counts.add(_COUNTERS, self.launches)
+                out = outputs
             torch.cuda.synchronize(self.device)
         self.captures += 1
         self.capture_wait_s += t_turn - t0

@@ -140,7 +140,7 @@ def _invert(self):
 
 
 def _cmp_method(name, tfn):
-    f = _tensors(tfn)
+    f = _tensors(tfn, host_scalars=True)
 
     def m(self, other):
         return apply_op(name, f, self, other)

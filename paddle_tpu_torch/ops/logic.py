@@ -11,7 +11,7 @@ from .math import _tensors
 
 def _cmp(name, tfn):
     # through dispatch; bool outputs get stop_gradient=True automatically
-    f = _tensors(tfn)
+    f = _tensors(tfn, host_scalars=True)
 
     def op(x, y, name_=None):
         return apply_op(name, f, x, y)

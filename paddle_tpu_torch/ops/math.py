@@ -19,25 +19,28 @@ from ..core import dtype as dtypes
 from ..core.dispatch import apply_op, unwrap
 
 
-def _operand(v, like):
+def _operand(v, like, host_scalar=False):
     """A non-tensor operand of a binary op as a tensor on ``like``'s device:
     Python scalars as 0-d tensors (weakly typed), arrays narrowed to 32
-    bits."""
+    bits.  With ``host_scalar`` a Python scalar stays a 0-d tensor on the
+    host, which torch's elementwise kernels read as a scalar argument: no
+    copy to the card, so the op can be captured into a CUDA graph."""
     dev = like.device if isinstance(like, torch.Tensor) else None
     if isinstance(v, (bool, int, float, builtins.complex)):
-        return torch.tensor(v, device=dev)
+        return torch.tensor(v, device=None if host_scalar else dev)
     t = torch.as_tensor(np.asarray(v), device=dev)
     narrow = dtypes.NARROW.get(t.dtype)
     return t.to(narrow) if narrow is not None else t
 
 
-def _tensors(fn):
-    """fn over two tensors, either operand given as a scalar or array."""
+def _tensors(fn, host_scalars=False):
+    """fn over two tensors, either operand given as a scalar or array
+    (``host_scalars``: for an elementwise fn, see :func:`_operand`)."""
     def f(a, b):
         if not isinstance(a, torch.Tensor):
-            a = _operand(a, b)
+            a = _operand(a, b, host_scalars)
         if not isinstance(b, torch.Tensor):
-            b = _operand(b, a)
+            b = _operand(b, a, host_scalars)
         return fn(a, b)
     return f
 
@@ -133,7 +136,7 @@ isreal = _unary("isreal", torch.isreal)
 
 # ---- elementwise binary ------------------------------------------------------
 def _binary(name, tfn):
-    f = _tensors(tfn)
+    f = _tensors(tfn, host_scalars=True)
 
     def op(x, y, name_=None):
         return apply_op(name, f, x, y)

@@ -8,6 +8,10 @@ gradient is the leaf's ``.grad`` (a port parameter's ``.grad`` is a
 ``Tensor`` over it).  ``step`` clips over all groups at once, so a
 global-norm clip sees the true global norm.
 
+``step`` writes state outside ``apply_op``, so inside the echo pass of a
+break-stitched ``jit.to_static`` step (``core.dispatch.in_echo``) it does
+nothing: the replayed program already stepped.
+
 The optimizer's state is Tensors on the parameters' device, as in the
 reference, so a captured step reads and advances it there: the learning
 rate ``_lr_t`` (a 0-d float32 tensor; ``set_lr`` and a bound
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from ..core.device import current_device
-from ..core.dispatch import unwrap
+from ..core.dispatch import in_echo, unwrap
 from ..core.tensor import Parameter, Tensor, _wrap
 
 __all__ = ["Optimizer", "L1Decay", "L2Decay"]
@@ -143,6 +147,8 @@ class Optimizer:
     # ---- step ----------------------------------------------------------------
     @torch.no_grad()
     def step(self):
+        if in_echo():        # the replayed program already stepped
+            return
         lr = self._lr_t._data
         # clip over ALL groups at once so ClipGradByGlobalNorm sees the true
         # global norm (reference: Optimizer._create_optimization_pass clips the

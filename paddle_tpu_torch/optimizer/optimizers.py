@@ -275,7 +275,17 @@ class LBFGS(Optimizer):
 
     @torch.no_grad()
     def step(self, closure=None):
-        """Simplified two-loop-recursion L-BFGS (eager-only; host control flow)."""
+        """Simplified two-loop-recursion L-BFGS (eager-only; host control
+        flow: under ``jit.to_static`` capture it is a graph break, and the
+        step stays eager)."""
+        from ..core.dispatch import _state
+        tc = _state.trace_ctx
+        if tc is not None and tc.mode == "echo":
+            return
+        if tc is not None and tc.mode == "capture":
+            from ..jit.to_static import GraphBreak
+            raise GraphBreak("LBFGS.step reads its line of history on the "
+                             "host")
         if closure is not None:
             with torch.enable_grad():
                 closure()

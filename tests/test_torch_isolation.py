@@ -44,6 +44,10 @@ def _imported_roots(path):
 
 def test_port_files_import_no_jax_and_nothing_of_the_jax_package():
     assert len(PORT_FILES) > 20
+    # autocast and train-step capture are among them
+    assert {REPO / "paddle_tpu_torch" / "amp" / "__init__.py",
+            REPO / "paddle_tpu_torch" / "jit" / "to_static.py",
+            REPO / "paddle_tpu_torch" / "jit" / "__init__.py"} <= set(PORT_FILES)
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
                                             & set(FORBIDDEN))
            for p in PORT_FILES}
@@ -55,6 +59,8 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.inference.serving\n"
             "import paddle_tpu_torch.inference.engine.disagg\n"
             "import paddle_tpu_torch.jit\n"
+            "import paddle_tpu_torch.jit.to_static\n"
+            "import paddle_tpu_torch.amp\n"
             "import paddle_tpu_torch.models.convert\n"
             "import paddle_tpu_torch.models.gpt2\n"
             "import paddle_tpu_torch.models.gpt2_module\n"

@@ -305,15 +305,29 @@ def test_dispatch_families_count_tensor_adds():
 
 
 def test_unported_state_slots_raise():
+    """``trace_ctx`` and ``amp_state`` take their owners' objects (a
+    ``jit.to_static`` capture context, an ``amp`` autocast state) and give
+    them back; ``static_record`` (M13's ``static.program_guard``) still
+    refuses anything but its default."""
+    from paddle_tpu_torch import amp
     from paddle_tpu_torch.core import dispatch
+    from paddle_tpu_torch.jit.to_static import _SpyContext
     assert dispatch._state.trace_ctx is None
     assert dispatch._state.amp_state is None
     assert dispatch._state.static_record is False
-    dispatch._state.trace_ctx = None          # the default is accepted
-    with pytest.raises(NotImplementedError, match="M5b"):
-        dispatch._state.trace_ctx = object()
-    with pytest.raises(NotImplementedError, match="amp"):
-        dispatch._state.amp_state = object()
+    ctx = _SpyContext()
+    dispatch._state.trace_ctx = ctx
+    try:
+        assert dispatch._state.trace_ctx is ctx
+        x = tp.to_tensor([1.0, 2.0])          # created under the context
+        assert id(x) in ctx.created and not ctx.reads
+    finally:
+        dispatch._state.trace_ctx = None
+    with amp.auto_cast(level="O1"):
+        st = dispatch._state.amp_state
+        assert isinstance(st, amp.AmpState) and st is amp.amp_state()
+    assert dispatch._state.amp_state is None
+    dispatch._state.static_record = False     # the default is accepted
     with pytest.raises(NotImplementedError, match="program_guard"):
         dispatch._state.static_record = True
 
