@@ -85,6 +85,7 @@ _LAZY_ATTRS = {
     "CPUPlace": ("paddle_tpu_torch.core.device", "Place"),
     "get_default_generator": ("paddle_tpu_torch.core.rng", "default_generator"),
     "ParamAttr": ("paddle_tpu_torch.nn.initializer", "ParamAttr"),
+    "linalg": ("paddle_tpu_torch.ops", "linalg"),
 }
 
 

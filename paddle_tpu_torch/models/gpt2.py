@@ -11,8 +11,10 @@ through ``set_state_dict`` unchanged.  Attention is
 ``FLAGS_flash_layout_direct``).  The chunked loss is one ``apply_op`` of
 :func:`_chunked_lm_loss_body`, which the ``torch.nn`` model of
 :mod:`.gpt2_module` calls on torch tensors directly.  Not ported yet:
-``use_recompute`` (``fleet.recompute``, M12) and ``generate`` (``ops.topk``
-/ ``ops.multinomial``, M13), which raise.
+``use_recompute`` (``fleet.recompute``, M12), which raises.  ``generate``
+is the reference's loop (``ops.topk``, ``ops.multinomial``): each step
+runs the whole context, so only a context of a multiple of 128 tokens
+takes the flash kernels.
 """
 from __future__ import annotations
 
@@ -243,9 +245,23 @@ class GPT2ForCausalLM(Layer):
         return logits
 
     def generate(self, input_ids, max_new_tokens=20, temperature=1.0, top_k=None):
-        raise NotImplementedError(
-            "generate needs ops.topk and ops.multinomial (ops/search.py, "
-            "ops/random.py), which the port does not have yet (M13)")
+        from .. import no_grad
+        out = input_ids
+        with no_grad():
+            self.eval()
+            for _ in range(max_new_tokens):
+                ctx = out if out.shape[1] <= self.config.max_position_embeddings \
+                    else out[:, -self.config.max_position_embeddings:]
+                logits = self.forward(ctx)
+                nxt = logits[:, -1, :] / temperature
+                if top_k is not None:
+                    v, _ = ops.topk(nxt, top_k)
+                    nxt = ops.where(nxt < v[:, -1:], ops.full_like(nxt, -1e30), nxt)
+                probs = F.softmax(nxt, axis=-1)
+                token = ops.multinomial(probs, 1)
+                out = ops.concat([out, token], axis=1)
+        return out
+
 
 
 def gpt2_small():

@@ -1,9 +1,8 @@
 """paddle.nn surface: counterpart of ``paddle_tpu/nn/__init__.py``
 (reference: python/paddle/nn/__init__.py): ``Layer`` and the layers of
 ``layer/``, the functionals, the initializers and ``ParamAttr``, gradient
-clipping, and ``quant``, the weight-only functions serving uses.  Not
-ported yet: ``nn.utils`` and the layer modules ``layer/__init__.py``
-names."""
+clipping, ``utils``, and ``quant``, the weight-only functions serving
+uses.  Not ported yet: the layer modules ``layer/__init__.py`` names."""
 from .layer import *  # noqa: F401,F403
 from .layer.layers import Layer  # noqa: F401
 from . import functional  # noqa: F401
@@ -12,3 +11,4 @@ from . import quant  # noqa: F401
 from .initializer import ParamAttr  # noqa: F401
 from .clip import (ClipGradByValue, ClipGradByNorm, ClipGradByGlobalNorm,  # noqa: F401
                    clip_grad_norm_, clip_grad_value_)
+from . import utils  # noqa: F401

@@ -173,10 +173,6 @@ class PairwiseDistance(Layer):
 
     def forward(self, x, y):
         from ... import ops
-        if not hasattr(ops, "norm"):
-            raise NotImplementedError(
-                "PairwiseDistance needs ops.norm (ops/linalg.py), which the "
-                "port does not have yet (M13)")
         return ops.norm(x - y + self.epsilon, p=self.p, axis=-1, keepdim=self.keepdim)
 
 

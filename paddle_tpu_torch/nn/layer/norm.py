@@ -167,12 +167,56 @@ class LocalResponseNorm(Layer):
 
 
 class SpectralNorm(Layer):
-    """W / sigma(W) by power iteration (reference: nn/layer/norm.py
-    SpectralNorm:1272): its norms need ops/linalg.py, which the port does not
-    have yet (M13), so it is refused."""
+    """W / sigma(W) via power iteration (reference: nn/layer/norm.py
+    SpectralNorm:1272; phi spectral_norm kernel). forward(weight) -> weight
+    normalized by its leading singular value; u/v persist as buffers and the
+    power iterations run under stop_gradient (matching the reference kernel,
+    which treats u/v as constants in the backward)."""
 
     def __init__(self, weight_shape, dim=0, power_iters=1, epsilon=1e-12,
                  name=None, dtype="float32"):
-        raise NotImplementedError(
-            "SpectralNorm needs ops/linalg.py, which the port does not have "
-            "yet (M13)")
+        super().__init__()
+        self._dim = dim
+        self._power_iters = power_iters
+        self._eps = epsilon
+        self._shape = list(weight_shape)
+        h = int(weight_shape[dim])
+        w = int(np.prod(weight_shape)) // h
+        import torch
+        from ...core.device import current_device
+        from ...core.dtype import convert_dtype
+        from ...core.rng import next_generator
+        dev = current_device()
+        gen = next_generator(dev)
+        dt = convert_dtype(dtype)
+        u = torch.randn(h, generator=gen, device=dev)
+        v = torch.randn(w, generator=gen, device=dev)
+        self.register_buffer("weight_u",
+                             Tensor((u / torch.linalg.vector_norm(u)).to(dt)))
+        self.register_buffer("weight_v",
+                             Tensor((v / torch.linalg.vector_norm(v)).to(dt)))
+
+    def forward(self, x):
+        from ...core.dispatch import apply_op, unwrap
+        import torch
+        dim, iters, eps = self._dim, self._power_iters, self._eps
+
+        def f(w0, u0, v0):
+            perm = [dim] + [i for i in range(w0.ndim) if i != dim]
+            # iterate in f32 for stability; return in the weight's dtype
+            m = w0.permute(perm).reshape(w0.shape[dim], -1).float()
+            u, v = u0.float(), v0.float()
+            with torch.no_grad():
+                for _ in range(iters):
+                    v = m.T @ u
+                    v = v / (torch.linalg.vector_norm(v) + eps)
+                    u = m @ v
+                    u = u / (torch.linalg.vector_norm(u) + eps)
+            sigma = (u @ (m @ v)).to(w0.dtype)
+            return w0 / sigma, u.to(u0.dtype), v.to(v0.dtype)
+
+        out, u2, v2 = apply_op("spectral_norm", f, x, self.weight_u,
+                               self.weight_v)
+        self.weight_u._data = unwrap(u2)
+        self.weight_v._data = unwrap(v2)
+        return out

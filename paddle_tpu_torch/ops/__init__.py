@@ -4,7 +4,9 @@
 Reference analog: the monkey-patch of generated methods onto the eager Tensor type
 (python/paddle/base/dygraph/math_op_patch.py + tensor/__init__.py method lists).
 The method lists are the reference's; a name whose op this package does not
-define yet is skipped, as the reference's ``getattr(mod, name, None)`` does.
+define yet (those of the reference's ``math_extra``, ``manip_extra`` and
+``linalg_extra``) is skipped, as the reference's ``getattr(mod, name,
+None)`` does.
 
 The hand-written CUDA kernels' wrappers sit beside the op modules, each in
 its own module (``flash_attention``, ``paged_attention``,
@@ -20,11 +22,17 @@ import torch
 
 from ..core.tensor import Tensor
 from ..core.dispatch import apply_op, unwrap
-from . import creation, math, manipulation, logic
+from . import (creation, math, manipulation, logic, linalg, search, random,
+               stat)
 from .creation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
 from .logic import *  # noqa: F401,F403
+from .linalg import *  # noqa: F401,F403
+from .search import *  # noqa: F401,F403
+from .random import *  # noqa: F401,F403
+from .stat import *  # noqa: F401,F403
+from .einsum_op import einsum  # noqa: F401
 from .math import _operand, _tensors
 
 # aliases of these modules' ops that the reference defines in its
@@ -314,6 +322,9 @@ def _install():
     Tensor.floor_mod_ = Tensor.mod_
     mod.floor_mod_ = mod.remainder_
     Tensor.set_ = _set_
+    for name in ("uniform_", "normal_", "exponential_", "bernoulli_",
+                 "cauchy_", "geometric_", "log_normal_"):
+        setattr(Tensor, name, getattr(random, name))
     Tensor.fill_ = _fill_
     Tensor.zero_ = _zero_
     Tensor.set_value = _set_value

@@ -44,10 +44,17 @@ def _imported_roots(path):
 
 def test_port_files_import_no_jax_and_nothing_of_the_jax_package():
     assert len(PORT_FILES) > 20
-    # autocast and train-step capture are among them
-    assert {REPO / "paddle_tpu_torch" / "amp" / "__init__.py",
-            REPO / "paddle_tpu_torch" / "jit" / "to_static.py",
-            REPO / "paddle_tpu_torch" / "jit" / "__init__.py"} <= set(PORT_FILES)
+    # autocast and train-step capture, and M2's rest, are among them
+    port = REPO / "paddle_tpu_torch"
+    assert {port / "amp" / "__init__.py", port / "jit" / "to_static.py",
+            port / "jit" / "__init__.py", port / "models" / "ernie.py",
+            port / "nn" / "utils" / "__init__.py"} | {
+        port / "ops" / f"{m}.py" for m in ("search", "stat", "random",
+                                            "linalg", "einsum_op")} | {
+        port / "nn" / kind / f"{m}.py" for kind in ("layer", "functional")
+        for m in ("conv", "pooling")} | {
+        port / "nn" / "layer" / "transformer.py",
+        port / "nn" / "functional" / "rope.py"} <= set(PORT_FILES)
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
                                             & set(FORBIDDEN))
            for p in PORT_FILES}
@@ -81,6 +88,19 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.autograd.functional\n"
             "import paddle_tpu_torch.device\n"
             "import paddle_tpu_torch.nn.functional.attention\n"
+            "import paddle_tpu_torch.ops.search\n"
+            "import paddle_tpu_torch.ops.stat\n"
+            "import paddle_tpu_torch.ops.random\n"
+            "import paddle_tpu_torch.ops.linalg\n"
+            "import paddle_tpu_torch.ops.einsum_op\n"
+            "import paddle_tpu_torch.nn.layer.transformer\n"
+            "import paddle_tpu_torch.nn.layer.conv\n"
+            "import paddle_tpu_torch.nn.layer.pooling\n"
+            "import paddle_tpu_torch.nn.functional.conv\n"
+            "import paddle_tpu_torch.nn.functional.pooling\n"
+            "import paddle_tpu_torch.nn.functional.rope\n"
+            "import paddle_tpu_torch.nn.utils\n"
+            "import paddle_tpu_torch.models.ernie\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -340,20 +360,13 @@ def _unported(case):
         nn.Embedding(8, 4, sparse=True)(ids)
     elif case == "sync_batch_norm":
         nn.SyncBatchNorm(4)
-    elif case == "spectral_norm":
-        nn.SpectralNorm([4, 4])
-    elif case == "pairwise_distance":
-        nn.PairwiseDistance()(paddle.ones([2, 3]), paddle.zeros([2, 3]))
     elif case == "gpt2_use_recompute":
         gpt2.GPT2ForCausalLM(gpt2.GPT2Config(use_recompute=True, **cfg))(ids)
-    elif case == "gpt2_generate":
-        gpt2.GPT2ForCausalLM(gpt2.GPT2Config(**cfg)).generate(ids)
 
 
 @pytest.mark.parametrize("case,what", [
     ("embedding_sparse", "SelectedRows"), ("sync_batch_norm", "M12"),
-    ("spectral_norm", "M13"), ("pairwise_distance", "M13"),
-    ("gpt2_use_recompute", "fleet.recompute"), ("gpt2_generate", "topk")])
+    ("gpt2_use_recompute", "fleet.recompute")])
 def test_unported_nn_options_are_refused(case, what):
     """The options of the Layer slice whose modules are not ported yet
     refuse, naming what they wait for, and never run some other way."""
@@ -386,5 +399,45 @@ def test_layers_and_optimizers_need_the_card_or_an_explicit_cpu(no_cuda):
         opt = paddle.optimizer.AdamW(parameters=lin.parameters())
         assert lin.weight.place.is_cpu_place()
         assert opt._lr_t.place.is_cpu_place()
+    finally:
+        core_device._current_device = prev
+
+
+def _m2_entry(case):
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.models import ernie
+    from paddle_tpu_torch.nn.functional import rope
+    if case == "ernie":
+        ernie.ErnieForMaskedLM(ernie.ErnieConfig.tiny())
+    elif case == "multi_head_attention":
+        nn.MultiHeadAttention(16, 2)
+    elif case == "conv2d":
+        nn.Conv2D(3, 4, 3)
+    elif case == "spectral_norm":
+        nn.SpectralNorm([4, 4])
+    elif case == "rand":
+        paddle.rand([4])
+    elif case == "randint":
+        paddle.randint(0, 5, [4])
+    elif case == "rotary_sin_cos":
+        rope.rotary_embedding_sin_cos(8, 4)
+
+
+@pytest.mark.parametrize("case", ["ernie", "multi_head_attention", "conv2d",
+                                  "spectral_norm", "rand", "randint",
+                                  "rotary_sin_cos"])
+def test_m2_entry_points_need_the_card_or_an_explicit_cpu(no_cuda, case):
+    """The models, layers and random ops of M2's rest make their tensors on
+    the current place: without CUDA they raise unless the caller asked for
+    the CPU, and with ``set_device("cpu")`` they run there."""
+    from paddle_tpu_torch.core import device as core_device
+    prev = core_device._current_device
+    core_device._current_device = None
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            _m2_entry(case)
+        core_device._current_device = torch.device("cpu")
+        _m2_entry(case)
     finally:
         core_device._current_device = prev

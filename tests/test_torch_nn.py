@@ -255,10 +255,6 @@ class TestLayers:
             nn.SyncBatchNorm(4)
         with pytest.raises(NotImplementedError, match="M12"):
             nn.SyncBatchNorm.convert_sync_batchnorm(nn.BatchNorm1D(4))
-        with pytest.raises(NotImplementedError, match="M13"):
-            nn.SpectralNorm([4, 4])
-        with pytest.raises(NotImplementedError, match="M13"):
-            nn.PairwiseDistance()(tp.ones([2, 3]), tp.zeros([2, 3]))
         w = nn.Embedding(10, 4, sparse=True)
         with pytest.raises(NotImplementedError, match="SelectedRows"):
             w(_t(np.array([1, 2])))
@@ -755,26 +751,25 @@ DIVERGENT = {
         statement("from ...core.tensor import Tensor, Parameter, _host_buf"),
         "Layer.add_parameter", "Layer.register_buffer",
         "Layer.set_state_dict", "Layer.to"},
-    # the padding row zeroed in place; PairwiseDistance refuses until
-    # ops.norm is ported (M13)
-    "nn/layer/common.py": {statement("import torch"), "Embedding.__init__",
-                           "PairwiseDistance.forward"},
-    # buffers from numpy; SyncBatchNorm (M12) and SpectralNorm (M13) refuse
+    # the padding row zeroed in place
+    "nn/layer/common.py": {statement("import torch"), "Embedding.__init__"},
+    # buffers from numpy; SyncBatchNorm (M12) refuses; SpectralNorm draws
+    # u / v on the port's generator and iterates in torch
     "nn/layer/norm.py": {
         statement("import jax.numpy as jnp"), "_BatchNormBase.__init__",
         "SyncBatchNorm", "SyncBatchNorm.__init__",
-        "SyncBatchNorm.convert_sync_batchnorm", "SpectralNorm",
+        "SyncBatchNorm.convert_sync_batchnorm",
         "SpectralNorm.__init__", "SpectralNorm.forward"},
     # a scheduler fills the bound optimizers' learning-rate tensor in place
     "optimizer/lr.py": {"__doc__", "LRScheduler.step", "ReduceOnPlateau.step"},
-    # the Layer GPT-2: the loss body is torch's; recompute and generate
-    # refuse until fleet.recompute (M12) and ops.topk / multinomial (M13)
+    # the Layer GPT-2: the loss body is torch's; recompute refuses until
+    # fleet.recompute (M12)
     "models/gpt2.py": {
         "__doc__", statement("import torch"),
         statement("import torch.nn.functional as TF"),
         statement("from torch.utils.checkpoint import checkpoint"),
         "GPT2Model.forward", "_chunk_loss", "_chunked_lm_loss_body",
-        "_chunked_lm_loss", "GPT2ForCausalLM.generate"},
+        "_chunked_lm_loss"},
 }
 
 
