@@ -193,7 +193,25 @@ Phases (any failure raises and the script exits non-zero):
    ids move nothing, no K1 launch); a conv / pool stem in float32 held to
    the CPU; and the Layer GPT-2 124M's ``generate`` in float32 (greedy
    token-exact with the ``torch.nn`` model, K1 launched 12 times, top-k
-   sampling repeatable and inside the top k).
+   sampling repeatable and inside the top k).  Then the reference's Llama
+   on ``nn.Layer`` (``llama_layer_phase``): ``bench.py``'s
+   ``_llama_child`` (``paddle.seed(0)``, the Llama-3-shaped
+   ``LlamaForCausalLM`` in bf16, AdamW + clip, B8 S1024), its first step
+   held to the ``torch.nn`` twin from the same weights (loss, every
+   gradient, every parameter after the step), ``jit.scan_steps`` at K = 1
+   and 6 captured and held to an eager ``Layer`` twin taking the same
+   steps, K1 = K2 = K3 = 4 x steps through the replay tally, the step
+   timed by bench.py's differential beside the eager ``Layer`` and
+   ``torch.nn`` steps, one replay profiled; ``generate`` at Llama-3-8B
+   width (bf16 weights handed to the twin on the card, B4 prompts of 128 +
+   32 greedy tokens, three runs: the Python body runs only in the spies
+   and captures, tokens equal across runs, each teacher-forced within
+   ``GAP`` against the twin's ``forward_ref``) and in float32 at 2 layers
+   (token-exact with the twin's ``generate``); then, in float32 against
+   the same calls on the CPU, a 2-layer bidirectional ``LSTM`` and
+   ``GRU``, ``ctc_loss`` and ``grid_sample``, and ``flash_attn_qkvpacked``
+   at GPT-2's shape in bf16 (K1, K2, K3 once each, bitwise
+   ``flash_attention``).
 7. weight-only, K8's path: Llama-3-8B's 224 projection weights (32
    layers, random bf16 from a seeded generator on the card) quantized to
    int8 and int4 through ``weight_quantize``; one decode step of linear
@@ -1360,7 +1378,7 @@ def tiny_f32_model(dev, hidden=256, heads=2, kv_heads=1, ffn=512):
     llama_from_numpy; returns the model and the generator that drew its
     weights (prompts come from it next)."""
     from paddle_tpu_torch.models.convert import llama_from_numpy
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.llama_module import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig.tiny(hidden_size=hidden, num_attention_heads=heads,
                            num_key_value_heads=kv_heads,
                            intermediate_size=ffn)
@@ -1473,7 +1491,7 @@ def _jax_shapes(model):
 def full_width_model(dtype, dev):
     """Llama-3-8B at full width and depth with random weights drawn from a
     seeded generator on the card."""
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.llama_module import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2275,7 +2293,7 @@ def fleet_phase(dev, card, store):
     from paddle_tpu_torch.inference.frontend import (FleetReplicaSet,
                                                      WorkerSupervisor,
                                                      start_gateway)
-    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.models.llama_module import LlamaConfig
     cfg = LlamaConfig.llama3_8b()
     rng = np.random.RandomState(SEED)
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in PROMPT_LENS]
@@ -3319,7 +3337,7 @@ def gpt2_bench_config():
 def llama_bench_config():
     """``bench.py`` ``_llama_child``'s Llama-3-shaped geometry: head_dim 128,
     GQA 4:1, SwiGLU, tied vocab, 4 layers, B8 S1024."""
-    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.models.llama_module import LlamaConfig
     return LlamaConfig(vocab_size=32000, hidden_size=2048,
                        intermediate_size=7168, num_hidden_layers=4,
                        num_attention_heads=16, num_key_value_heads=4,
@@ -3333,7 +3351,8 @@ def dense_attention():
     float32 softmax) instead of the flash kernels: the same model, the
     check the flash path is held against.  Covers the ``torch.nn`` models
     and the ``Layer`` route (``nn.functional.attention._sdpa``)."""
-    from paddle_tpu_torch.models import gpt2_module as gpt2, llama
+    from paddle_tpu_torch.models import gpt2_module as gpt2
+    from paddle_tpu_torch.models import llama_module as llama
     from paddle_tpu_torch.nn.functional import attention
     from paddle_tpu_torch.nn.functional.attention import _sdpa_ref
     saved = (gpt2.scaled_dot_product_attention, llama.flash_attention,
@@ -3640,7 +3659,7 @@ def training_phase(dev, card):
     (each model freed before the next).  Returns K1-K3's launches on the
     default GPT-2 run and K4's on the layout-direct one."""
     from paddle_tpu_torch.models.gpt2_module import GPT2ForCausalLM
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.models.llama_module import LlamaForCausalLM
     # the serving models die with the engines' reference cycles: collect
     # them, or the training peaks count their weights
     gc.collect()
@@ -5394,6 +5413,539 @@ def ernie_phase(dev, card):
     return out
 
 
+# ------------------------------------------ phase 6f: the Layer Llama (M7b)
+LLAMA_LAYER_TIMED = 3            # timed eager steps of each model (median)
+LLAMA_SCAN_TRIALS = 3            # (t_hi - t_lo) / (k_hi - k_lo) samples
+LLAMA_GEN_B, LLAMA_GEN_PROMPT, LLAMA_GEN_NEW = 4, 128, 32
+LLAMA_GEN_RUNS = 3               # generate calls: spies, captures, replays
+LLAMA_F32_LAYERS = 2             # depth of the float32 generate check
+
+
+def _llama_linear(name):
+    """Whether a Llama parameter is a Linear weight (``[in, out]`` on the
+    ``Layer`` model, ``[out, in]`` on the ``torch.nn`` one)."""
+    return name.endswith("_proj.weight") or name == "lm_head.weight"
+
+
+def llama_nn_twin(model, cfg, dev, dtype):
+    """The ``torch.nn`` Llama (``models/llama_module.py``) holding a
+    ``Layer`` Llama's weights, copied on the card (Linear weights
+    transposed): no host round trip, so the 8B weights cross too."""
+    from paddle_tpu_torch.models.llama_module import LlamaForCausalLM
+    twin = LlamaForCausalLM(cfg, device=dev, dtype=dtype)
+    src = dict(model.named_parameters())
+    params = dict(twin.named_parameters())
+    check(set(params) == set(src), f"llama twin: names {sorted(params)} vs "
+          f"{sorted(src)}")
+    with torch.no_grad():
+        for n, p in params.items():
+            w = src[n]._buf
+            p.copy_(w.t() if _llama_linear(n) else w)
+    return twin
+
+
+def _layer_layout(tensors):
+    """torch.nn Llama tensors by name in the ``Layer`` layout, float32."""
+    return {n: (t.t() if _llama_linear(n) else t).detach().float()
+            for n, t in tensors.items()}
+
+
+def llama_layer_train(dev, card):
+    """``bench.py`` ``_llama_child`` on the port: ``paddle.seed(0)``, the
+    ``Layer`` ``LlamaForCausalLM(llama_bench_config())`` in bf16, AdamW(3e-4,
+    decay 0.01) + ClipGradByGlobalNorm(1.0).  First held to the ``torch.nn``
+    twin from the same weights on the same batch (first loss, every
+    gradient, every parameter after the first AdamW step), then
+    ``jit.scan_steps(train_step)`` captured at K = 1 and 6 beside an eager
+    ``Layer`` twin taking the same steps (bitwise, or at the training
+    bar), K1-K3 launched layers x steps through the replay tally, timed by
+    bench.py's differential (its upper bound where bench.py falls back to
+    it), one replay profiled.  Returns the readings."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, batch, seq = llama_bench_config()
+    L, hidden = cfg.num_hidden_layers, cfg.hidden_size
+    paddle.set_device(dev)
+    paddle.seed(SEED)
+    model = LlamaForCausalLM(cfg)
+    model.to(dtype="bfloat16")
+    n_params = sum(p.size for p in model.parameters())
+    flops_per_token = 6 * n_params + 12 * L * hidden * seq
+    saved = {n: p._buf.detach().clone() for n, p in model.named_parameters()}
+    twin = llama_nn_twin(model, cfg, dev, torch.bfloat16)
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+    x, y = paddle.to_tensor(ids[:, :-1]), paddle.to_tensor(ids[:, 1:])
+    tx, ty = x._buf.long(), y._buf.long()
+
+    # the torch.nn twin's first step: the reference, then its timed steps
+    topt = new_adamw(twin)
+    with layout_direct(False):
+        _, rl = twin(tx, labels=ty)
+        rl.backward()
+        ref_loss = rl.item()
+        ref_grads = _layer_layout({n: p.grad for n, p in
+                                   twin.named_parameters()})
+        topt.step()
+        topt.clear_grad()
+        ref_after = _layer_layout(dict(twin.named_parameters()))
+        nn_ms = [_synced(lambda: train_step(twin, topt, tx, ty))[1]
+                 for _ in range(1 + LLAMA_LAYER_TIMED)][1:]
+    del twin, topt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the Layer model's eager first step against it
+    opt = new_adamw(model)
+    step = _bench_step(model, opt)
+    with layout_direct(False):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        _, loss = model(x, labels=y)
+        loss.backward()
+        first = loss.item()
+        got = {n: p.grad._buf.float().clone()
+               for n, p in model.named_parameters() if p.grad is not None}
+        check(set(got) == set(ref_grads), "llama layer: the gradients are "
+              "not the twin's parameters")
+        errs = {n: ((got[n] - g).abs().max() / g.abs().max()).item()
+                for n, g in ref_grads.items()}
+        worst_g = max(errs, key=errs.get)
+        check(abs(first - ref_loss) <= TRAIN_LOSS_TOL, f"llama layer: first "
+              f"loss {first} vs the torch.nn twin's {ref_loss}")
+        bad = {n: e for n, e in errs.items() if not e <= TRAIN_GRAD_TOL}
+        check(not bad, f"llama layer: gradients off the torch.nn twin's by "
+              f"{bad} of their largest")
+        opt.step()
+        opt.clear_grad()
+        worst_p, flips = _params_against("llama layer", model, ref_after,
+                                         ref_grads, LAYER_LR, got)
+        eager_ms = [_synced(lambda: step(x, y))[1]
+                    for _ in range(LLAMA_LAYER_TIMED)]
+        eager_launch = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+    want = {k: L * (1 + LLAMA_LAYER_TIMED) if k in ("K1", "K2", "K3")
+            else 0 for k in FLASH_COUNTERS}
+    check(eager_launch == want, f"llama layer: eager launches "
+          f"{eager_launch}, expected {want}")
+    print(f"llama layer: Layer LlamaForCausalLM (bench.py _llama_child: "
+          f"hidden {hidden}, {L} layers, GQA {cfg.num_attention_heads}:"
+          f"{cfg.num_key_value_heads}, head_dim "
+          f"{hidden // cfg.num_attention_heads}, tied vocab "
+          f"{cfg.vocab_size}, bf16, B{batch} S{seq}, {n_params} parameters)"
+          f": first loss {first:.5f} vs the torch.nn twin {ref_loss:.5f} "
+          f"(tol {TRAIN_LOSS_TOL}); all {len(errs)} gradients within "
+          f"{errs[worst_g]:.3e} of their largest ({worst_g}; tol "
+          f"{TRAIN_GRAD_TOL}); every parameter after the first AdamW + clip "
+          f"step within {worst_p:.3e} of its largest (tol {LAYER_PARAM_TOL}"
+          f"; {flips} elements past it within 2 lr); eager launches "
+          f"{eager_launch} (expected {want})", flush=True)
+    del model, opt, step, got, ref_after, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # scan_steps at K = 1 and 6 beside an eager Layer twin
+    def from_saved():
+        paddle.seed(SEED)
+        m = LlamaForCausalLM(cfg)
+        m.to(dtype="bfloat16")
+        with torch.no_grad():
+            for n, p in m.named_parameters():
+                p._buf.copy_(saved[n])
+        return m
+
+    A, B = from_saved(), from_saved()
+    stepA, stepB = _bench_step(A, new_adamw(A)), _bench_step(B, new_adamw(B))
+    scan = paddle.jit.scan_steps(stepA)
+    lo, hi = SCAN_K
+
+    def batch_data(k):              # bench.py's batch_data: fresh ids a call
+        a = rng.randint(0, cfg.vocab_size, (k, batch, seq + 1)).astype(
+            np.int32)
+        return a, (paddle.to_tensor(a[:, :, :-1]),
+                   paddle.to_tensor(a[:, :, 1:]))
+
+    lo_ids, lo_data = batch_data(lo)
+    hi_ids, hi_data = batch_data(hi)
+    calls, got = [], []
+    with layout_direct(False):
+        t0 = time.perf_counter()
+        cap_peak = {}
+        for n, (k, a, d) in enumerate(((lo, lo_ids, lo_data),
+                                       (hi, hi_ids, hi_data)), 1):
+            while _graphs(scan) < n:
+                check(len(calls) < 2 * CAPTURE_WARM, f"llama layer scan: no "
+                      f"graph at K = {k} after {len(calls)} calls")
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                got += [float(v) for v in scan(*d).numpy()]
+                calls.append(a)
+                cap_peak[k] = torch.cuda.max_memory_allocated() / 2 ** 30
+        warm_s = time.perf_counter() - t0
+        check(not any(g.eager_only for g in scan._cache.values()),
+              "llama layer scan: a signature fell back to eager")
+        progs = _programs(scan)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        replay = [float(v) for v in scan(*hi_data).numpy()]
+        launches = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+        got += replay
+        calls.append(hi_ids)
+        wantS = {k: L * hi if k in ("K1", "K2", "K3") else 0
+                 for k in FLASH_COUNTERS}
+        check(launches == wantS, f"llama layer scan: K = {hi} replay "
+              f"launched {launches}, expected {wantS}")
+        check(all(np.isfinite(replay)) and replay[-1] < got[0],
+              f"llama layer scan: losses {got}")
+        # the eager twin takes the same steps
+        want_l = []
+        for a in calls:
+            for i in range(a.shape[0]):
+                want_l.append(stepB(paddle.to_tensor(a[i, :, :-1]),
+                                    paddle.to_tensor(a[i, :, 1:])).item())
+        torch.cuda.synchronize()
+        same = _hold_twins("llama-layer scan", got, want_l, A, B)
+        del B, stepB
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        diffs, uppers = [], []
+        for _ in range(LLAMA_SCAN_TRIALS):
+            _, t_lo = _synced(lambda: scan(*lo_data).numpy())
+            _, t_hi = _synced(lambda: scan(*hi_data).numpy())
+            uppers.append(t_hi / hi)
+            diffs.append((t_hi - t_lo) / (hi - lo))
+        replay_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall, busy, rows = _profiled(lambda: scan(*hi_data).numpy(), dev)
+    diffs.sort()
+    dt, upper = diffs[len(diffs) // 2], min(uppers)
+    method = "scan_differential"
+    if dt <= 0 or dt > upper * 1.5:            # bench.py's fallback
+        dt, method = upper, "scan_upper_bound"
+    capture_s = sum(p.capture_s for p in progs)
+    tok_s = batch * seq / (dt / 1e3)
+    mfu = tok_s * flops_per_token / BF16_FLOPS
+    nn_step, eager_step = float(np.median(nn_ms)), float(np.median(eager_ms))
+    flash = {k: sum(ms for key, _, ms in rows if pat in key)
+             for k, pat in (("K1", "fwd_bf16"), ("K2", "dq_bf16"),
+                            ("K3", "dkv_bf16"))}
+    print(f"llama layer scan_steps: K = {lo} and {hi} captured "
+          f"({capture_s:.2f} s capturing, {warm_s:.2f} s for {len(calls) - 1} "
+          f"calls of spies and captures); the K = {hi} replay's losses "
+          f"{[round(v, 4) for v in replay]}, launches {launches} (replay "
+          f"tally; expected {wantS}); {'bitwise equal to' if same else 'at the training bar of'} "
+          f"the eager Layer twin over {len(got)} steps; step ({method}) "
+          f"{dt:.2f} ms (samples {[round(d, 3) for d in diffs]}, upper "
+          f"bound t{hi} / {hi} {upper:.2f} ms), {tok_s:.0f} tokens/s, MFU "
+          f"{mfu:.4f} ({flops_per_token} flops a token: 6N + 12 L h S, vs "
+          f"989 TFLOP/s bf16 dense); peak memory over the capturing calls "
+          f"{ {k: round(v, 2) for k, v in cap_peak.items()} } GiB (two models "
+          f"resident), over the replays {replay_peak:.2f} GiB; a profiled "
+          f"K = {hi} replay {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}%), "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in flash.items())
+          + f"; beside it the eager Layer step {eager_step:.2f} ms and the "
+          f"torch.nn step (training_phase's model, this run) {nn_step:.2f} "
+          f"ms; on {card}", flush=True)
+    for key, count, kms in rows[:8]:
+        print(f"profile llama-layer:   {kms:9.3f} ms "
+              f"{100 * kms / max(busy, 1e-9):5.1f}%  x{count:<5d} {key[:90]}")
+    del A, stepA, scan, progs, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": dt, "method": method, "upper_ms": upper,
+            "tokens_s": tok_s, "mfu": mfu, "capture_s": capture_s,
+            "busy_pct": 100 * busy / wall, "launches": launches,
+            "bitwise": same, "eager_ms": eager_step, "nn_ms": nn_step,
+            "peak_gib": replay_peak, "loss": (first, ref_loss)}
+
+
+def _gen_programs(model):
+    """{shape: CapturedProgram} of generate's one to_static step (the
+    prefill [B, prompt] and the decode [B, 1] signatures)."""
+    (entry,) = model._gen_states.values()
+    return {k.split("|")[1].split(":")[0]: v.compiled
+            for k, g in entry["step"]._cache.items() for v in g.variants}
+
+
+def llama_layer_generate(dev, card):
+    """The ``Layer`` Llama at Llama-3-8B width and depth (bf16 weights from
+    ``paddle.seed(SEED)``, handed on the card to the ``torch.nn`` twin):
+    greedy ``generate`` of ``LLAMA_GEN_NEW`` tokens from ``LLAMA_GEN_B``
+    prompts of ``LLAMA_GEN_PROMPT``, ``LLAMA_GEN_RUNS`` times (the first
+    spies both signatures and captures decode, the second captures
+    prefill, the third replays both: no Python body runs), every run's
+    tokens equal, each token teacher-forced against the twin's
+    ``forward_ref`` within ``GAP``; then at ``LLAMA_F32_LAYERS`` layers in
+    float32, token-exact with the twin's ``generate``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig.llama3_8b()
+    B, P, N = LLAMA_GEN_B, LLAMA_GEN_PROMPT, LLAMA_GEN_NEW
+    paddle.set_device(dev)
+    paddle.seed(SEED)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg)
+    model.to(dtype="bfloat16")
+    model.eval()
+    twin = llama_nn_twin(model, cfg, dev, torch.bfloat16)
+    twin.eval()
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    n_params = sum(p.size for p in model.parameters())
+    prompts = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)
+    x = paddle.to_tensor(prompts)
+    bodies = {"n": 0}
+    model.llama.register_forward_pre_hook(
+        lambda layer, inputs: bodies.__setitem__("n", bodies["n"] + 1))
+    runs, walls, body_runs, stats = [], [], [], []
+    for _ in range(LLAMA_GEN_RUNS):
+        n0 = bodies["n"]
+        out, wall = _synced(lambda: model.generate(x, max_new_tokens=N))
+        runs.append(out.numpy())
+        walls.append(wall)
+        body_runs.append(bodies["n"] - n0)
+        stats.append({k: p.stats() for k, p in _gen_programs(model).items()})
+    progs = _gen_programs(model)
+    dec, pre = progs[f"T({B}, 1)"], progs[f"T({B}, {P})"]
+    check(all((r == runs[0]).all() for r in runs) and runs[0].shape == (
+        B, P + N), f"llama generate: the {LLAMA_GEN_RUNS} runs differ")
+    check(body_runs == [3, 1, 0], f"llama generate: the Python body ran "
+          f"{body_runs} times a run (want [3, 1, 0]: spies and captures, "
+          "then replays only)")
+    check(dec.captures == 1 and dec.eager == 0 and pre.captures == 1
+          and pre.eager == 0, f"llama generate: programs decode "
+          f"{dec.stats()}, prefill {pre.stats()}")
+    counts, worst = np.zeros(3, int), 0.0
+    with torch.no_grad():
+        for b in range(B):
+            c, w = teacher_forced_check(twin, prompts[b], runs[0][b, P:],
+                                        GAP, dev)
+            counts += c
+            worst = max(worst, w)
+    tok_s = B * N / (walls[-1] / 1e3)
+    # one more run, all replays, under the profiler: where its time goes
+    wall, busy, rows = _profiled(
+        lambda: model.generate(x, max_new_tokens=N), dev)
+    print(f"llama generate: a profiled run (every program replayed) "
+          f"{wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}%); on {card}", flush=True)
+    for key, count, kms in rows[:8]:
+        print(f"profile llama-generate:   {kms:9.3f} ms "
+              f"{100 * kms / max(busy, 1e-9):5.1f}%  x{count:<5d} {key[:90]}")
+    print(f"llama generate: Layer Llama-3-8B bf16 ({n_params} parameters, "
+          f"built and handed to the torch.nn twin on the card in "
+          f"{built_s:.1f} s), {B} prompts of {P} + {N} greedy tokens, "
+          f"{LLAMA_GEN_RUNS} runs of {[round(w, 1) for w in walls]} ms, "
+          f"tokens equal across runs; the last (every program replayed) "
+          f"{tok_s:.1f} tokens/s; Python bodies a run {body_runs}; decode "
+          f"program captures {dec.captures}, replays {dec.replays}, eager "
+          f"{dec.eager}, capture {dec.capture_s:.2f} s; prefill captures "
+          f"{pre.captures}, replays {pre.replays}, eager {pre.eager}, capture "
+          f"{pre.capture_s:.2f} s (each run's stats {stats}); teacher-forced "
+          f"against the twin's forward_ref: {B * N} tokens, top-1/top-2 gap "
+          f"<= {GAP} at {counts[0]}, not its argmax {counts[1]}, outside "
+          f"its top 2 {counts[2]}, largest shortfall {worst:.4f} (allowed "
+          f"{GAP}); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; on {card}", flush=True)
+    del model, twin, progs, dec, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32, LLAMA_F32_LAYERS layers: token-exact with the twin
+    cfg32 = LlamaConfig.llama3_8b(num_hidden_layers=LLAMA_F32_LAYERS)
+    paddle.seed(SEED)
+    model = LlamaForCausalLM(cfg32)
+    model.eval()
+    twin = llama_nn_twin(model, cfg32, dev, torch.float32)
+    a = model.generate(x, max_new_tokens=N).numpy()
+    b = twin.generate(x._buf.long(), max_new_tokens=N).cpu().numpy()
+    exact = a.shape == b.shape and bool((a == b).all())
+    print(f"llama generate f32: Layer Llama-3-8B width at "
+          f"{LLAMA_F32_LAYERS} layers, {B} prompts of {P} + {N} greedy "
+          f"tokens: {'token-exact with' if exact else 'DIFFERS from'} the "
+          f"torch.nn twin's generate ({int((a != b).sum())} tokens differ)"
+          f"; on {card}", flush=True)
+    check(exact, "llama generate f32: tokens differ from the twin's")
+    del model, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tokens_s": tok_s, "walls_ms": walls, "body_runs": body_runs,
+            "teacher_forced": counts.tolist(), "worst": worst,
+            "f32_exact": exact, "busy_pct": 100 * busy / wall}
+
+
+M2_TOL = 1e-4                    # of each result's largest CPU magnitude
+RNN_B, RNN_T, RNN_IN, RNN_HIDDEN = 16, 128, 256, 512
+CTC_T, CTC_B, CTC_C, CTC_L = 100, 16, 32, 20
+GRID_X, GRID_OUT = (8, 16, 64, 64), (8, 32, 32, 2)
+
+
+def _held_to_cpu(tag, got, want):
+    """Each card result within ``M2_TOL`` of its CPU twin's largest
+    magnitude; returns the worst ratio."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = w.detach().float().cpu()
+        top = max(w.abs().max().item(), 1e-30)
+        err = (g.detach().float().cpu() - w).abs().max().item()
+        check(bool(torch.isfinite(g).all()) and err <= M2_TOL * top,
+              f"m2 {tag}: result {i} off the CPU's by {err} (largest {top})")
+        worst = max(worst, err / top)
+    return worst
+
+
+def _both_places(dev, run):
+    """``run()`` with the port's place set to the CPU, then to the card:
+    ({place: its torch tensors}, the card's wall ms)."""
+    import paddle_tpu_torch as paddle
+    res, ms = {}, None
+    for place in ("cpu", dev):
+        paddle.set_device(place)
+        if place == "cpu":
+            res[place] = run()
+        else:
+            res[place], ms = _synced(run)
+    return res, ms
+
+
+def m2_rest_phase(dev, card):
+    """M2's rest on the card, for correctness (float32, TF32 off): a
+    2-layer bidirectional ``LSTM`` and ``GRU`` (cuDNN's fused recurrence),
+    ``ctc_loss`` and ``grid_sample``, forward and backward, each result
+    held to the same call on the CPU; then ``flash_attn_qkvpacked`` at
+    GPT-2's shape in bf16: K1 forward and K2 / K3 backward launched once
+    each, K4 never, and bitwise equal to ``F.flash_attention`` on the same
+    q, k and v.  Returns the readings."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn as pnn
+    import paddle_tpu_torch.nn.functional as F
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(SEED)
+    out = {}
+    try:
+        for cls in ("LSTM", "GRU"):
+            paddle.set_device("cpu")
+            paddle.seed(SEED)
+            state = {k: v.numpy() for k, v in getattr(pnn, cls)(
+                RNN_IN, RNN_HIDDEN, num_layers=2,
+                direction="bidirect").state_dict().items()}
+            x = rng.randn(RNN_B, RNN_T, RNN_IN).astype(np.float32)
+
+            def run(cls=cls, state=state, x=x):
+                net = getattr(pnn, cls)(RNN_IN, RNN_HIDDEN, num_layers=2,
+                                        direction="bidirect")
+                net.set_state_dict(state)
+                t = paddle.to_tensor(x)
+                t.stop_gradient = False
+                y, st = net(t)
+                leaves = [y] + (list(st) if cls == "LSTM" else [st])
+                sum(o.sum() for o in leaves).backward()
+                return [o._buf for o in leaves] + [t.grad._buf] + [
+                    p.grad._buf for p in net.parameters()]
+            res, ms = _both_places(dev, run)
+            out[cls] = {"worst": _held_to_cpu(cls, res[dev], res["cpu"]),
+                        "ms": ms}
+        # ctc_loss: the reference's alpha recursion, a loop over time
+        arrays = [rng.randn(CTC_T, CTC_B, CTC_C).astype(np.float32),
+                  rng.randint(1, CTC_C, (CTC_B, CTC_L)).astype(np.int32),
+                  rng.randint(CTC_T // 2, CTC_T + 1, CTC_B).astype(np.int32),
+                  rng.randint(1, CTC_L + 1, CTC_B).astype(np.int32)]
+
+        def run_ctc():
+            lp = paddle.to_tensor(arrays[0])
+            lp.stop_gradient = False
+            loss = F.ctc_loss(lp, *[paddle.to_tensor(a) for a in arrays[1:]])
+            loss.backward()
+            return [loss._buf, lp.grad._buf]
+        res, ms = _both_places(dev, run_ctc)
+        out["ctc_loss"] = {"worst": _held_to_cpu("ctc_loss", res[dev],
+                                                 res["cpu"]), "ms": ms}
+        img = rng.randn(*GRID_X).astype(np.float32)
+        grid = (rng.rand(*GRID_OUT) * 2.2 - 1.1).astype(np.float32)
+
+        def run_grid():
+            a, g = paddle.to_tensor(img), paddle.to_tensor(grid)
+            a.stop_gradient = g.stop_gradient = False
+            y = F.grid_sample(a, g)
+            (y * y).sum().backward()
+            return [y._buf, a.grad._buf, g.grad._buf]
+        res, ms = _both_places(dev, run_grid)
+        out["grid_sample"] = {"worst": _held_to_cpu(
+            "grid_sample", res[dev], res["cpu"]), "ms": ms}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    print("m2 rest: f32 on the card against the CPU, each result within "
+          "(largest error / largest CPU magnitude, tol "
+          f"{M2_TOL}): "
+          + "; ".join(f"{k} {v['worst']:.3e} ({v['ms']:.1f} ms forward and "
+                      f"backward on the card)" for k, v in out.items())
+          + f" (LSTM / GRU: 2 layers, bidirectional, hidden {RNN_HIDDEN}, "
+          f"B{RNN_B} T{RNN_T}; ctc_loss T{CTC_T} B{CTC_B} C{CTC_C} "
+          f"L{CTC_L}; grid_sample {GRID_X} on {GRID_OUT}); on {card}",
+          flush=True)
+
+    # flash_attn_qkvpacked at GPT-2's shape: the flash kernels
+    paddle.set_device(dev)
+    cfg, batch, seq = gpt2_bench_config()
+    H, D = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    qkv_np = rng.randn(batch, seq, 3, H, D).astype(np.float32)
+    do = paddle.to_tensor(rng.randn(batch, seq, H, D).astype(
+        np.float32)).astype("bfloat16")
+
+    def packed_pair():
+        qkv = paddle.to_tensor(qkv_np).astype("bfloat16")
+        qkv.stop_gradient = False
+        return qkv
+
+    with layout_direct(False):
+        a = packed_pair()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        o1, _ = F.flash_attn_qkvpacked(a, causal=True)
+        (o1 * do).sum().backward()
+        torch.cuda.synchronize()
+        launched = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+        b = packed_pair()
+        o2, _ = F.flash_attention(b[:, :, 0], b[:, :, 1], b[:, :, 2],
+                                  causal=True)
+        (o2 * do).sum().backward()
+    same = torch.equal(o1._buf, o2._buf) and torch.equal(a.grad._buf,
+                                                         b.grad._buf)
+    want = {k: 1 if k in ("K1", "K2", "K3") else 0 for k in FLASH_COUNTERS}
+    print(f"m2 flash_attn_qkvpacked: bf16 qkv [{batch}, {seq}, 3, {H}, {D}]"
+          f" (GPT-2's shape), causal: launches {launched} (expected {want})"
+          f"; output and qkv gradient {'bitwise equal to' if same else 'DIFFER from'} "
+          f"F.flash_attention on the same q, k, v; on {card}", flush=True)
+    check(launched == want, f"m2 qkvpacked: launches {launched}, expected "
+          f"{want}")
+    check(same, "m2 qkvpacked: not bitwise equal to flash_attention")
+    out["qkvpacked"] = {"launches": launched, "bitwise": same}
+    del a, b, o1, o2, do
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def llama_layer_phase(dev, card):
+    """The reference's Llama on ``nn.Layer`` (``models/llama.py``): bench.py's
+    Llama-3-shaped step under ``scan_steps`` (``llama_layer_train``), then
+    ``generate`` at Llama-3-8B width (``llama_layer_generate``), then M2's
+    rest for correctness (``m2_rest_phase``).  Returns the readings."""
+    out = {"train": llama_layer_train(dev, card)}
+    out["generate"] = llama_layer_generate(dev, card)
+    out["m2"] = m2_rest_phase(dev, card)
+    return out
+
+
 # --------------------------------------------------- phase 5: weight-only
 # Llama-3-8B's seven projections of a layer, (name, in_features K,
 # out_features N), as weight_only_linear stores them: [K, N]
@@ -6038,6 +6590,8 @@ def main():
     mark("capture")
     ernie_phase(dev, card)
     mark("ernie")
+    llama_layer_phase(dev, card)
+    mark("llama layer")
     wo_lines, wo_launches = weight_only_phase(dev, card)
     mark("weight-only")
     kernels += wo_lines

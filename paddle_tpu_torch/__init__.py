@@ -31,6 +31,7 @@ from .core.device import (
     is_compiled_with_xpu, is_compiled_with_cinn, Place, resolve_device,
 )
 from .core.flags import set_flags, get_flags
+from .version import __version__
 from .core.rng import seed, get_rng_state, set_rng_state, Generator
 from .core import enforce
 
@@ -78,7 +79,7 @@ def disable_signal_handler():
 # and the core never depends on higher layers.
 _LAZY = {
     "nn", "optimizer", "amp", "jit", "distributed", "device", "models",
-    "inference", "quantization", "observability", "testing",
+    "inference", "quantization", "observability", "testing", "framework",
 }
 
 _LAZY_ATTRS = {
@@ -110,3 +111,8 @@ nan = float("nan")
 pi = _math.pi
 e = _math.e
 newaxis = None
+
+from .framework.compat import (  # noqa: F401,E402
+    dtype, iinfo, finfo, set_printoptions, CUDAPlace, CUDAPinnedPlace,
+    get_cuda_rng_state, set_cuda_rng_state, to_dlpack, from_dlpack,
+    LazyGuard, batch, check_shape, pstring, raw)

@@ -52,8 +52,8 @@ import torch.nn.functional as F
 
 from ...device import resolve_device
 from ...jit.capture import CapturedProgram, graph_pool
-from ...models.llama import rms_norm as _rms
-from ...models.llama import rope as _rope
+from ...models.llama_module import rms_norm as _rms
+from ...models.llama_module import rope as _rope
 from ...ops.paged_attention import (paged_attention,
                                      paged_attention_multiquery, quantize_kv)
 

@@ -1,5 +1,5 @@
 """Weight bridge: the JAX model's parameters, as numpy arrays keyed by its
-``state_dict()`` names, into the port's :class:`~.llama.LlamaForCausalLM`
+``state_dict()`` names, into the port's :class:`~.llama_module.LlamaForCausalLM`
 and :class:`~.gpt2_module.GPT2ForCausalLM` (the ``torch.nn`` GPT-2).
 
 Paddle's ``Linear`` stores its weight ``[in, out]``; torch's stores
@@ -13,7 +13,7 @@ import torch
 
 from .gpt2 import GPT2Config
 from .gpt2_module import GPT2ForCausalLM
-from .llama import LlamaConfig, LlamaForCausalLM
+from .llama_module import LlamaConfig, LlamaForCausalLM
 
 __all__ = ["llama_from_numpy", "gpt2_from_numpy", "gpt2_linear"]
 

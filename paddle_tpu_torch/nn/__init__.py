@@ -2,7 +2,7 @@
 (reference: python/paddle/nn/__init__.py): ``Layer`` and the layers of
 ``layer/``, the functionals, the initializers and ``ParamAttr``, gradient
 clipping, ``utils``, and ``quant``, the weight-only functions serving
-uses.  Not ported yet: the layer modules ``layer/__init__.py`` names."""
+uses."""
 from .layer import *  # noqa: F401,F403
 from .layer.layers import Layer  # noqa: F401
 from . import functional  # noqa: F401

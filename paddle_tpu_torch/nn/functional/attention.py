@@ -5,7 +5,7 @@ Both functionals take ``[B, S, H, D]`` tensors: port ``Tensor``s, which go
 through ``apply_op`` as the reference's do (one dispatch; the flash
 wrapper's own ``torch.autograd.Function`` is the tape node, with no second
 wrapper around it), or ``torch.Tensor``s, which the ``torch.nn`` models
-(``models/gpt2_module.py``, ``models/llama.py``) pass.  Dispatch follows the
+(``models/gpt2_module.py``, ``models/llama_module.py``) pass.  Dispatch follows the
 reference: with no mask, no dropout in training and a shape the kernels
 take (:func:`~paddle_tpu_torch.ops.flash_attention.supported`), attention
 goes through :func:`~paddle_tpu_torch.ops.flash_attention.flash_attention_bshd`
@@ -27,8 +27,9 @@ from ...core.dispatch import apply_op, unwrap
 from ...core.tensor import Tensor
 from ...ops.flash_attention import flash_attention_bshd, supported
 
-__all__ = ["scaled_dot_product_attention", "flash_attention", "sequence_mask",
-           "paged_attention", "_sdpa_ref"]
+__all__ = ["scaled_dot_product_attention", "flash_attention",
+           "flash_attn_unpadded", "sequence_mask", "paged_attention",
+           "_sdpa_ref"]
 
 
 def _sdpa_ref(q, k, v, mask=None, causal=False, dropout_p=0.0, scale=None,
@@ -120,6 +121,12 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
                                           gen),
                    query, key, value)
     return out, None
+
+
+def flash_attn_unpadded(*args, **kwargs):
+    raise NotImplementedError(
+        "varlen flash attention: use dense [B,S,H,D] flash_attention with masking; "
+        "ragged support lands with the paged-attention kernel")
 
 
 def sequence_mask(x, maxlen=None, dtype="int64", name=None):

@@ -3,10 +3,9 @@
 
 Reference analog: the monkey-patch of generated methods onto the eager Tensor type
 (python/paddle/base/dygraph/math_op_patch.py + tensor/__init__.py method lists).
-The method lists are the reference's; a name whose op this package does not
-define yet (those of the reference's ``math_extra``, ``manip_extra`` and
-``linalg_extra``) is skipped, as the reference's ``getattr(mod, name,
-None)`` does.
+The method lists are the reference's, and every name on them has its op
+here (the reference's installer skips a missing one, ``getattr(mod, name,
+None)``, and so does this one).
 
 The hand-written CUDA kernels' wrappers sit beside the op modules, each in
 its own module (``flash_attention``, ``paged_attention``,
@@ -23,7 +22,7 @@ import torch
 from ..core.tensor import Tensor
 from ..core.dispatch import apply_op, unwrap
 from . import (creation, math, manipulation, logic, linalg, search, random,
-               stat)
+               stat, math_extra, manip_extra, linalg_extra)
 from .creation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
@@ -32,14 +31,11 @@ from .linalg import *  # noqa: F401,F403
 from .search import *  # noqa: F401,F403
 from .random import *  # noqa: F401,F403
 from .stat import *  # noqa: F401,F403
+from .math_extra import *  # noqa: F401,F403
+from .manip_extra import *  # noqa: F401,F403
+from .linalg_extra import *  # noqa: F401,F403
 from .einsum_op import einsum  # noqa: F401
 from .math import _operand, _tensors
-
-# aliases of these modules' ops that the reference defines in its
-# math_extra / manip_extra modules (the rest of which is M13's)
-gammaln = math.lgamma
-less = logic.less_than
-bitwise_invert = logic.bitwise_not
 
 
 # ---- indexing ----------------------------------------------------------------

@@ -21,7 +21,7 @@ def make_model():
     """The tiny Llama of the fleet tests, seeded in torch, on the CPU."""
     import torch
 
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.llama_module import LlamaConfig, LlamaForCausalLM
     return LlamaForCausalLM(LlamaConfig(**CFG), device="cpu",
                             generator=torch.Generator().manual_seed(0))
 

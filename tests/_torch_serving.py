@@ -23,7 +23,7 @@ def bridged_models():
     from paddle_tpu.models.llama import LlamaConfig as JaxConfig
     from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
     from paddle_tpu_torch.models.convert import llama_from_numpy
-    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.models.llama_module import LlamaConfig
 
     pt.seed(0)
     jm = JaxLlama(JaxConfig(**CFG))

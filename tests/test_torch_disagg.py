@@ -27,7 +27,7 @@ from paddle_tpu_torch.inference.engine import ModelRunner
 from paddle_tpu_torch.inference.serving import (DisaggEngine, LLMEngine,
                                                 RequestStatus, SpecConfig)
 from paddle_tpu_torch.models.convert import llama_from_numpy
-from paddle_tpu_torch.models.llama import LlamaConfig
+from paddle_tpu_torch.models.llama_module import LlamaConfig
 from paddle_tpu_torch.testing import FAULTS, FailNth, injected
 from paddle_tpu_torch.testing.faults import Always
 
@@ -700,7 +700,7 @@ def test_gather_scatter_between_runners_bitwise_on_the_card(cuda_device,
 
 def _tiny_bf16_model(device):
     """The reference test's tiny model shape in bfloat16 on ``device``."""
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.models.llama_module import LlamaForCausalLM
     return LlamaForCausalLM(LlamaConfig(**_CFG), device=device,
                             dtype=torch.bfloat16,
                             generator=torch.Generator(

@@ -15,7 +15,7 @@ from paddle_tpu.models.llama import LlamaConfig as JaxConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
 from paddle_tpu_torch.inference.serving import LLMEngine
 from paddle_tpu_torch.models.convert import llama_from_numpy
-from paddle_tpu_torch.models.llama import LlamaConfig
+from paddle_tpu_torch.models.llama_module import LlamaConfig
 
 _CFG = dict(vocab_size=128, hidden_size=64, intermediate_size=176,
             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,

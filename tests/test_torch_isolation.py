@@ -19,7 +19,7 @@ from paddle_tpu_torch.inference.engine import ModelRunner
 from paddle_tpu_torch.inference.serving import (DisaggEngine, LLMEngine,
                                                 SpecConfig)
 from paddle_tpu_torch.models.gpt2_module import GPT2ForCausalLM
-from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.models.llama_module import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops.flash_attention import flash_attention_bshd
 from paddle_tpu_torch.ops.paged_attention import paged_attention
 from paddle_tpu_torch.ops.quant_matmul import quant_matmul
@@ -54,7 +54,16 @@ def test_port_files_import_no_jax_and_nothing_of_the_jax_package():
         port / "nn" / kind / f"{m}.py" for kind in ("layer", "functional")
         for m in ("conv", "pooling")} | {
         port / "nn" / "layer" / "transformer.py",
-        port / "nn" / "functional" / "rope.py"} <= set(PORT_FILES)
+        port / "nn" / "functional" / "rope.py"} | {
+        # the Layer Llama (M7b), the torch.nn Llama, and M2's rest
+        port / "models" / "llama.py", port / "models" / "llama_module.py",
+        port / "nn" / "layer" / "rnn.py", port / "nn" / "layer" / "extras.py",
+        port / "nn" / "functional" / "extras.py",
+        port / "nn" / "functional" / "extra_losses.py",
+        port / "framework" / "__init__.py",
+        port / "framework" / "compat.py", port / "version.py"} | {
+        port / "ops" / f"{m}_extra.py" for m in ("math", "manip", "linalg")
+    } <= set(PORT_FILES)
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
                                             & set(FORBIDDEN))
            for p in PORT_FILES}
@@ -101,6 +110,18 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.nn.functional.rope\n"
             "import paddle_tpu_torch.nn.utils\n"
             "import paddle_tpu_torch.models.ernie\n"
+            "import paddle_tpu_torch.models.llama\n"
+            "import paddle_tpu_torch.models.llama_module\n"
+            "import paddle_tpu_torch.nn.layer.rnn\n"
+            "import paddle_tpu_torch.nn.layer.extras\n"
+            "import paddle_tpu_torch.nn.functional.extras\n"
+            "import paddle_tpu_torch.nn.functional.extra_losses\n"
+            "import paddle_tpu_torch.ops.math_extra\n"
+            "import paddle_tpu_torch.ops.manip_extra\n"
+            "import paddle_tpu_torch.ops.linalg_extra\n"
+            "import paddle_tpu_torch.framework\n"
+            "import paddle_tpu_torch.framework.compat\n"
+            "import paddle_tpu_torch.version\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -406,9 +427,21 @@ def test_layers_and_optimizers_need_the_card_or_an_explicit_cpu(no_cuda):
 def _m2_entry(case):
     import paddle_tpu_torch as paddle
     import paddle_tpu_torch.nn as nn
-    from paddle_tpu_torch.models import ernie
+    from paddle_tpu_torch.models import ernie, llama
     from paddle_tpu_torch.nn.functional import rope
-    if case == "ernie":
+    if case == "llama_layer":
+        llama.llama_tiny()
+    elif case == "kv_cache":
+        llama.KVCache(1, 8, 2, 4)
+    elif case == "lstm":
+        nn.LSTM(4, 4, num_layers=2, direction="bidirect")
+    elif case == "gru_cell":
+        nn.GRUCell(4, 4).get_initial_states(2)
+    elif case == "adaptive_log_softmax":
+        nn.AdaptiveLogSoftmaxWithLoss(8, 10, cutoffs=[4])
+    elif case == "hsigmoid":
+        nn.HSigmoidLoss(4, 8)
+    elif case == "ernie":
         ernie.ErnieForMaskedLM(ernie.ErnieConfig.tiny())
     elif case == "multi_head_attention":
         nn.MultiHeadAttention(16, 2)
@@ -426,7 +459,9 @@ def _m2_entry(case):
 
 @pytest.mark.parametrize("case", ["ernie", "multi_head_attention", "conv2d",
                                   "spectral_norm", "rand", "randint",
-                                  "rotary_sin_cos"])
+                                  "rotary_sin_cos", "llama_layer", "kv_cache",
+                                  "lstm", "gru_cell", "adaptive_log_softmax",
+                                  "hsigmoid"])
 def test_m2_entry_points_need_the_card_or_an_explicit_cpu(no_cuda, case):
     """The models, layers and random ops of M2's rest make their tensors on
     the current place: without CUDA they raise unless the caller asked for
@@ -439,5 +474,62 @@ def test_m2_entry_points_need_the_card_or_an_explicit_cpu(no_cuda, case):
             _m2_entry(case)
         core_device._current_device = torch.device("cpu")
         _m2_entry(case)
+    finally:
+        core_device._current_device = prev
+
+
+def _refused(case):
+    from paddle_tpu_torch.models import llama
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.nn.functional.attention import flash_attn_unpadded
+    cfg = llama.LlamaConfig.tiny()
+    if case == "llama_moe":
+        llama.LlamaForCausalLM(llama.LlamaConfig.tiny_moe())
+    elif case == "llama_sep":
+        import paddle_tpu_torch as paddle
+        m = llama.llama_tiny()
+        saved = llama._sep_world_size
+        llama._sep_world_size = lambda: 2
+        try:
+            m(paddle.to_tensor(np.zeros((1, 4), np.int32)))
+        finally:
+            llama._sep_world_size = saved
+    elif case == "shard_llama":
+        llama.shard_llama(None, None)
+    elif case == "make_decoder_stage":
+        llama.make_decoder_stage(cfg)
+    elif case == "llama_pipe":
+        llama.LlamaForCausalLMPipe(cfg)
+    elif case == "llama_stage_pipe":
+        llama.LlamaDecoderLayerPipe(cfg)
+    elif case == "flash_attn_varlen_qkvpacked":
+        F.flash_attn_varlen_qkvpacked(None)
+    elif case == "sparse_attention":
+        F.sparse_attention()
+    elif case == "flash_attn_unpadded":
+        flash_attn_unpadded()
+    elif case == "fractional_max_pool3d_mask":
+        import paddle_tpu_torch as paddle
+        F.fractional_max_pool3d(paddle.zeros([1, 1, 4, 4, 4]), 2,
+                                return_mask=True)
+
+
+@pytest.mark.parametrize("case,what", [
+    ("llama_moe", "M12"), ("llama_sep", "M12"), ("shard_llama", "M12"),
+    ("make_decoder_stage", "M12"), ("llama_pipe", "M12"),
+    ("llama_stage_pipe", "M12"),
+    ("flash_attn_varlen_qkvpacked", "varlen"),
+    ("sparse_attention", "block-sparse"), ("flash_attn_unpadded", "varlen"),
+    ("fractional_max_pool3d_mask", "return_mask")])
+def test_layer_llama_and_m2_rest_refusals(case, what):
+    """What the Layer Llama and M2's rest refuse, as the reference does or
+    because its module waits for M12: each raises, naming it, and never
+    runs some other way."""
+    from paddle_tpu_torch.core import device as core_device
+    prev = core_device._current_device
+    core_device._current_device = torch.device("cpu")
+    try:
+        with pytest.raises(NotImplementedError, match=what):
+            _refused(case)
     finally:
         core_device._current_device = prev

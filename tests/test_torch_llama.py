@@ -15,7 +15,7 @@ from paddle_tpu.inference.engine.runner import _rope as jax_rope
 from paddle_tpu.models.llama import LlamaConfig as JaxConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
 from paddle_tpu_torch.models.convert import llama_from_numpy
-from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+from paddle_tpu_torch.models.llama_module import (LlamaConfig, LlamaForCausalLM,
                                            rms_norm, rope)
 
 CLASSMETHODS = ("llama3_8b", "qwen2_moe_a14b", "deepseek_moe_16b", "tiny",
@@ -174,7 +174,7 @@ def test_seeded_sampled_generate_is_reproducible(gen_models):
 
 
 def test_kv_cache_refuses_to_overflow():
-    from paddle_tpu_torch.models.llama import KVCache
+    from paddle_tpu_torch.models.llama_module import KVCache
     cache = KVCache(1, 4, 2, 8, device="cpu")
     k = torch.ones(1, 3, 2, 8)
     kk, _ = cache.update(k, k)

@@ -21,7 +21,7 @@ import torch
 from paddle_tpu_torch.inference.engine import ModelRunner
 from paddle_tpu_torch.inference.serving import LLMEngine
 from paddle_tpu_torch.models.convert import llama_from_numpy
-from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.models.llama_module import LlamaConfig, LlamaForCausalLM
 
 _CFG = LlamaConfig.tiny()
 _IDS = np.random.RandomState(5).randint(0, 256, (2, 7)).astype(np.int64)
