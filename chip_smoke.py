@@ -211,7 +211,26 @@ Phases (any failure raises and the script exits non-zero):
    the same calls on the CPU, a 2-layer bidirectional ``LSTM`` and
    ``GRU``, ``ctc_loss`` and ``grid_sample``, and ``flash_attn_qkvpacked``
    at GPT-2's shape in bf16 (K1, K2, K3 once each, bitwise
-   ``flash_attention``).
+   ``flash_attention``).  Then the training workflow around quantization
+   (``workflow_phase``): one epoch of a seeded shuffled order through the
+   native ``DataLoader`` (``dataloader.cc``), forked Python workers and
+   the synchronous path, batch for batch equal, each engine's batches/s;
+   ERNIE 3.0 base as a 2-class ``ErnieForSequenceClassification`` (bf16)
+   fine-tuned through ``paddle.Model.fit`` (40 steps, B32 S128, AdamW +
+   clip, ``Accuracy``, ``ModelCheckpoint``) on the native loader: the
+   first batch bitwise a bare ``Layer`` step, K1 = K2 = K3 = 12 x steps,
+   the loss falling, step ms, tokens/s, MFU, ``hapi``'s cost over the
+   bare step, a profiled step; the checkpoint's bytes, save and load
+   seconds, a fresh ``Model`` loaded from it evaluating and stepping
+   bitwise the saved one; PTQ (absmax activations, per-channel weights)
+   to 74 int8 ``QuantizedLinearInfer`` layers, its accuracy beside the
+   float model's, logits within the reference's 5 % bar, the int8 state
+   dict round-tripped bitwise, Hist / KL thresholds of a real activation
+   equal to the same numpy run on its CPU copy; GPT-2 124M's QAT step
+   (48 ``QuantedLinear``) captured by ``to_static`` and bitwise its eager
+   twin over 6 steps, the 48 EMA scales included, its replays timed and
+   profiled beside the float captured step of the same run, K1-K3 12 a
+   replay, converted to 48 int8 layers within the bar.
 7. weight-only, K8's path: Llama-3-8B's 224 projection weights (32
    layers, random bf16 from a seeded generator on the card) quantized to
    int8 and int4 through ``weight_quantize``; one decode step of linear
@@ -239,6 +258,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -5946,6 +5966,598 @@ def llama_layer_phase(dev, card):
     return out
 
 
+# ------------------------------ phase 6g: the training workflow around M10
+# (io, framework.io, hapi, metric, quantization)
+WF_TRAIN, WF_EVAL = 2048, 512    # samples of the fine-tune and of the eval
+WF_S, WF_B = 128, 32             # sequence length, batch
+WF_ITERS = 40                    # fit steps (num_iters)
+WF_LR = 1e-4                     # the fine-tune's AdamW rate
+WF_POS = (100, 108)              # ids at position 0 that make label 1
+WF_NEG = (200, 208)              # ids at position 0 that make label 0
+WF_CALIB = 8                     # PTQ calibration batches
+WF_TIMED = 10                    # timed train_batch and bare steps, in turn
+WF_BAR = 0.05                    # the reference's int8 bar (test_quantization)
+QAT_STEPS = 6                    # captured and eager QAT steps held bitwise
+QAT_REPLAYS = 6                  # timed replays of each captured step
+WF_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_workflow"
+
+
+def workflow_data(cfg):
+    """Seeded ids ``[N, WF_S]`` (int64, uniform in [5, vocab)) and labels
+    ``[N, 1]``: position 0 (the one the pooler reads) holds one of the
+    ``WF_POS`` ids for label 1 and one of the ``WF_NEG`` ids for label 0,
+    so the rule can be learned in a few dozen steps."""
+    rng = np.random.RandomState(SEED + 19)
+    n = WF_TRAIN + WF_EVAL
+    ids = rng.randint(5, cfg.vocab_size, (n, WF_S)).astype(np.int64)
+    y = rng.randint(0, 2, (n, 1)).astype(np.int64)
+    ids[:, 0] = np.where(y[:, 0] == 1, rng.randint(*WF_POS, n),
+                         rng.randint(*WF_NEG, n))
+    return (ids[:WF_TRAIN], y[:WF_TRAIN]), (ids[WF_TRAIN:], y[WF_TRAIN:])
+
+
+def _wf_adamw(net):
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    return AdamW(learning_rate=WF_LR, weight_decay=0.01,
+                 parameters=net.parameters(),
+                 grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def _wf_model(net):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.metric import Accuracy
+    m = paddle.Model(net)
+    m.prepare(_wf_adamw(net), nn.CrossEntropyLoss(), Accuracy())
+    return m
+
+
+def _ernie_classifier(cfg, seed, weights=None):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.ernie import ErnieForSequenceClassification
+    paddle.seed(seed)
+    net = ErnieForSequenceClassification(cfg, num_classes=2)
+    net.to(dtype="bfloat16")
+    if weights is not None:
+        missing, unexpected = net.set_state_dict(weights)
+        check(not missing and not unexpected, "workflow: set_state_dict")
+    return net
+
+
+def _loader_epoch(loader):
+    """(the batches of one epoch, seconds for it, the card synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = list(loader)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _sampled(io, ds):
+    """A shuffled batch sampler drawing from its own seeded Generator."""
+    import paddle_tpu_torch as paddle
+    return io.BatchSampler(sampler=io.RandomSampler(
+        ds, generator=paddle.Generator(SEED)), batch_size=WF_B)
+
+
+def workflow_loaders(dev, card, train_ds):
+    """One epoch of the fine-tune's shuffled order through each engine:
+    the native one (``dataloader.cc``'s threads), forked Python workers
+    (forked with CUDA up: they collate on the CPU place and ship host
+    arrays) and the synchronous path; every batch equal across the three.
+    Returns {engine: batches/s}."""
+    from paddle_tpu_torch import io
+    runs = {}
+    for tag, kw in (("native", dict(num_workers=2, engine="native")),
+                    ("python workers", dict(num_workers=2,
+                                            engine="python")),
+                    ("sync", dict(num_workers=0, engine="python"))):
+        loader = io.DataLoader(train_ds, batch_sampler=_sampled(io, train_ds),
+                               **kw)
+        runs[tag] = _loader_epoch(loader)
+    ref = runs["native"][0]
+    for tag, (batches, _) in runs.items():
+        check(len(batches) == WF_TRAIN // WF_B and all(
+            a._buf.device == b._buf.device and a._buf.device.type ==
+            dev.type and torch.equal(a._buf, b._buf)
+            for got, want in zip(batches, ref) for a, b in zip(got, want)),
+            f"workflow loaders: the {tag} engine's batches are not the "
+            "native engine's")
+    rates = {tag: len(b) / s for tag, (b, s) in runs.items()}
+    print(f"workflow loaders: one epoch of {WF_TRAIN // WF_B} shuffled "
+          f"batches of {WF_B} x {WF_S} ids (one sampler seed), every batch "
+          f"equal across the engines; "
+          + ", ".join(f"{t} {r:.1f} batches/s ({runs[t][1] * 1e3:.1f} ms)"
+                      for t, r in rates.items()) + f"; on {card}",
+          flush=True)
+    return rates
+
+
+def workflow_finetune(dev, card, cfg):
+    """ERNIE 3.0 base fine-tuned as a classifier through ``Model.fit`` on
+    the native ``DataLoader``; the first batch held bitwise to a bare
+    ``Layer`` step; K1-K3 12 x steps; the checkpoint restored into a fresh
+    Model bitwise; the costs.  Returns (model, eval loader, readings)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import io, nn
+    from paddle_tpu_torch.hapi.callbacks import Callback, ModelCheckpoint
+    from paddle_tpu_torch.io import native_loader
+    from paddle_tpu_torch.core.native import build as native_build
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    check(native_loader.available(), "workflow: dataloader.cc did not "
+          f"build: {native_build.last_error('pt_dataloader')}")
+    print(f"workflow: dataloader.cc built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    (tx, ty), (ex, ey) = workflow_data(cfg)
+    train_ds, eval_ds = io.TensorDataset([tx, ty]), io.TensorDataset([ex, ey])
+    rates = workflow_loaders(dev, card, train_ds)
+
+    net = _ernie_classifier(cfg, SEED)
+    weights = {n: p.numpy() for n, p in net.state_dict().items()}
+    twin = _ernie_classifier(cfg, SEED + 1, weights)
+    model = _wf_model(net)
+    opt = model._optimizer
+    first, walls = {}, []
+    fit_step, opt_step = model.train_batch, opt.step
+
+    def train_batch(data, label):
+        if not first:
+            first["batch"] = (data, label)
+        out = fit_step(data, label)
+        first.setdefault("loss", out[0][0])
+        return out
+
+    def step_spy():
+        if "grads" not in first:
+            first["grads"] = {n: p.grad._buf.clone()
+                              for n, p in net.named_parameters()
+                              if n.startswith("classifier.")}
+        return opt_step()
+
+    class Walls(Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            walls.append((time.perf_counter() - self.t0) * 1e3)
+
+    model.train_batch, opt.step = train_batch, step_spy
+    shutil.rmtree(WF_DIR, ignore_errors=True)
+    np.random.seed(SEED)
+    loader = io.DataLoader(train_ds, batch_size=WF_B, shuffle=True,
+                           num_workers=2, engine="native")
+    losses = []
+
+    class Losses(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(logs["loss"])
+
+    with layout_direct(False):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        model.fit(loader, epochs=1, num_iters=WF_ITERS, verbose=0,
+                  callbacks=[Walls(), Losses(),
+                             ModelCheckpoint(save_dir=str(WF_DIR))])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+    del model.train_batch, opt.step
+    want = {k: L * WF_ITERS if k in ("K1", "K2", "K3") else 0
+            for k in FLASH_COUNTERS}
+    check(launches == want, f"workflow fit: launches {launches}, expected "
+          f"{want} ({L} layers x {WF_ITERS} steps, non-causal)")
+    check(len(losses) == WF_ITERS and all(np.isfinite(losses)),
+          f"workflow fit: losses {losses}")
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(tail < head, f"workflow fit: the loss did not fall ({losses})")
+
+    # the first batch: a bare eager Layer step from the same weights
+    x, y = first["batch"]
+    twin.train()
+    tl = nn.CrossEntropyLoss()(twin(x), y)
+    tl.backward()
+    bare = {n: p.grad._buf for n, p in twin.named_parameters()
+            if n.startswith("classifier.")}
+    same_first = float(tl.item()) == first["loss"] and bare.keys() == \
+        first["grads"].keys() and all(torch.equal(bare[n], g)
+                                      for n, g in first["grads"].items())
+    print(f"workflow fit: first batch loss {first['loss']:.6f} vs the bare "
+          f"Layer step's {float(tl.item()):.6f}; classifier gradients "
+          f"{'bitwise equal' if same_first else 'DIFFER'}", flush=True)
+    check(same_first, "workflow fit: the first fit batch is not bitwise the "
+          "bare Layer step")
+    del twin, tl, bare
+
+    # evaluate, then the checkpoint in a fresh Model
+    eval_loader = io.DataLoader(eval_ds, batch_size=WF_B, engine="native")
+    ev = model.evaluate(eval_loader, verbose=0)
+    path = str(WF_DIR / "0")
+    nbytes = sum(os.path.getsize(path + s) for s in (".pdparams", ".pdopt"))
+    fresh = _wf_model(_ernie_classifier(cfg, SEED + 2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.load(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.save(str(WF_DIR / "again"))
+    save_s = time.perf_counter() - t0
+    ev2 = fresh.evaluate(eval_loader, verbose=0)
+    check(ev == ev2, f"workflow checkpoint: evaluate {ev} vs the loaded "
+          f"Model's {ev2}")
+    x, y = next(iter(eval_loader))
+    steps = [(model.train_batch(x, y), fresh.train_batch(x, y))
+             for _ in range(2)]
+    same_state = all(a == b for a, b in steps) and all(
+        torch.equal(p._buf, q._buf) for p, q in
+        zip(model.parameters(), fresh.parameters()))
+    check(same_state, f"workflow checkpoint: train_batch after load "
+          f"{steps} differs, or the parameters after it do")
+    del fresh
+    gc.collect()
+
+    # costs: hapi's train_batch against the bare step on one batch
+    net = model.network
+    loss_fn = model._loss
+
+    def bare_step():
+        out = net(x)
+        loss = loss_fn(out, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    hapi_ms, bare_ms = [], []
+    for _ in range(WF_TIMED):
+        hapi_ms.append(_synced(lambda: model.train_batch(x, y))[1])
+        bare_ms.append(_synced(bare_step)[1])
+    n_hapi, hapi_us = _dispatch_costs(lambda: model.train_batch(x, y))
+    n_bare, bare_us = _dispatch_costs(bare_step)
+    wall, busy, rows = _profiled(lambda: model.train_batch(x, y), dev)
+    flash = {k: sum(ms for key, _, ms in rows if pat in key)
+             for k, pat in (("K1", "fwd_bf16"), ("K2", "dq_bf16"),
+                            ("K3", "dkv_bf16"))}
+    n_params = sum(p.size for p in net.parameters())
+    flops_per_token = 6 * n_params + 12 * L * cfg.hidden_size * WF_S
+    ms = float(np.median(walls[1:]))
+    tok_s = WF_B * WF_S / (ms / 1e3)
+    mfu = tok_s * flops_per_token / BF16_FLOPS
+    h_ms, b_ms = float(np.median(hapi_ms)), float(np.median(bare_ms))
+    print(f"workflow fit: ERNIE 3.0 base classifier bf16 B{WF_B} S{WF_S}, "
+          f"{WF_ITERS} steps of Model.fit on the native DataLoader "
+          f"(AdamW {WF_LR} + clip) in {fit_s:.2f} s: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (first five mean {head:.4f}, last five "
+          f"{tail:.4f}); step median {ms:.2f} ms ({[round(w, 2) for w in walls[:4]]}"
+          f"...), {tok_s:.0f} tokens/s, MFU {mfu:.4f} ({n_params} parameters, "
+          f"{flops_per_token} flops a token: 6N + 12 L h S); flash launches "
+          f"{launches}; eval loss {ev['loss'][0]:.4f} acc {ev['acc']:.4f} "
+          f"over {WF_EVAL}; on {card}", flush=True)
+    print(f"workflow hapi: train_batch median {h_ms:.2f} ms "
+          f"({[round(v, 2) for v in hapi_ms]}) against the bare step's "
+          f"{b_ms:.2f} ms ({[round(v, 2) for v in bare_ms]}): hapi adds "
+          f"{h_ms - b_ms:.2f} ms (loss.item() and Accuracy's host reads); "
+          f"{n_hapi} apply_op dispatches a train_batch at {hapi_us:.2f} host "
+          f"us each against the bare step's {n_bare} at {bare_us:.2f}; a "
+          f"profiled train_batch {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}%), "
+          + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}% of busy)"
+                      for k, v in flash.items()) + f"; on {card}", flush=True)
+    print(f"workflow checkpoint: {nbytes} bytes (.pdparams + .pdopt), save "
+          f"{save_s:.3f} s, load into a fresh Model {load_s:.3f} s; its "
+          f"evaluate bitwise the saved Model's ({ev2}); two more "
+          f"train_batch each equal ({steps[1][0]}), parameters bitwise "
+          f"equal after them", flush=True)
+    return model, eval_loader, {
+        "step_ms": ms, "tokens_s": tok_s, "mfu": mfu, "fit_s": fit_s,
+        "losses": losses, "eval": ev, "launches": launches,
+        "hapi_ms": h_ms, "bare_ms": b_ms, "dispatches": (n_hapi, n_bare),
+        "busy_ms": busy, "profiled_ms": wall, "flash_ms": flash,
+        "loaders": rates, "ckpt_bytes": nbytes, "save_s": save_s,
+        "load_s": load_s}
+
+
+def _hist_thresholds(act, card_side):
+    """(Hist threshold, KL threshold, host ms of each) of one activation:
+    on the card's tensor, or on its CPU copy with the CPU place."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.core import device as core_device
+    prev = core_device._current_device
+    if not card_side:
+        paddle.set_device("cpu")
+        act = paddle.to_tensor(act._buf.float().cpu().numpy())
+    try:
+        out = []
+        for cls in (Q.HistObserverLayer, Q.KLObserverLayer):
+            t0 = time.perf_counter()
+            o = cls()
+            o(act)
+            out.append((float(o.scales()), (time.perf_counter() - t0) * 1e3))
+    finally:
+        core_device._current_device = prev
+    return out
+
+
+def workflow_ptq(dev, card, model, eval_loader):
+    """PTQ of the fine-tuned model: absmax activations and per-channel
+    weights, calibrated on ``WF_CALIB`` eval batches, converted to int8
+    ``QuantizedLinearInfer`` layers; evaluated through ``Model``; the
+    logits within the reference's bar of the float model's; the int8
+    state dict round-tripped bitwise; Hist / KL observers on one real
+    activation held to the same numpy run on its CPU copy."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.metric import Accuracy
+    net = model.network
+    net.eval()
+    batches = list(eval_loader)
+    act = {}
+    hook = net.ernie.encoder.layers[0].linear1.register_forward_pre_hook(
+        lambda layer, inputs: act.setdefault("x", inputs[0]))
+    with paddle.no_grad():
+        net(batches[0][0])           # the activation for the histograms
+    hook.remove()
+    ptq = Q.PTQ(Q.QuantConfig(activation=Q.AbsmaxObserver(),
+                              weight=Q.PerChannelAbsmaxObserver(
+                                  quant_axis=1)))
+    t0 = time.perf_counter()
+    calib = ptq.quantize(net)
+    with paddle.no_grad():
+        for x, _ in batches[:WF_CALIB]:
+            calib(x)
+    infer = ptq.convert(calib)
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    qlayers = [l for l in infer.sublayers()
+               if type(l).__name__ == "QuantizedLinearInfer"]
+    linears = [l for l in net.sublayers() if type(l).__name__ == "Linear"]
+    check(len(qlayers) == len(linears) == 74 and all(
+        l.qweight._buf.dtype == torch.int8 and l.qweight._buf.device.type ==
+        dev.type
+        for l in qlayers), f"workflow ptq: {len(qlayers)} "
+        f"QuantizedLinearInfer of {len(linears)} Linear, expected 74 int8 "
+        "on the card")
+    check(not any(type(l).__name__ == "Linear" for l in infer.sublayers()),
+          "workflow ptq: a Linear was left unconverted")
+    qm = paddle.Model(infer)
+    qm.prepare(loss=nn.CrossEntropyLoss(), metrics=Accuracy())
+    qev = qm.evaluate(eval_loader, verbose=0)
+    fev = model.evaluate(eval_loader, verbose=0)
+    err, top = 0.0, 0.0
+    with paddle.no_grad():
+        for x, _ in batches:
+            f, q = net(x)._buf.float(), infer(x)._buf.float()
+            err = max(err, (f - q).abs().max().item())
+            top = max(top, f.abs().max().item())
+    rel = err / top
+    check(np.isfinite(rel) and rel < WF_BAR, f"workflow ptq: logits off the "
+          f"float model's by {rel} of its largest (bar {WF_BAR})")
+    int8_bytes = sum(l.qweight._buf.numel() + 4 * l.scale._buf.numel()
+                     for l in qlayers)
+    bf16_bytes = sum(2 * l.weight._buf.numel() for l in linears)
+    path = str(WF_DIR / "ptq.pdparams")
+    sd = infer.state_dict()
+    paddle.save(sd, path)
+    back = paddle.load(path)
+    same = back.keys() == sd.keys() and all(
+        back[k]._buf.dtype == v._buf.dtype and torch.equal(back[k]._buf,
+                                                           v._buf)
+        for k, v in sd.items())
+    check(same, "workflow ptq: the int8 state dict did not round-trip "
+          "bitwise")
+    hist = _hist_thresholds(act["x"], True)
+    hist_cpu = _hist_thresholds(act["x"], False)
+    check([h[0] for h in hist] == [h[0] for h in hist_cpu],
+          f"workflow ptq: Hist / KL thresholds {hist} vs the CPU copy's "
+          f"{hist_cpu}")
+    print(f"workflow ptq: PTQ(absmax activations, per-channel weights) "
+          f"calibrated on {WF_CALIB} batches and converted in {ptq_s:.2f} s: "
+          f"{len(qlayers)} QuantizedLinearInfer (int8 weights on the card) "
+          f"for {len(linears)} Linear; eval acc int8 {qev['acc']:.4f} "
+          f"(loss {qev['loss'][0]:.4f}) beside float {fev['acc']:.4f} (loss "
+          f"{fev['loss'][0]:.4f}); logits within {rel:.4f} of the float "
+          f"model's largest (bar {WF_BAR}); weight bytes int8 {int8_bytes} "
+          f"(scales included) against bf16 {bf16_bytes} "
+          f"({bf16_bytes / int8_bytes:.2f}x); the int8 state dict "
+          f"({len(sd)} tensors) round-tripped bitwise; on {card}", flush=True)
+    print(f"workflow observers: layer 0's FFN input "
+          f"{list(act['x'].shape)}: Hist threshold {hist[0][0]:.6f} "
+          f"({hist[0][1]:.1f} host ms), KL {hist[1][0]:.6f} "
+          f"({hist[1][1]:.1f} host ms), equal to the same numpy run on its "
+          f"CPU copy", flush=True)
+    del calib, infer, qm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"acc_int8": qev["acc"], "acc_float": fev["acc"], "rel": rel,
+            "int8_bytes": int8_bytes, "bf16_bytes": bf16_bytes,
+            "hist": hist, "ptq_s": ptq_s}
+
+
+def _quanters(model):
+    return [l for l in model.sublayers()
+            if type(l).__name__ == "FakeQuanterWithAbsMaxObserverLayer"]
+
+
+def workflow_qat(dev, card):
+    """QAT of the reference's Layer GPT-2 124M at bench.py's step (bf16,
+    B16 S1024, AdamW + clip): the float step captured and replayed (this
+    run's yardstick); two QAT models from the same weights, one stepped
+    under ``to_static`` and one eagerly for ``QAT_STEPS`` steps, losses,
+    parameters and the 48 EMA scale / state buffers bitwise equal; the
+    captured replays timed and profiled; the QAT model converted to 48
+    int8 layers within the reference's bar."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.models.gpt2 import GPT2ForCausalLM as LayerGPT2
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, batch, seq = gpt2_bench_config()
+    L = cfg.num_layers
+    paddle.seed(SEED)
+    ref = LayerGPT2(cfg)
+    ref.to(dtype="bfloat16")
+    weights = {n: p.numpy() for n, p in ref.state_dict().items()}
+    del ref
+    ids = np.random.RandomState(SEED + 19).randint(0, cfg.vocab_size,
+                                                   (batch, seq + 1))
+    x, y = paddle.to_tensor(ids[:, :-1]), paddle.to_tensor(ids[:, 1:])
+
+    def model(quant):
+        paddle.seed(SEED)
+        m = LayerGPT2(cfg)
+        m.to(dtype="bfloat16")
+        missing, unexpected = m.set_state_dict(weights)
+        check(not missing and not unexpected, "workflow qat: set_state_dict")
+        if quant:
+            m = Q.QAT(Q.QuantConfig(
+                activation=Q.FakeQuanterWithAbsMaxObserver(),
+                weight=Q.FakeQuanterChannelWiseAbsMax())).quantize(
+                    m, inplace=True)
+        return m
+
+    def replays(static, n):
+        walls = []
+        for _ in range(n):
+            walls.append(_synced(lambda: static(x, y))[1])
+        return walls
+
+    res = {}
+    with layout_direct(False):
+        # this run's float captured step, the yardstick
+        F = model(False)
+        fstatic = paddle.jit.to_static(_bench_step(F, new_adamw(F)))
+        _warm_capture(fstatic, lambda: fstatic(x, y).item(), "qat float")
+        f_ms = float(np.median(replays(fstatic, QAT_REPLAYS)))
+        _, f_busy, _ = _profiled(lambda: fstatic(x, y), dev)
+        fstatic._cache.clear()
+        del F, fstatic
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        A, B = model(True), model(True)
+        qa = [l for l in A.sublayers() if type(l).__name__ == "QuantedLinear"]
+        check(len(qa) == 48 and len(_quanters(A)) == 48,
+              f"workflow qat: {len(qa)} QuantedLinear, {len(_quanters(A))} "
+              "EMA quanters, expected 48 each")
+        static = paddle.jit.to_static(_bench_step(A, new_adamw(A)))
+        eager = _bench_step(B, new_adamw(B))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = [static(x, y).item() for _ in range(QAT_STEPS)]
+        warm_s = time.perf_counter() - t0
+        cap_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = [eager(x, y).item() for _ in range(QAT_STEPS)]
+        (prog,) = _programs(static)
+        check(_graphs(static) == 1 and prog.captures == 1 and
+              not any(g.eager_only for g in static._cache.values()),
+              f"workflow qat: program {prog.stats()}")
+        same_p = all(torch.equal(p._buf, q._buf) for p, q in
+                     zip(A.parameters(), B.parameters()))
+        qb = _quanters(B)
+        same_s = all(torch.equal(a.scale._buf, b.scale._buf) and
+                     torch.equal(a.state._buf, b.state._buf)
+                     for a, b in zip(_quanters(A), qb))
+        print(f"workflow qat: {QAT_STEPS} captured steps' losses "
+              f"{[round(v, 5) for v in got]} vs the eager twin's "
+              f"{[round(v, 5) for v in want]}; parameters "
+              f"{'bitwise equal' if same_p else 'DIFFER'}; the 48 EMA "
+              f"scale / state buffers {'bitwise equal' if same_s else 'DIFFER'}"
+              f" (state {float(qb[0].state):.4f} after {QAT_STEPS} steps)",
+              flush=True)
+        check(got == want and same_p and same_s, "workflow qat: the captured "
+              "QAT steps are not bitwise the eager twin's")
+        check(all(np.isfinite(got)), f"workflow qat: losses {got}")
+        reset_launch_counts()
+        walls = replays(static, QAT_REPLAYS)
+        launches = {k: launch_counts()[k] for k in FLASH_COUNTERS}
+        wantL = {k: L * QAT_REPLAYS if k in ("K1", "K2", "K3") else 0
+                 for k in FLASH_COUNTERS}
+        check(launches == wantL, f"workflow qat: replays launched "
+              f"{launches}, expected {wantL}")
+        wall, busy, rows = _profiled(lambda: static(x, y), dev)
+        q_ms = float(np.median(walls))
+        capture_s = prog.capture_s
+        static._cache.clear()
+        del B, eager, static, prog
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # convert: 48 int8 layers, the loss and logits within the bar
+        A.eval()
+        infer = Q.QAT(Q.QuantConfig(
+            activation=Q.FakeQuanterWithAbsMaxObserver(),
+            weight=Q.FakeQuanterChannelWiseAbsMax())).convert(A)
+        n_int8 = sum(type(l).__name__ == "QuantizedLinearInfer" and
+                     l.qweight._buf.dtype == torch.int8
+                     for l in infer.sublayers())
+        with paddle.no_grad():
+            _, lq = A(x, labels=y)
+            _, li = infer(x, labels=y)
+            fq, fi = A(x[:2])._buf.float(), infer(x[:2])._buf.float()
+        lq, li = float(lq), float(li)
+        loss_rel = abs(li - lq) / abs(lq)
+        logit_rel = ((fi - fq).abs().max() / fq.abs().max()).item()
+    check(n_int8 == 48, f"workflow qat: convert gave {n_int8} int8 layers")
+    check(loss_rel < WF_BAR and logit_rel < WF_BAR, f"workflow qat: the "
+          f"int8 model's loss {li} vs the QAT model's {lq} ({loss_rel}), "
+          f"logits {logit_rel} (bar {WF_BAR})")
+    print(f"workflow qat: GPT-2 124M bf16 B{batch} S{seq} QAT (EMA absmax "
+          f"activations, channel-wise weights; 48 QuantedLinear): its "
+          f"first {QAT_STEPS} calls (spy, capture, replays) {warm_s:.2f} s "
+          f"({capture_s:.2f} s capturing), peak memory over them "
+          f"{cap_peak:.2f} GiB (two QAT models and optimizers resident); "
+          f"replay median {q_ms:.2f} ms ({[round(w, 2) for w in walls]}) "
+          f"against this run's float captured step {f_ms:.2f} ms "
+          f"(+{100 * (q_ms / f_ms - 1):.1f}%); replay launches {launches}; a "
+          f"profiled replay {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}%) against the float replay's "
+          f"{f_busy:.1f} ms: fake quantization and the EMA take "
+          f"{busy - f_busy:.1f} ms ({100 * (busy - f_busy) / busy:.1f}% of "
+          f"busy); converted to {n_int8} int8 QuantizedLinearInfer: loss "
+          f"{li:.5f} vs QAT {lq:.5f} ({loss_rel:.2e}), logits within "
+          f"{logit_rel:.4f} of the largest (bar {WF_BAR}); on {card}",
+          flush=True)
+    for key, count, kms in rows[:8]:
+        print(f"profile qat:   {kms:9.3f} ms {100 * kms / busy:5.1f}%  "
+              f"x{count:<5d} {key[:90]}")
+    del A, infer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"replay_ms": q_ms, "float_ms": f_ms, "busy_ms": busy,
+            "float_busy_ms": f_busy, "capture_s": capture_s,
+            "peak_gib": cap_peak, "launches": launches,
+            "loss_rel": loss_rel, "logit_rel": logit_rel}
+
+
+def workflow_phase(dev, card):
+    """The training workflow around M10 on the card: ERNIE 3.0 base
+    fine-tuned through ``Model.fit`` on the native ``DataLoader``
+    (``workflow_finetune``), quantized after training (``workflow_ptq``),
+    and GPT-2 124M's QAT step captured (``workflow_qat``).  Returns the
+    readings."""
+    import paddle_tpu_torch as paddle
+    gc.collect()
+    torch.cuda.empty_cache()
+    paddle.set_device(dev)
+    t0 = time.perf_counter()
+    cfg = ernie_base_config()
+    model, eval_loader, fit = workflow_finetune(dev, card, cfg)
+    out = {"fit": fit, "ptq": workflow_ptq(dev, card, model, eval_loader)}
+    del model, eval_loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["qat"] = workflow_qat(dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"workflow: the phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # --------------------------------------------------- phase 5: weight-only
 # Llama-3-8B's seven projections of a layer, (name, in_features K,
 # out_features N), as weight_only_linear stores them: [K, N]
@@ -6592,6 +7204,8 @@ def main():
     mark("ernie")
     llama_layer_phase(dev, card)
     mark("llama layer")
+    workflow_phase(dev, card)
+    mark("workflow")
     wo_lines, wo_launches = weight_only_phase(dev, card)
     mark("weight-only")
     kernels += wo_lines

@@ -78,11 +78,17 @@ def disable_signal_handler():
 # Subpackages load lazily (PEP 562) so `import paddle_tpu_torch` stays light
 # and the core never depends on higher layers.
 _LAZY = {
-    "nn", "optimizer", "amp", "jit", "distributed", "device", "models",
+    "nn", "optimizer", "amp", "io", "jit", "distributed", "device", "models",
     "inference", "quantization", "observability", "testing", "framework",
+    "metric", "hapi",
 }
 
 _LAZY_ATTRS = {
+    "save": ("paddle_tpu_torch.framework.io", "save"),
+    "load": ("paddle_tpu_torch.framework.io", "load"),
+    "Model": ("paddle_tpu_torch.hapi.model", "Model"),
+    "summary": ("paddle_tpu_torch.hapi.model", "summary"),
+    "flops": ("paddle_tpu_torch.hapi.model", "flops"),
     "CPUPlace": ("paddle_tpu_torch.core.device", "Place"),
     "get_default_generator": ("paddle_tpu_torch.core.rng", "default_generator"),
     "ParamAttr": ("paddle_tpu_torch.nn.initializer", "ParamAttr"),

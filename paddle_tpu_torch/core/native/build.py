@@ -53,8 +53,12 @@ def load(name: str, source_file: str, extra_flags=()):
         out = os.path.join(_cache_dir(), f"{name}-{digest}.so")
         if not os.path.exists(out):
             os.makedirs(_cache_dir(), exist_ok=True)
+            # a temporary of this process's own: processes that build the
+            # same library at once (test workers, a fresh checkout's first
+            # users) each rename a whole one into place
+            tmp = f"{out}.{os.getpid()}.tmp"
             cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-                   "-pthread", src, "-o", out + ".tmp", *extra_flags]
+                   "-pthread", src, "-o", tmp, *extra_flags]
             try:
                 r = subprocess.run(cmd, capture_output=True, timeout=120)
                 if r.returncode != 0:
@@ -65,7 +69,7 @@ def load(name: str, source_file: str, extra_flags=()):
                 _errors[name] = f"g++ unavailable or timed out: {e}"
                 _loaded[memo] = None
                 return None
-            os.replace(out + ".tmp", out)
+            os.replace(tmp, out)
         try:
             _loaded[memo] = ctypes.CDLL(out)
         except OSError as e:

@@ -1,6 +1,6 @@
 """paddle.framework compat namespace: counterpart of
-``paddle_tpu/framework/__init__.py``, less ``io`` (``save`` / ``load``,
-M13)."""
+``paddle_tpu/framework/__init__.py``."""
+from .io import save, load  # noqa: F401
 from ..core.rng import seed  # noqa: F401
 from ..core.dtype import set_default_dtype, get_default_dtype  # noqa: F401
 

@@ -11,9 +11,14 @@ never materialised.  Every other call — any CPU call, a call that needs a
 gradient, a shape K8 does not take, or ``FLAGS_weight_only_use_kernel``
 off — runs the reference's own second path, the dequant formulation
 ``(x @ W.to(x.dtype)) * scale``, in torch ops.  That path is chosen before
-anything runs; once K8 is chosen it launches or raises."""
+anything runs; once K8 is chosen it launches or raises.
+
+Each function takes torch tensors and gives torch tensors; given port
+Tensors (the reference's surface) it runs through the op dispatch and
+gives Tensors."""
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -23,10 +28,29 @@ from ..ops import quant_matmul as qmm
 
 __all__ = ["weight_quantize", "weight_dequantize", "weight_only_linear"]
 
+def _takes_tensors(fn):
+    """Port Tensors in any argument: run ``fn`` through ``apply_op`` on
+    their torch buffers and give Tensors; torch tensors go straight in."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        from ..core.tensor import Tensor
+        keys = [k for k, v in kwargs.items() if isinstance(v, Tensor)]
+        if not keys and not any(isinstance(a, Tensor) for a in args):
+            return fn(*args, **kwargs)
+        from ..core.dispatch import apply_op
+        n = len(args)
+
+        def f(*arrays):
+            return fn(*arrays[:n], **{**kwargs, **dict(zip(keys, arrays[n:]))})
+        return apply_op(fn.__name__, f, *args, *(kwargs[k] for k in keys))
+    return call
+
+
 _OUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                "float16": torch.float16}
 
 
+@_takes_tensors
 def weight_quantize(x, algo="weight_only_int8", group_size=-1):
     """w [in, out] -> (qw int8 [in, out] or packed int4 [in // 2, out],
     scale float32 [out]), per output channel, computed in w's dtype as the
@@ -49,6 +73,7 @@ def weight_quantize(x, algo="weight_only_int8", group_size=-1):
     return q, s.to(torch.float32)
 
 
+@_takes_tensors
 def weight_dequantize(x, scale, algo="weight_only_int8", out_dtype="float32"):
     """The integer weight (unpacked for int4) times its scale, in
     ``out_dtype``."""
@@ -62,6 +87,7 @@ def _on_card(x):
     return x.device.type == "cuda"
 
 
+@_takes_tensors
 def weight_only_linear(x, weight, bias=None, weight_scale=None,
                        weight_dtype="int8", arch=None, group_size=-1):
     """y = x @ dequant(weight) + bias (reference: quantized_linear.py:33).

@@ -63,8 +63,9 @@ DIVERGENT = {
     "inference/frontend/worker.py": set(),
     "distributed/store.py": set(),
     "distributed/membership.py": set(),
-    # the store daemon builds into build/paddle_tpu_torch/native/
-    "core/native/build.py": {"__doc__", "_cache_dir"},
+    # the store daemon builds into build/paddle_tpu_torch/native/, each
+    # process through a temporary of its own
+    "core/native/build.py": {"__doc__", "_cache_dir", "load"},
     # no jax; engines on devices, not mesh slices: split_mesh is not
     # carried, the pool's __init__ takes one device and refuses the mesh
     # knobs

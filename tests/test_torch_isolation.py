@@ -27,8 +27,8 @@ from paddle_tpu_torch.quantization import weight_only_linear
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+    REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("*.py"))
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
 
 
 def _imported_roots(path):
@@ -63,6 +63,16 @@ def test_port_files_import_no_jax_and_nothing_of_the_jax_package():
         port / "framework" / "__init__.py",
         port / "framework" / "compat.py", port / "version.py"} | {
         port / "ops" / f"{m}_extra.py" for m in ("math", "manip", "linalg")
+    } | {
+        # quantization (M10) and the training workflow around it
+        port / "quantization" / f"{m}.py" for m in (
+            "__init__", "base", "config", "observers", "quanters",
+            "qat_layers", "quantize")} | {
+        port / "nn" / "quant" / "__init__.py",
+        port / "framework" / "io.py", port / "io" / "__init__.py",
+        port / "io" / "native_loader.py", port / "metric" / "__init__.py",
+        port / "hapi" / "__init__.py", port / "hapi" / "callbacks.py",
+        port / "hapi" / "model.py", REPO / "tools" / "workflow_phase.py",
     } <= set(PORT_FILES)
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
                                             & set(FORBIDDEN))
@@ -122,6 +132,16 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.framework\n"
             "import paddle_tpu_torch.framework.compat\n"
             "import paddle_tpu_torch.version\n"
+            "import paddle_tpu_torch.framework.io\n"
+            "import paddle_tpu_torch.io\n"
+            "import paddle_tpu_torch.io.native_loader\n"
+            "import paddle_tpu_torch.metric\n"
+            "import paddle_tpu_torch.hapi\n"
+            "import paddle_tpu_torch.hapi.callbacks\n"
+            "import paddle_tpu_torch.quantization.quantize\n"
+            "import paddle_tpu_torch.quantization.observers\n"
+            "import paddle_tpu_torch as tp\n"
+            "tp.Model, tp.summary, tp.flops, tp.save, tp.load\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -531,5 +551,68 @@ def test_layer_llama_and_m2_rest_refusals(case, what):
     try:
         with pytest.raises(NotImplementedError, match=what):
             _refused(case)
+    finally:
+        core_device._current_device = prev
+
+
+def _workflow_refusal(case, tmp):
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.jit import InputSpec
+    if case == "distributed_batch_sampler":
+        io.DistributedBatchSampler(io.TensorDataset([np.zeros((4, 2))]), 2)
+    elif case == "model_save_inference":
+        paddle.Model(nn.Linear(2, 2), inputs=[InputSpec([None, 2])]).save(
+            str(tmp / "m"), training=False)
+
+
+@pytest.mark.parametrize("case,what", [
+    ("distributed_batch_sampler", "M12"), ("model_save_inference",
+                                           "jit.save")])
+def test_workflow_refusals(case, what, tmp_path):
+    """What the workflow slice leaves for later: the distributed sampler's
+    default ranks (M12) and ``Model.save(training=False)``, which goes
+    through ``jit.save`` (M13); each raises, naming it."""
+    from paddle_tpu_torch.core import device as core_device
+    prev = core_device._current_device
+    core_device._current_device = torch.device("cpu")
+    try:
+        with pytest.raises(NotImplementedError, match=what):
+            _workflow_refusal(case, tmp_path)
+    finally:
+        core_device._current_device = prev
+
+
+@pytest.mark.parametrize("case", ["load", "data_loader", "model", "quanter"])
+def test_workflow_entry_points_need_the_card_or_an_explicit_cpu(
+        no_cuda, case, tmp_path):
+    """A loaded checkpoint, the loader's batches, a Model's network and a
+    quanter's buffers go to the current place: without CUDA they raise
+    unless the caller asked for the CPU."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch import io, quantization
+    from paddle_tpu_torch.core import device as core_device
+    prev = core_device._current_device
+    core_device._current_device = torch.device("cpu")
+    path = str(tmp_path / "t.pdparams")
+    paddle.save({"w": paddle.to_tensor(np.ones(2, np.float32))}, path)
+
+    def run():
+        if case == "load":
+            return paddle.load(path)["w"].place
+        if case == "data_loader":
+            ds = io.TensorDataset([np.arange(4)])
+            return next(iter(io.DataLoader(ds, batch_size=2)))[0].place
+        if case == "model":
+            return paddle.Model(nn.Linear(2, 2)).network.weight.place
+        return quantization.FakeQuanterWithAbsMaxObserverLayer().scale.place
+    try:
+        core_device._current_device = None
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
+        core_device._current_device = torch.device("cpu")
+        assert run().is_cpu_place()
     finally:
         core_device._current_device = prev
