@@ -6757,6 +6757,155 @@ def hybrid_phase(dev, card):
     return out
 
 
+# ------------------------------------ phase 6p: pipeline and the sep axis
+# (parallel/pipeline_layer.py, pipeline.py, ring_attention.py, ulysses.py):
+# the same two launched ranks and NCCL world-1 twins as the hybrid phase
+PP_SEP_TIMEOUT = {"twin": 240, "ranks": 420}   # seconds a job may take
+PART_C_NORM = 1e-4              # part C's gradient norm, relative (dryrun)
+RING_BAR = 2e-2                 # the ring's kernels against its plain twin
+
+
+def _pp_sep_expected(kind, steps, rank):
+    """K1-K3 launches a rank of a (d) run: layers x blocks x microbatches x
+    steps.  Under ZB-H1 a stage whose chunk takes an activation runs the
+    flash backward twice (B for the input's gradient, W's sweep again for
+    the weights'); stage 0's chunk takes token ids, so its B has nothing
+    to do and W runs it once."""
+    if kind in ("1F1B", "VPP"):          # 2 layers a rank x 4 microbatches
+        return {"K1": 8 * steps, "K2": 8 * steps, "K3": 8 * steps}
+    if kind == "ZB-H1":
+        n = 8 * steps * (2 if rank else 1)
+        return {"K1": 8 * steps, "K2": n, "K3": n}
+    if kind == "ring":                   # 4 layers x (rank + 1) blocks
+        n = 4 * (rank + 1) * steps
+        return {"K1": n, "K2": n, "K3": n}
+    return {"K1": 4 * steps, "K2": 4 * steps, "K3": 4 * steps}   # ulysses
+
+
+def pipeline_sep_phase(dev, card):
+    """Pipeline parallelism and the 'sep' axis on the card
+    (``tools/hybrid_phase.py``): first the single-process NCCL world-1
+    twins (``_llama_child``'s step with 4 microbatches accumulated, its
+    full-batch step, part C's stages in sequence), then the two launched
+    ranks sharing the card: a 32 MB exchange each way over the CUDA
+    backend; the ring's kernels (K1-K3 a block) against its plain twin at
+    the sep run's shapes (``RING_BAR``); ``_llama_child`` at pp = 2 under
+    1F1B, the interleaved schedule (v = 2) and ZB-H1 (each held to the
+    microbatched twin: first loss 2e-3, first gradient norm 1e-2, the loss
+    falls; the tied weight's copies on the two stages equal after the
+    clipped steps), at sep = 2 with ring and Ulysses attention (held to the
+    full-batch twin the same way), and dryrun part C (two f32 stages at
+    hidden 2048, M = 4: the gradient norm within 1e-4 of the stages run in
+    sequence).  Prints each run's step ms, tokens/s, peak memory, the
+    staged collectives a step and K1-K3 launches a rank, held to their
+    counts.  Returns the readings and each rank's K1-K3 launches a run."""
+    import socket
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = HYBRID_DIR / "pp_sep"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    twin_s = _hybrid_job("pp_sep_twin", [
+        sys.executable, str(HYBRID_SCRIPT), "--pp-sep-twin", "--out",
+        str(out_dir)], env, PP_SEP_TIMEOUT["twin"])
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                        "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    ranks_s = _hybrid_job("pp_sep_ranks", [
+        sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+        "--nproc_per_node", "2", "--log_dir", str(out_dir / "log"),
+        str(HYBRID_SCRIPT), "--pp-sep-ranks", "--out", str(out_dir)],
+        env, PP_SEP_TIMEOUT["ranks"])
+    twin = json.loads((out_dir / "pp_sep_twin.json").read_text())
+    ranks = [json.loads((out_dir / f"pp_sep.{r}.json").read_text())["d"]
+             for r in range(2)]
+    label = "2 ranks on one card"
+    print(f"pipeline_sep: twin job {twin_s:.1f} s, ranks job {ranks_s:.1f} "
+          f"s", flush=True)
+    for r, res in enumerate(ranks):
+        ex = res["exchange"]
+        print(f"pipeline_sep rank {r}: a 32 MB exchange each way (both "
+              f"ranks send first) over the CUDA backend: {ex['ok']}, "
+              f"{ex['ms']:.1f} ms [{label}, on {card}]", flush=True)
+        check(ex["ok"], f"pipeline_sep rank {r}: the exchange did not arrive")
+        rc = res["ring_check"]
+        print(f"pipeline_sep rank {r}: ring K1-K3 vs its plain twin, q / kv "
+              f"{rc['shape']} bf16 causal: o, dq, dk, dv rel err "
+              f"{[f'{e:.2e}' for e in rc['errs']]} (bar {RING_BAR}); fwd + "
+              f"bwd {rc['ms']['kernel']:.2f} ms vs plain "
+              f"{rc['ms']['plain']:.2f} ms; launches {rc['launches']} "
+              f"[on {card}]", flush=True)
+        check(all(e <= RING_BAR for e in rc["errs"]),
+              f"pipeline_sep rank {r}: the ring is off its plain twin "
+              f"{rc['errs']}")
+    out = {"launches": {k: {} for k in ("K1", "K2", "K3")}, "runs": {}}
+    for kind, tw in (("1F1B", twin["micro"]), ("VPP", twin["micro"]),
+                     ("ZB-H1", twin["micro"]), ("ring", twin["full"]),
+                     ("ulysses", twin["full"])):
+        rs = [res[kind] for res in ranks]
+        el = _rel(rs[0]["losses"][0], tw["losses"][0])
+        en = _rel(rs[0]["norms"][0], tw["norms"][0])
+        print(f"pipeline_sep {kind}: first loss {rs[0]['losses'][0]:.6f} vs "
+              f"twin {tw['losses'][0]:.6f} (rel {el:.2e}, bar "
+              f"{HYBRID_LOSS}), first grad norm {rs[0]['norms'][0]:.5f} vs "
+              f"{tw['norms'][0]:.5f} (rel {en:.2e}, bar {HYBRID_NORM}), "
+              f"losses {rs[0]['losses']}", flush=True)
+        check(all(r_["losses"] == rs[0]["losses"] for r_ in rs),
+              f"pipeline_sep {kind}: the ranks' losses differ")
+        check(el <= HYBRID_LOSS, f"pipeline_sep {kind}: first loss rel {el}")
+        check(en <= HYBRID_NORM, f"pipeline_sep {kind}: first norm rel {en}")
+        check(rs[0]["losses"][-1] < rs[0]["losses"][0],
+              f"pipeline_sep {kind}: the loss did not fall")
+        if "tie_diff" in rs[0]:
+            print(f"pipeline_sep {kind}: the tied embedding's two copies "
+                  f"after {len(rs[0]['losses'])} clipped steps differ by "
+                  f"{[r_['tie_diff'] for r_ in rs]}", flush=True)
+            check(all(r_["tie_diff"] == 0 for r_ in rs),
+                  f"pipeline_sep {kind}: the tied weight's copies drifted")
+        ms = [_hybrid_readings(f"(d) {kind} rank {r}", res_, card, label)
+              for r, res_ in enumerate(rs)]
+        for r, res_ in enumerate(rs):
+            want = _pp_sep_expected(kind, len(res_["losses"]), r)
+            check(res_["launches"] == want, f"pipeline_sep {kind} rank {r}: "
+                  f"launches {res_['launches']} != {want}")
+            for k in out["launches"]:
+                out["launches"][k].setdefault(kind, []).append(
+                    res_["launches"][k])
+        out["runs"][kind] = {"ms": ms, "first_rel": el, "norm_rel": en}
+    _hybrid_readings("(d) twin, 4 microbatches, world 1", twin["micro"], card,
+                     twin["backend"])
+    _hybrid_readings("(d) twin, full batch, world 1", twin["full"], card,
+                     twin["backend"])
+    tc = twin["C"]
+    for r, res in enumerate(ranks):
+        c = res["C"]
+        en, el = _rel(c["norm"], tc["norm"]), _rel(c["loss"], tc["loss"])
+        print(f"pipeline_sep part C rank {r} (pp = 2 SPMD GPipe, one f32 "
+              f"decoder layer a stage at hidden 2048, M 4, B 2, S 1024): "
+              f"grad norm {c['norm']:.6e} vs in sequence {tc['norm']:.6e} "
+              f"(rel {en:.2e}, bar {PART_C_NORM}), loss rel {el:.2e}; "
+              f"{c['ms']:.1f} ms vs {tc['ms']:.1f} ms; launches "
+              f"{c['launches']} (sequence {tc['launches']}) [{label}, on "
+              f"{card}]", flush=True)
+        check(en <= PART_C_NORM and el <= PART_C_NORM,
+              f"pipeline_sep part C rank {r}: norm rel {en}, loss rel {el}")
+        check(c["launches"]["K1"] > 0 and c["launches"]["K2"] > 0,
+              f"pipeline_sep part C rank {r}: no flash launch")
+        for k in out["launches"]:
+            out["launches"][k].setdefault("part_c", []).append(
+                c["launches"][k])
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"pipeline_sep phase: {out['seconds']:.1f} s, on {card}",
+          flush=True)
+    return out
+
+
 # --------------------------------------------------- phase 5: weight-only
 # Llama-3-8B's seven projections of a layer, (name, in_features K,
 # out_features N), as weight_only_linear stores them: [K, N]
@@ -7389,6 +7538,8 @@ def main():
     # the MoE run hold about 33 GiB each
     hybrid = hybrid_phase(dev, card)
     mark("hybrid")
+    pp_sep = pipeline_sep_phase(dev, card)
+    mark("pipeline_sep")
     timer = Timer(dev)
     kernels = kernel_phase(dev, timer)
     mark("paged kernels")
@@ -7428,6 +7579,8 @@ def main():
         if k["kernel"] in hybrid["launches"]:
             # the hybrid phase's runs, a rank each (layers x steps)
             k["hybrid_launches"] = hybrid["launches"][k["kernel"]]
+            # the pipeline and sep runs, a rank each, by run
+            k["pipeline_sep_launches"] = pp_sep["launches"][k["kernel"]]
     check(sorted(k["kernel"] for k in kernels) == sorted(COUNTERS),
           f"the kernels line lists {[k['kernel'] for k in kernels]}")
     w = windows["decode"]

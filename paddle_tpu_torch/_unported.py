@@ -3,7 +3,6 @@ raises ``NotImplementedError`` naming its ``ROADMAP.md`` item when used, so
 it never silently vanishes from the surface."""
 from __future__ import annotations
 
-M12_PART2 = "M12 part 2 (pipeline schedules and the 'sep' axis; ROADMAP queue 1)"
 M12_PART3 = ("M12 part 3 (parameter server, RPC, elastic, auto-tuner, "
              "checkpoint, watchdog, auto-parallel engine; ROADMAP queue 1)")
 

@@ -13,8 +13,13 @@ functions map Paddle's semantics onto it:
 Torch raises on a second sweep over a freed graph only where a node needs
 a tensor it saved; the reference raises on any second sweep.
 
-``backward_split`` (the zero-bubble pipeline's deferred weight gradients)
-has no caller before pipeline parallelism (M12 part 2) and raises.
+``backward_split`` is the zero-bubble pipeline's split of a backward
+into B (the gradients of the graph's other leaves, now) and W (the
+parameters' gradients, deferred): B is ``torch.autograd.backward`` with
+``inputs`` restricted to the non-parameter leaves and the graph retained,
+so the engine skips every weight edge; W sweeps the same graph again with
+``inputs`` the parameters, which recomputes the activation gradients
+between the roots and each parameter (B's work) once more.
 
 Under a break-stitched echo pass (jit/to_static.py) ``backward`` is a
 no-op: the replayed program already produced every grad; the echo's
@@ -45,7 +50,7 @@ def backward(tensors, grad_tensors=None, retain_graph=False,
     if in_echo():
         return None
     if defer_param_ids is not None:
-        backward_split(tensors, grad_tensors, defer_param_ids)
+        return backward_split(tensors, grad_tensors, defer_param_ids)
     tensors = tensors if isinstance(tensors, (list, tuple)) else [tensors]
     if grad_tensors is None:
         grad_tensors = [None] * len(tensors)
@@ -62,11 +67,68 @@ def backward(tensors, grad_tensors=None, retain_graph=False,
                                 create_graph=create_graph)
 
 
+def _roots(tensors, grad_tensors):
+    tensors = tensors if isinstance(tensors, (list, tuple)) else [tensors]
+    if grad_tensors is None:
+        grad_tensors = [None] * len(tensors)
+    elif not isinstance(grad_tensors, (list, tuple)):
+        grad_tensors = [grad_tensors]
+    roots, cots = [], []
+    for t, g in zip(tensors, grad_tensors):
+        if t._buf.requires_grad:
+            roots.append(t._buf)
+            cots.append(_cotangent(t, g))
+    return roots, cots
+
+
+def _graph_leaves(roots):
+    """The leaf tensors (``AccumulateGrad`` variables) the roots' graph
+    reaches, in discovery order."""
+    leaves, seen = [], set()
+    stack = [r.grad_fn for r in roots]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        v = getattr(fn, "variable", None)
+        if v is not None:
+            leaves.append(v)
+        stack.extend(f for f, _ in fn.next_functions)
+    return leaves
+
+
 def backward_split(tensors, grad_tensors=None, param_ids=frozenset()):
-    """Zero-bubble B-phase backward (deferred W closures): not ported."""
-    raise NotImplementedError(
-        "backward_split / defer_param_ids (zero-bubble pipeline schedules) "
-        "come with pipeline parallelism, M12 part 2 (ROADMAP queue 1)")
+    """Zero-bubble B-phase backward: accumulate the gradients of every leaf
+    the graph reaches except the parameters whose ids are in ``param_ids``
+    now (B), and return the deferred W closures that accumulate those
+    parameters' gradients (the reference's contract; see the module doc for
+    what W recomputes)."""
+    from ..core.dispatch import in_echo
+    from ..core.tensor import _live_params
+    if in_echo():
+        return []
+    roots, cots = _roots(tensors, grad_tensors)
+    if not roots:
+        return []
+    pbufs = set()
+    for i in param_ids:
+        ref = _live_params.get(i)
+        p = ref() if ref is not None else None
+        if p is not None:
+            pbufs.add(id(p._buf))
+    leaves = _graph_leaves(roots)
+    w_in = [v for v in leaves if id(v) in pbufs]
+    b_in = [v for v in leaves if id(v) not in pbufs]
+    if b_in:
+        torch.autograd.backward(roots, cots, inputs=b_in,
+                                retain_graph=bool(w_in))
+    if not w_in:
+        return []
+
+    def w():
+        torch.autograd.backward(roots, cots, inputs=w_in)
+    return [w]
 
 
 def grad(outputs, inputs, grad_outputs=None, retain_graph=None, create_graph=False,

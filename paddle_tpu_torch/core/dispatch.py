@@ -205,6 +205,8 @@ def _apply_op_inner(name, fn, *inputs):
         # them (spy) or checks them against the spy's (capture)
         arrays = tuple(tc.on_read(a) if isinstance(a, Tensor) else a
                        for a in inputs)
+    if sharding._gathered:
+        arrays = sharding.gather_inputs(inputs, arrays)
     if _state.amp_state is not None:
         from ..amp import maybe_cast_inputs
         arrays = maybe_cast_inputs(name, arrays)

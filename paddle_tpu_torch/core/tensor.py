@@ -33,6 +33,7 @@ costs one ``None`` check.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -463,6 +464,11 @@ class Tensor:
         return arr.astype(dtype) if dtype is not None else arr
 
 
+# id(Parameter) -> weakref to it: how ``autograd.backward_split`` finds the
+# parameters of the ids it is given
+_live_params = {}
+
+
 class Parameter(Tensor):
     """Trainable tensor (python/paddle/base/framework.py Parameter analog)."""
 
@@ -475,6 +481,9 @@ class Parameter(Tensor):
         self.regularizer = None
         self.need_clip = True
         self.is_distributed = False
+        key = id(self)
+        _live_params[key] = weakref.ref(
+            self, lambda _, k=key: _live_params.pop(k, None))
 
     def __repr__(self):
         return "Parameter containing:\n" + super().__repr__()

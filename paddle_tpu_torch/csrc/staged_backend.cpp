@@ -1,8 +1,12 @@
 // A c10d backend that runs each collective of device tensors through host
 // buffers over an inner CPU gloo backend: the device tensors are copied
 // into (pinned) host tensors, the gloo collective runs and is waited on,
-// and the results are copied back.  Every call completes before it
-// returns, so its Work is a finished future.
+// and the results are copied back.  Every collective completes before it
+// returns, so its Work is a finished future.  Point-to-point sends and
+// receives are posted and return at once (StagedP2PWork): a send's host
+// copy is made before it is posted, a receive lands in its device tensor
+// when its Work is waited on, so two ranks may each post a send before
+// their receive, as over NCCL.
 //
 // Why: two ranks that share one card cannot form an NCCL communicator, and
 // gloo's own CUDA works crash under torch's functional collectives (the
@@ -83,6 +87,43 @@ c10::intrusive_ptr<Work> done(const std::vector<at::Tensor>& result) {
   fut->markCompleted(c10::IValue(result));
   return Work::create_from_future(fut);
 }
+
+// A posted gloo send or receive of host buffers: waiting on it waits on
+// the gloo work and, for a receive, copies the host buffers into the
+// device tensors.  It holds the host buffers until then.
+class StagedP2PWork : public Work {
+ public:
+  StagedP2PWork(c10::intrusive_ptr<Work> inner, std::vector<at::Tensor> host,
+                std::vector<at::Tensor> dst, c10d::OpType type)
+      : Work(-1, type), inner_(std::move(inner)), host_(std::move(host)),
+        dst_(std::move(dst)) {}
+
+  bool isCompleted() override {
+    std::lock_guard<std::mutex> g(mu_);
+    return landed_;
+  }
+
+  bool isSuccess() const override { return true; }
+
+  bool wait(std::chrono::milliseconds timeout) override {
+    std::lock_guard<std::mutex> g(mu_);
+    if (!landed_) {
+      inner_->wait(timeout);
+      copy_back(dst_, host_);
+      landed_ = true;
+    }
+    return true;
+  }
+
+  void abort() override { inner_->abort(); }
+
+ private:
+  std::mutex mu_;
+  bool landed_ = false;
+  c10::intrusive_ptr<Work> inner_;
+  std::vector<at::Tensor> host_;
+  std::vector<at::Tensor> dst_;   // empty for a send
+};
 
 class StagedBackend : public c10d::Backend {
  public:
@@ -242,17 +283,19 @@ class StagedBackend : public c10d::Backend {
       std::vector<at::Tensor>& tensors, int dstRank, int tag) override {
     count("send", nbytes(tensors));
     auto h = to_host(tensors);
-    inner_->send(h, dstRank, tag)->wait();
-    return done(tensors);
+    auto w = inner_->send(h, dstRank, tag);
+    return c10::make_intrusive<StagedP2PWork>(
+        std::move(w), std::move(h), std::vector<at::Tensor>{},
+        c10d::OpType::SEND);
   }
 
   c10::intrusive_ptr<Work> recv(
       std::vector<at::Tensor>& tensors, int srcRank, int tag) override {
     count("recv", nbytes(tensors));
     auto h = empty_host(tensors);
-    inner_->recv(h, srcRank, tag)->wait();
-    copy_back(tensors, h);
-    return done(tensors);
+    auto w = inner_->recv(h, srcRank, tag);
+    return c10::make_intrusive<StagedP2PWork>(std::move(w), std::move(h),
+                                              tensors, c10d::OpType::RECV);
   }
 
   c10::intrusive_ptr<Work> barrier(const c10d::BarrierOptions& opts) override {

@@ -10,9 +10,10 @@ control plane is here too (:mod:`.store`, :mod:`.membership`).
 
 Names of modules the port does not have yet stay on the surface and raise
 ``NotImplementedError`` naming their ROADMAP item: ``CommTaskManager``
-(watchdog), ``checkpoint``, ``ps_sparse``, ``rpc`` (M12 part 3) and
-``sequence_parallel``, ``ring_attention``, ``ulysses``, ``pipeline``,
-``pipeline_layer`` (M12 part 2).
+(watchdog), ``checkpoint``, ``ps_sparse``, ``rpc`` (M12 part 3).  The
+hybrid-parallel schedules are here by module name too:
+``sequence_parallel``, ``ring_attention``, ``ulysses``, ``pipeline`` and
+``pipeline_layer`` are :mod:`paddle_tpu_torch.parallel`'s.
 """
 from .env import (ParallelEnv, get_rank, get_world_size, init_parallel_env,  # noqa: F401
                   is_initialized, get_store, parallel_device_count)
@@ -40,7 +41,7 @@ from . import fleet  # noqa: F401
 from . import sharding  # noqa: F401
 from .. import _unported
 
-_P2, _P3 = _unported.M12_PART2, _unported.M12_PART3
+_P3 = _unported.M12_PART3
 CommTaskManager = _unported.cls("paddle.distributed.CommTaskManager", _P3)
 watchdog = _unported.Module("paddle.distributed.watchdog", _P3)
 checkpoint = _unported.Module("paddle.distributed.checkpoint", _P3)
@@ -48,11 +49,6 @@ ps_sparse = _unported.Module("paddle.distributed.ps_sparse", _P3)
 ps = _unported.Module("paddle.distributed.ps", _P3)
 rpc = _unported.Module("paddle.distributed.rpc", _P3)
 auto_tuner = _unported.Module("paddle.distributed.auto_tuner", _P3)
-sequence_parallel = _unported.Module("paddle.distributed.sequence_parallel", _P2)
-ring_attention = _unported.Module("paddle.distributed.ring_attention", _P2)
-ulysses = _unported.Module("paddle.distributed.ulysses", _P2)
-pipeline = _unported.Module("paddle.distributed.pipeline", _P2)
-pipeline_layer = _unported.Module("paddle.distributed.pipeline_layer", _P2)
 
 
 def spawn(func, args=(), nprocs=-1, join=True, daemon=False, **options):
@@ -93,3 +89,16 @@ def _spawn_entry(func, args, env):
     import os
     os.environ.update(env)
     func(*args)
+
+
+_PARALLEL_MODULES = ("sequence_parallel", "ring_attention", "ulysses",
+                     "pipeline", "pipeline_layer")
+
+
+def __getattr__(name):
+    # the schedules' modules live in paddle_tpu_torch.parallel, which
+    # imports this package: resolved on first use
+    if name in _PARALLEL_MODULES:
+        import importlib
+        return importlib.import_module(f"paddle_tpu_torch.parallel.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

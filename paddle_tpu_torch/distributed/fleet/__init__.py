@@ -153,9 +153,8 @@ class Fleet:
         """reference: fleet/model.py:32 — picks the wrapper by topology."""
         hc = self._hcg
         if hc.get_pipe_parallel_world_size() > 1:
-            raise NotImplementedError(
-                "pipeline parallelism (pp_degree > 1) is "
-                + _unported.M12_PART2 + ", which the port does not have yet")
+            from ...parallel.pipeline_layer import PipelineParallel
+            return PipelineParallel(model, hc, self._strategy)
         if hc.get_model_parallel_world_size() > 1 or hc.get_sep_parallel_world_size() > 1:
             from ...parallel.tensor_parallel import TensorParallel
             return TensorParallel(model, hc, self._strategy)

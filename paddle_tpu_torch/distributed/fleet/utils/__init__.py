@@ -1,10 +1,5 @@
-"""fleet.utils compat (reference: fleet/utils/__init__.py).
-``sequence_parallel_utils`` is M12 part 2: its names raise
-``NotImplementedError`` naming it."""
+"""fleet.utils compat (reference: fleet/utils/__init__.py)."""
 from ..recompute import recompute, recompute_sequential, recompute_hybrid  # noqa: F401
-from .... import _unported
+from ....parallel import sequence_parallel as sequence_parallel_utils  # noqa: F401
 from . import timer_helper  # noqa: F401
 from .timer_helper import get_timers, set_timers  # noqa: F401
-
-sequence_parallel_utils = _unported.Module(
-    "fleet.utils.sequence_parallel_utils", _unported.M12_PART2)

@@ -16,10 +16,12 @@ on the fsdp axis) as DTensor placements.  The serving engine runs the
 Divergences from the reference: :class:`KVCache` writes its new steps and
 its offset in place (the reference rebinds the cache tensors, which a
 captured decode step would copy back whole every token), and ``generate``
-rewinds the offset in place.  What needs M12 part 2 (ROADMAP queue 1)
-raises ``NotImplementedError`` naming it: a sequence-parallel group larger
-than 1 (ring / Ulysses attention), ``make_decoder_stage`` and the ``*Pipe``
-classes.
+rewinds the offset in place.  Over a 'sep' group attention is ring or
+Ulysses attention on the flash kernels, which take grouped K / V as they
+are (the reference repeats them to the query heads first).
+``make_decoder_stage`` is the decoder block in torch for the stacked-stage
+pipeline (its attention on the flash path), and the ``*Pipe`` classes
+build the ``PipelineLayer`` of ``parallel/pipeline_layer.py``.
 """
 from __future__ import annotations
 
@@ -37,10 +39,6 @@ from ..nn.layer.container import LayerList
 from ..nn import functional as F
 from ..nn.functional.rope import fused_rotary_position_embedding
 from ..nn.initializer import Normal
-
-_M12 = ("needs M12 part 2 (pipeline schedules and the 'sep' axis, ROADMAP "
-        "queue 1), which the port does not have yet")
-
 
 class LlamaConfig:
     def __init__(self, vocab_size=128256, hidden_size=4096, intermediate_size=14336,
@@ -231,10 +229,19 @@ class LlamaAttention(Layer):
         from ..distributed.fleet.topology import get_hybrid_communicate_group
         hcg_sep = get_hybrid_communicate_group().get_sep_parallel_world_size()
         if hcg_sep > 1:
-            # context parallelism (ring / Ulysses attention over 'sep')
-            raise NotImplementedError(
-                f"sequence-parallel attention (sep world size {hcg_sep}) "
-                + _M12)
+            # context parallelism: sequence sharded on 'sep'; ring attention
+            # by default, Ulysses all-to-all when configured and head counts
+            # divide (S >> H regime where ring's per-hop latency dominates);
+            # the flash kernels take the grouped K / V heads as they are
+            if getattr(self, "sep_backend", "ring") == "ulysses" and \
+                    self.num_heads % hcg_sep == 0:
+                from ..parallel.ulysses import ulysses_attention
+                out = ulysses_attention(q, k, v, causal=True,
+                                        axis_name="sep")
+            else:
+                from ..parallel.ring_attention import ring_flash_attention
+                out = ring_flash_attention(q, k, v, causal=True,
+                                           axis_name="sep")
         else:
             out, _ = F.flash_attention(q, k, v, causal=True)
         return self.o_proj(out.reshape([b, s, self.num_heads * self.head_dim]))
@@ -530,49 +537,176 @@ def shard_llama(model: LlamaForCausalLM, mesh, fsdp_axis="dp", mp_axis="mp"):
 
 def causal_lm_loss(logits, labels, vocab_size, aux_loss=None, aux_coef=0.01):
     """Token cross-entropy (+ optional MoE load-balance aux) — the one loss
-    formula shared by the dense and pipeline-partitioned models."""
-    loss = F.cross_entropy(logits.reshape([-1, vocab_size]),
-                           labels.reshape([-1]))
+    formula shared by the dense and pipeline-partitioned models.  Over the
+    last axis of [B, S, V] as it is: a sequence split over 'sep' stays
+    split (DTensor cannot flatten it with the batch)."""
+    loss = F.cross_entropy(logits, labels)
     if aux_loss is not None:
         loss = loss + aux_coef * aux_loss
     return loss
 
 
 def make_decoder_stage(config: LlamaConfig):
-    """The decoder block as (init, apply) for the stacked-weight pipeline
-    (parallel/pipeline.py): needs M12 part 2."""
-    raise NotImplementedError("make_decoder_stage " + _M12)
+    """The Llama decoder block as (init, apply) over a plain dict of torch
+    tensors — the homogeneous stage function for the stacked-weight
+    pipeline (parallel/pipeline.py). Real block: RMSNorm → GQA attention
+    with RoPE → RMSNorm → SwiGLU MLP; attention goes through the flash path
+    (K1-K3 on the card) where the kernels take the shape, else dense.
+    ``init(generator)`` draws from an explicit ``torch.Generator``."""
+    from ..nn.functional.attention import _sdpa_ref
+    from ..ops.flash_attention import flash_attention_bshd, supported
+
+    h = config.hidden_size
+    nh, nkv = config.num_attention_heads, config.num_key_value_heads
+    hd = h // nh
+    m = config.intermediate_size
+    theta = config.rope_theta
+    eps = config.rms_norm_eps
+    std = config.initializer_range
+
+    def init(generator, device=None, dtype=torch.float32):
+        def n(*shape):
+            return torch.randn(shape, generator=generator, device=device,
+                               dtype=torch.float32).to(dtype) * std
+        return {
+            "ln1": torch.ones((h,), device=device, dtype=dtype),
+            "wq": n(h, nh * hd), "wk": n(h, nkv * hd),
+            "wv": n(h, nkv * hd), "wo": n(nh * hd, h),
+            "ln2": torch.ones((h,), device=device, dtype=dtype),
+            "wg": n(h, m), "wu": n(h, m),
+            "wd": n(m, h),
+        }
+
+    def _rms(x, w):
+        v = (x.float() ** 2).mean(-1, keepdim=True)
+        return (x * torch.rsqrt(v + eps)).to(x.dtype) * w
+
+    def _rope(x):
+        b, s, n_heads, d = x.shape
+        pos = torch.arange(s, dtype=torch.float32, device=x.device)
+        freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                        device=x.device) / d)
+        ang = pos[:, None] * freqs[None, :]
+        cos, sin = torch.cos(ang)[None, :, None, :], \
+            torch.sin(ang)[None, :, None, :]
+        x1, x2 = x[..., ::2], x[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+        return out.reshape(x.shape).to(x.dtype)
+
+    def apply(p, x):
+        b, s, _ = x.shape
+        y = _rms(x, p["ln1"])
+        q = _rope((y @ p["wq"]).reshape(b, s, nh, hd))
+        k = _rope((y @ p["wk"]).reshape(b, s, nkv, hd))
+        v = (y @ p["wv"]).reshape(b, s, nkv, hd)
+        if supported(q.shape, k.shape):
+            o = flash_attention_bshd(q, k, v, causal=True)
+        else:
+            o = _sdpa_ref(q, k, v, causal=True)
+        x = x + o.reshape(b, s, nh * hd) @ p["wo"]
+        y = _rms(x, p["ln2"])
+        return x + (torch.nn.functional.silu(y @ p["wg"]) * (y @ p["wu"])) \
+            @ p["wd"]
+
+    return init, apply
 
 
 class LlamaEmbeddingPipe(Layer):
-    """Stage-0 pipe chunk (token embedding): needs M12 part 2."""
+    """Stage-0 pipe chunk: token embedding (reference PaddleNLP
+    LlamaEmbeddingPipe semantics — first pp stage owns the embedding).
+    For MoE configs it also seeds the carried aux-loss stream."""
 
     def __init__(self, config: LlamaConfig, emit_aux=False):
-        raise NotImplementedError("LlamaEmbeddingPipe " + _M12)
+        super().__init__()
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      weight_attr=Normal(std=config.initializer_range))
+        self._emit_aux = emit_aux
+
+    def forward(self, input_ids):
+        h = self.embed_tokens(input_ids)
+        if self._emit_aux:
+            return (h, Tensor(torch.zeros((), dtype=torch.float32,
+                                          device=h._buf.device)))
+        return h
 
 
 class LlamaDecoderLayerPipe(LlamaDecoderLayer):
-    """Decoder chunk carrying the MoE aux loss across stages: needs M12 part 2."""
+    """Decoder chunk that carries the running MoE aux loss through the stage
+    boundary as a second stream member — each chunk's aux contribution stays
+    inside that chunk's tape segment, so the chunked backward never crosses a
+    detach boundary (the reference allreduces aux across the pp group)."""
 
-    def __init__(self, config: LlamaConfig):
-        raise NotImplementedError("LlamaDecoderLayerPipe " + _M12)
+    def forward(self, x):
+        x, aux = x
+        h = super().forward(x)
+        al = getattr(self.mlp, "aux_loss", None)
+        if al is not None:
+            aux = aux + al
+        return (h, aux)
 
 
 class LlamaNormHeadPipe(Layer):
-    """Last pipe chunk (final RMSNorm + LM head): needs M12 part 2."""
+    """Last pipe chunk: final RMSNorm + LM head → logits. With tied embeddings
+    the weight is read through a closure (not registered here) so it belongs
+    to exactly one stage's parameter list."""
 
     def __init__(self, config: LlamaConfig, tied_weight_getter=None):
-        raise NotImplementedError("LlamaNormHeadPipe " + _M12)
+        super().__init__()
+        self.config = config
+        self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps)
+        if config.tie_word_embeddings:
+            self.lm_head = None
+            self._tied_weight_getter = tied_weight_getter
+        else:
+            self.lm_head = Linear(config.hidden_size, config.vocab_size,
+                                  weight_attr=Normal(std=config.initializer_range),
+                                  bias_attr=False)
+
+    def forward(self, x):
+        aux = None
+        if isinstance(x, tuple):
+            x, aux = x
+        h = self.norm(x)
+        if self.lm_head is not None:
+            logits = self.lm_head(h)
+        else:
+            logits = ops.matmul(h, self._tied_weight_getter(), transpose_y=True)
+        return logits if aux is None else (logits, aux)
 
 
 class LlamaForCausalLMPipe:
-    """Pipeline-partitioned Llama (a PipelineLayer of the chunks above):
-    needs M12 part 2."""
+    """Pipeline-partitioned Llama (reference: PaddleNLP LlamaForCausalLMPipe on
+    fleet pp_layers.py:258). Returns a PipelineLayer whose chunks are
+    [embedding | decoder blocks … | norm+head], segmented by decoder-layer
+    count so embedding rides stage 0 and the head rides the last stage."""
 
     def __new__(cls, config: LlamaConfig, num_stages=2,
                 num_virtual_pipeline_stages=None, recompute_interval=0,
                 topology=None):
-        raise NotImplementedError("LlamaForCausalLMPipe " + _M12)
+        from ..parallel.pipeline_layer import PipelineLayer
+
+        moe = config.num_experts > 0
+        embed = LlamaEmbeddingPipe(config, emit_aux=moe)
+        dec_cls = LlamaDecoderLayerPipe if moe else LlamaDecoderLayer
+        decoders = [dec_cls(config) for _ in range(config.num_hidden_layers)]
+        head = LlamaNormHeadPipe(
+            config, tied_weight_getter=lambda: embed.embed_tokens.weight)
+
+        def loss_fn(out, labels):
+            logits, aux = out if isinstance(out, tuple) else (out, None)
+            return causal_lm_loss(logits, labels, config.vocab_size, aux)
+
+        pipe = PipelineLayer(
+            [embed] + decoders + [head],
+            num_stages=num_stages, loss_fn=loss_fn,
+            seg_method=f"layer:{dec_cls.__name__}",
+            recompute_interval=recompute_interval,
+            num_virtual_pipeline_stages=num_virtual_pipeline_stages,
+            topology=topology)
+        pipe.config = config
+        if config.tie_word_embeddings:
+            pipe._pin_exempt.add(id(embed.embed_tokens.weight))
+        return pipe
 
 
 def llama3_8b():

@@ -6,8 +6,16 @@ the reference's do, over port Tensors or ``torch.Tensor``s: a gradient
 comes back as the kind it was given.  Norms are accumulated in float32 on
 the device and a scaled gradient is cast back to its own dtype.  A
 parameter with ``need_clip = False`` is passed through untouched.
+
+Under a pipeline over launched ranks each rank steps only its own stage's
+weights, so ``ClipGradByGlobalNorm`` would see a stage's norm.  The
+pipeline's step runs inside :func:`norm_over_stages`, and the global norm
+is then summed over the stages, each weight counted once, as the
+reference's hybrid-parallel clip does.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -25,6 +33,22 @@ def _clips(p, g):
 def _like(g, out):
     """``out`` as the kind of gradient ``g`` is: a Tensor for a Tensor."""
     return _wrap(out) if isinstance(g, Tensor) else out
+
+
+_STAGES = []     # (group, ids counted on another stage, device) of a step
+
+
+@contextlib.contextmanager
+def norm_over_stages(group, elsewhere, device):
+    """Within it, ``ClipGradByGlobalNorm`` all-reduces its sum of squares
+    over ``group`` (the pipeline's stages; every rank of it must step) and
+    leaves out the weights whose ids are in ``elsewhere`` (a stage's copy
+    of a weight an earlier stage owns)."""
+    _STAGES.append((group, set(elsewhere), device))
+    try:
+        yield
+    finally:
+        _STAGES.pop()
 
 
 class ClipGradBase:
@@ -71,11 +95,19 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = clip_norm
 
     def __call__(self, params_grads):
+        stages = _STAGES[-1] if _STAGES else None
         sq = None
         for p, g in params_grads:
-            if _clips(p, g):
+            if _clips(p, g) and not (stages and id(p) in stages[1]):
                 s = torch.sum(torch.square(unwrap(g).to(torch.float32)))
                 sq = s if sq is None else sq + s
+        if stages is not None:
+            import torch.distributed as dist
+            from ..core.sharding import full
+            group, _, device = stages
+            sq = torch.zeros((), device=device) if sq is None else \
+                full(sq).clone()
+            dist.all_reduce(sq, group=group.pg)
         if sq is None:
             return params_grads
         global_norm = torch.sqrt(sq)

@@ -66,17 +66,34 @@ def _sdpa_ref(q, k, v, mask=None, causal=False, dropout_p=0.0, scale=None,
     return out.reshape(B, sq, hq, d).to(q.dtype)
 
 
+def _sep_sharded(q):
+    """Whether sharded q [B, S, H, D] has its sequence split over 'sep'."""
+    names = q.device_mesh.mesh_dim_names or ()
+    return any(p.is_shard() and p.dim % 4 == 1 and names[i] == "sep"
+               for i, p in enumerate(q.placements))
+
+
+def _ring(q, k, v, causal):
+    """Causal or full attention of a sequence split over 'sep': the ring
+    (``parallel/ring_attention.py``, the flash kernels a block)."""
+    from ...distributed.fleet.topology import get_hybrid_communicate_group
+    from ...parallel.ring_attention import ring_on_shards
+    g = get_hybrid_communicate_group().axis_group("sep")
+    return ring_on_shards(q, k, v, causal, g)
+
+
 def _local_heads(fn, q, k, v):
     """``fn`` on each rank's shard of sharded [B, S, H, D] inputs: batch and
     heads may be split (k and v take q's placements; GQA keeps its ratio
-    per rank), so the flash kernels run on local heads; a split sequence or
-    head_dim raises."""
+    per rank), so the flash kernels run on local heads; a sequence split
+    over 'sep' goes to the ring (``_sdpa`` / ``_flash``), over any other
+    axis, or a split head_dim, raises."""
     dm, pl = q.device_mesh, q.placements
     for p in pl:
         if p.is_shard() and p.dim % 4 in (1, 3):
             raise NotImplementedError(
-                "attention over a sharded sequence (ring / Ulysses attention "
-                "over 'sep', M12 part 2 in ROADMAP queue 1) or head_dim")
+                "attention over a sequence split on an axis other than "
+                "'sep', or over a split head_dim")
     k, v = [(t if sharding.is_sharded(t) else sharding.replicated(t, dm))
             .redistribute(dm, pl) for t in (k, v)]
     out = fn(*(_ContiguousGrad.apply(t.to_local()) for t in (q, k, v)))
@@ -103,6 +120,8 @@ def _sdpa(query, key, value, attn_mask, dropout_p, is_causal, training,
     if sharding.is_sharded(query):
         if attn_mask is not None:
             raise NotImplementedError("masked attention of sharded inputs")
+        if _sep_sharded(query) and not (training and dropout_p):
+            return _ring(query, key, value, is_causal)
         return _local_heads(lambda q, k, v: _sdpa(
             q, k, v, None, dropout_p, is_causal, training, generator),
             query, key, value)
@@ -116,6 +135,8 @@ def _sdpa(query, key, value, attn_mask, dropout_p, is_causal, training,
 
 def _flash(query, key, value, dropout, causal, training, generator):
     if sharding.is_sharded(query):
+        if _sep_sharded(query) and not (training and dropout):
+            return _ring(query, key, value, causal)
         return _local_heads(lambda q, k, v: _flash(
             q, k, v, dropout, causal, training, generator), query, key, value)
     drop = dropout if training else 0.0

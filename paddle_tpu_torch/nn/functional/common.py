@@ -27,7 +27,12 @@ from ...ops.manipulation import pad
 
 def _linear(a, w, b=None):
     """x @ W (+ b) with W [in, out]; with a bias one GEMM whose epilogue
-    adds it (``addmm`` over the rows of x)."""
+    adds it (``addmm`` over the rows of x).  Activations split along a
+    sequence multiply on each rank's rows (``sharding.rows_matmul``)."""
+    if sharding.is_sharded(a):
+        out = sharding.rows_matmul(a, w)
+        if out is not None:
+            return out if b is None else out + b
     if b is None or a.ndim < 2:
         out = torch.matmul(a, w)
         return out if b is None else out + b

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..core.tensor import Tensor, _wrap
-from ..core import dtype as dtypes
+from ..core import dtype as dtypes, sharding
 from ..core.dispatch import apply_op, unwrap
 
 
@@ -397,6 +397,10 @@ def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
             a = a.transpose(-1, -2) if a.ndim >= 2 else a
         if transpose_y:
             b = b.transpose(-1, -2) if b.ndim >= 2 else b
+        if sharding.is_sharded(a):
+            out = sharding.rows_matmul(a, b)
+            if out is not None:
+                return out
         return torch.matmul(a, b)
     return apply_op("matmul", f, x, y)
 

@@ -1,37 +1,26 @@
 """Hybrid-parallel layer library (SURVEY §2.4): counterpart of
-``paddle_tpu/parallel/``.  TP = DTensor placements on 'mp'; EP = dense
-GShard dispatch with the experts on 'ep'; ZeRO = placements on 'sharding'.
-The pipeline schedules, sequence parallelism, ring and Ulysses attention
-are M12 part 2 (ROADMAP queue 1): their names raise ``NotImplementedError``
-naming it."""
-from .. import _unported
+``paddle_tpu/parallel/``.  TP / SP = DTensor placements on 'mp'; EP = dense
+GShard dispatch with the experts on 'ep'; ZeRO = placements on 'sharding';
+PP = the SPMD ``mesh_ppermute`` schedule or the stage-partitioned container
+(one process a stage rank); CP = ring or Ulysses attention over 'sep'."""
 from .mp_layers import (VocabParallelEmbedding, ColumnParallelLinear,  # noqa: F401
                         RowParallelLinear, ParallelCrossEntropy,
                         RNGStatesTracker, get_rng_state_tracker,
                         model_parallel_random_seed)
+from .sequence_parallel import (ColumnSequenceParallelLinear,  # noqa: F401
+                                RowSequenceParallelLinear, AllGatherOp,
+                                ReduceScatterOp,
+                                mark_as_sequence_parallel_parameter,
+                                register_sequence_parallel_allreduce_hooks)
 from .moe import MoELayer, ExpertMLP, top2_gating  # noqa: F401
+from .ring_attention import ring_flash_attention  # noqa: F401
+from .ulysses import ulysses_attention  # noqa: F401
+from .pipeline import pipeline_forward, pipeline_call  # noqa: F401
+from .pipeline_layer import (PipelineLayer, LayerDesc, SharedLayerDesc,  # noqa: F401
+                             PipelineParallel, PipelineParallelWithInterleave,
+                             ZeroBubblePipelineParallel)
 from .tensor_parallel import TensorParallel, SegmentParallel  # noqa: F401
 from .sharding import (group_sharded_parallel, save_group_sharded_model,  # noqa: F401
                        DygraphShardingOptimizer, GroupShardedStage2,
                        GroupShardedStage3, GroupShardedOptimizerStage2,
                        shard_parameters, shard_accumulators)
-
-_P2 = _unported.M12_PART2
-ColumnSequenceParallelLinear = _unported.cls("ColumnSequenceParallelLinear", _P2)
-RowSequenceParallelLinear = _unported.cls("RowSequenceParallelLinear", _P2)
-AllGatherOp = _unported.cls("AllGatherOp", _P2)
-ReduceScatterOp = _unported.cls("ReduceScatterOp", _P2)
-mark_as_sequence_parallel_parameter = _unported.function(
-    "mark_as_sequence_parallel_parameter", _P2)
-register_sequence_parallel_allreduce_hooks = _unported.function(
-    "register_sequence_parallel_allreduce_hooks", _P2)
-ring_flash_attention = _unported.function("ring_flash_attention", _P2)
-ulysses_attention = _unported.function("ulysses_attention", _P2)
-pipeline_forward = _unported.function("pipeline_forward", _P2)
-pipeline_call = _unported.function("pipeline_call", _P2)
-PipelineLayer = _unported.cls("PipelineLayer", _P2)
-LayerDesc = _unported.cls("LayerDesc", _P2)
-SharedLayerDesc = _unported.cls("SharedLayerDesc", _P2)
-PipelineParallel = _unported.cls("PipelineParallel", _P2)
-PipelineParallelWithInterleave = _unported.cls("PipelineParallelWithInterleave", _P2)
-ZeroBubblePipelineParallel = _unported.cls("ZeroBubblePipelineParallel", _P2)

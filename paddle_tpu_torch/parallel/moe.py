@@ -134,6 +134,23 @@ class ExpertMLP(Layer):
         return apply_op("expert_mlp", f, x, self.w1, self.w2)
 
 
+def _ep_dim(mesh, ep):
+    """The device-mesh dimension of the experts' axis ``ep`` (None when
+    nothing is sharded or the axis is not split)."""
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    return names.index(ep) if ep in names and mesh.size(names.index(ep)) > 1 \
+        else None
+
+
+def _local_rows(n, mesh, dim):
+    """[lo, hi) of the rows of an n-row tensor this rank holds when it is
+    sharded on mesh dimension ``dim`` (torch.chunk's split)."""
+    k = mesh.size(dim)
+    per = -(-n // k)
+    lo = min(mesh.get_local_rank(dim) * per, n)
+    return lo, min(lo + per, n)
+
+
 class MoELayer(Layer):
     """reference: moe/moe_layer.py:263. GShard-style gate, top_k selectable
     (top-2 default; DeepSeek/Qwen2 MoE use 6/8)."""
@@ -161,27 +178,54 @@ class MoELayer(Layer):
         C = int(np.ceil(self.capacity_factor * self.top_k * S / E))
         cap = C
 
-        def f(a, gw):
-            # every rank gates every token (the capacity positions are a
-            # cumulative sum over all of them)
-            a, mesh = sharding.replicated_local(a)
-            gw, _ = sharding.replicated_local(gw)
-            flat = a.reshape(S, m)
-            logits = flat.to(torch.float32) @ gw.to(torch.float32)
-            combine, dispatch, aux = topk_gating(logits, cap, self.top_k)
-            # dispatch tokens -> [E, C, m]; the constraint below hands each
-            # rank its experts' rows
-            exp_in = torch.einsum("sec,sm->ecm", dispatch.to(a.dtype), flat)
-            return tuple(sharding.replicated(t, mesh) for t in
-                         (exp_in, combine.to(torch.float32), aux))
-
-        exp_in, combine, aux = apply_op("moe_dispatch", f, x, self.gate_w)
-        # prefer the axis fixed at construction (consistent with the expert
-        # weight sharding); if the active mesh no longer has that axis, fall
-        # back to what the current mesh supports so _constrain can't KeyError
         ep = getattr(self.experts, "ep_axis", None)
         if ep is None or ep not in _mp_mesh().dim_names:
             ep = _expert_axes()[0]
+
+        def f(a, gw):
+            # every rank gates every token (the capacity positions are a
+            # cumulative sum over all of them)
+            mesh = a.device_mesh if sharding.is_sharded(a) else None
+            ed = _ep_dim(mesh, ep)
+            if ed is not None and E % mesh.size(ed):
+                ed = None
+            if ed is None:
+                a, mesh = sharding.replicated_local(a)
+                flat = a.reshape(S, m)
+                disp_in = flat
+            else:
+                from torch.distributed.tensor import Partial, Replicate
+                rep = a.redistribute(mesh, [Replicate()] * mesh.ndim)
+                flat = rep.to_local().reshape(S, m)
+                # the dispatch below reads this rank's experts' tokens
+                # only: its gradient is a partial sum over 'ep'
+                disp_in = rep.to_local(grad_placements=[
+                    Partial() if d == ed else Replicate()
+                    for d in range(mesh.ndim)]).reshape(S, m)
+            gw, _ = sharding.replicated_local(gw)
+            logits = flat.to(torch.float32) @ gw.to(torch.float32)
+            combine, dispatch, aux = topk_gating(logits, cap, self.top_k)
+            if ed is None:
+                # dispatch tokens -> [E, C, m]; the constraint below hands
+                # each rank its experts' rows
+                exp_in = torch.einsum("sec,sm->ecm", dispatch.to(a.dtype),
+                                      disp_in)
+                return tuple(sharding.replicated(t, mesh) for t in
+                             (exp_in, combine.to(torch.float32), aux))
+            # each rank dispatches to its own experts (tokens replicated
+            # over 'ep': the GShard all-to-all has nothing to move)
+            from torch.distributed.tensor import DTensor, Replicate, Shard
+            lo, hi = _local_rows(E, mesh, ed)
+            exp_in = DTensor.from_local(
+                torch.einsum("sec,sm->ecm",
+                             dispatch[:, lo:hi].to(disp_in.dtype), disp_in),
+                mesh, [Shard(0) if d == ed else Replicate()
+                       for d in range(mesh.ndim)], run_check=False)
+            return (exp_in, sharding.replicated(combine.to(torch.float32),
+                                                mesh),
+                    sharding.replicated(aux, mesh))
+
+        exp_in, combine, aux = apply_op("moe_dispatch", f, x, self.gate_w)
         exp_in = _constrain(exp_in, P(ep, None, None))
         exp_out = self.experts(exp_in)
         exp_out = _constrain(exp_out, P(ep, None, None))
@@ -191,17 +235,26 @@ class MoELayer(Layer):
                 out = torch.einsum("sec,ecm->sm", comb.to(eo.dtype), eo)
                 return out.reshape(b, s, m)
             # each rank combines its experts' outputs: a partial sum over
-            # the expert shards
+            # the expert shards.  The combine weights cross to the experts'
+            # shards as [S, E] (a token's weight for an expert; its slot is
+            # a constant), so their gradient gathers [S, E], not [S, E, C]
             from torch.distributed.tensor import (DTensor, Partial, Replicate,
                                                   Shard)
             dm = eo.device_mesh
             on_e = [p.is_shard(0) for p in eo.placements]
+            if not any(on_e):
+                eo, _ = sharding.replicated_local(eo)
+                comb, _ = sharding.replicated_local(comb)
+                out = torch.einsum("sec,ecm->sm", comb.to(eo.dtype), eo)
+                return sharding.replicated(out.reshape(b, s, m), dm)
             comb = comb if sharding.is_sharded(comb) else \
                 sharding.replicated(comb, dm)
-            comb = comb.redistribute(dm, [Shard(1) if e else Replicate()
-                                          for e in on_e]).to_local()
-            out = torch.einsum("sec,ecm->sm", comb.to(eo.dtype),
-                               eo.to_local())
+            slot = (comb > 0).to_local().detach()
+            w = comb.sum(-1).redistribute(dm, [Shard(1) if e else Replicate()
+                                               for e in on_e]).to_local()
+            lo, hi = _local_rows(E, dm, on_e.index(True))
+            wc = w[:, :, None] * slot[:, lo:hi].to(w.dtype)
+            out = torch.einsum("sec,ecm->sm", wc.to(eo.dtype), eo.to_local())
             return DTensor.from_local(out.reshape(b, s, m), dm,
                                       [Partial() if e else Replicate()
                                        for e in on_e], run_check=False)

@@ -207,10 +207,12 @@ class _VocabParallelCE(torch.autograd.Function):
 
 def _batch_placements(x):
     """The placements of a per-token value of logits ``x``: x's shards of
-    the leading axes, replicated over its vocabulary shards."""
+    the leading axes (strided ones too: a sequence split on 'sep' flattened
+    with the batch), replicated over its vocabulary shards."""
     from torch.distributed.tensor import Replicate
     last = x.ndim - 1
-    return [p if p.is_shard() and p.dim % x.ndim != last else Replicate()
+    return [p if not (p.is_replicate() or p.is_partial())
+            and p.dim % x.ndim != last else Replicate()
             for p in x.placements]
 
 

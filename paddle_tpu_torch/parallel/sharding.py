@@ -12,8 +12,11 @@ As in the reference, each ZeRO stage is a placement policy over the
   dimension divides) it owns, keeping those rows' moments only, and the
   updated rows are all-gathered (``Optimizer._views``);
 - stage 3 (``p_g_os``) also shards the parameters themselves (FSDP): each
-  divisible parameter becomes a DTensor sharded by rows, its gradient
-  arrives with that placement, and DTensor gathers the rows an op needs.
+  divisible parameter becomes a DTensor sharded by rows; every op that
+  reads it gets it gathered (one all-gather a use) and its gradient is
+  reduce-scattered back to the rank's rows (``gather_sharded``), the
+  reference's pattern (gather the parameters, reduce-scatter the
+  gradients), so no activation is a partial sum of sharded weights.
 """
 from __future__ import annotations
 
@@ -59,7 +62,24 @@ def shard_parameters(model, axis="sharding", mesh=None):
         spec = _shard_spec_for(tuple(p.shape), axis, pmesh)
         place_param(p, pmesh, spec_to_placements(spec, pmesh.dim_names,
                                                  p.ndim))
+        gather_sharded(p, axis)
     return model
+
+
+def gather_sharded(p, axis):
+    """Have every op that reads ``p`` gather it on ``axis`` if it is stored
+    sharded there (``core.sharding.gather_on_use``): the forward all-gathers
+    the weight and the backward reduce-scatters its gradient to the rank's
+    rows, Paddle's stage-3 traffic."""
+    from ..core import sharding
+    buf = p._buf
+    if not sharding.is_sharded(buf):
+        return
+    dm = buf.device_mesh
+    if axis in (dm.mesh_dim_names or ()):
+        d = dm.mesh_dim_names.index(axis)
+        if buf.placements[d].is_shard():
+            sharding.gather_on_use(p, [d])
 
 
 class DygraphShardingOptimizer:

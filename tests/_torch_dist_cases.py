@@ -329,7 +329,7 @@ def llama_train(rank, world, cfg_kw, dims, state, ids, steps=2, mode="dense",
     hidden dim on mp), "zero3" (group_sharded p_g_os), "none"."""
     import paddle_tpu_torch as tp
     import paddle_tpu_torch.nn as nn
-    from paddle_tpu_torch.distributed import (Shard, shard_tensor,
+    from paddle_tpu_torch.distributed import (Replicate, Shard, shard_tensor,
                                               get_placements)
     from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
     from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
@@ -346,9 +346,12 @@ def llama_train(rank, world, cfg_kw, dims, state, ids, steps=2, mode="dense",
     if mode == "zero3":
         model, opt = group_sharded_parallel(model, opt, level="p_g_os")
     x, y = tp.to_tensor(ids[:, :-1]), tp.to_tensor(ids[:, 1:])
+    # ZeRO's ranks are data-parallel: the batch splits over dp and sharding
+    place = [Shard(0), Replicate(), Shard(0)] if mode == "zero3" else \
+        [Shard(0)]
     losses, norms = [], []
     for _ in range(steps):
-        xs = shard_tensor(x, mesh, [Shard(0)])
+        xs = shard_tensor(x, mesh, place)
         _, loss = model(xs, labels=y)
         loss.backward()
         norms.append(grad_norm(model.parameters()))
@@ -455,4 +458,256 @@ def auto_parallel_api(rank, world, a, b, w):
     tpw = fleet.distributed_model(model)
     out["tensor_parallel"] = (type(tpw).__name__, len(tpw.state_dict()),
                               len(tpw.parameters()))
+    return out
+
+
+# --------------------------------------------------- collectives of a step
+class _CommBytes:
+    """CommDebugMode's collective counts of a region, with the bytes each
+    rank hands each kind (the first tensor argument of every c10d op)."""
+
+    def __init__(self):
+        from torch.distributed.tensor.debug import CommDebugMode
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class _Bytes(TorchDispatchMode):
+            def __init__(self, sink):
+                super().__init__()
+                self.sink = sink
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                ns = func.namespace
+                if ns in ("_c10d_functional", "c10d"):
+                    t = args[0]
+                    t = t[0] if isinstance(t, (list, tuple)) else t
+                    kind = func._overloadpacket.__name__.rstrip("_")
+                    self.sink.setdefault(kind, []).append(
+                        int(t.numel() * t.element_size()))
+                return func(*args, **(kwargs or {}))
+
+        self.sizes = {}
+        self.counter = CommDebugMode()
+        self._bytes = _Bytes(self.sizes)
+
+    def __enter__(self):
+        self.counter.__enter__()
+        self._bytes.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._bytes.__exit__(*exc)
+        self.counter.__exit__(*exc)
+
+    def counts(self):
+        """{kind: calls}, kinds named as ``sizes`` names them (the op
+        without its namespace or trailing underscore)."""
+        out = {}
+        for k, v in self.counter.get_comm_counts().items():
+            name = getattr(k, "__name__", str(k)).split(".")[-1].rstrip("_")
+            out[name] = out.get(name, 0) + v
+        return out
+
+
+def llama_comms(rank, world, mode, state):
+    """One tiny-Llama step under mp = world (``shard_llama``) or ZeRO-3 at
+    sharding = world (the batch split over it): the collectives of the
+    forward and of the backward by kind (CommDebugMode) and the bytes this
+    rank hands each; the parameters' sizes."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.distributed import Replicate, Shard, shard_tensor
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                               shard_llama)
+    hcg = _hybrid({"mp_degree": world} if mode == "mp"
+                  else {"sharding_degree": world})
+    mesh = hcg.get_mesh()
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_key_value_heads=4))
+    model.set_state_dict({k: tp.to_tensor(v) for k, v in state.items()})
+    opt = tp.optimizer.AdamW(learning_rate=1e-3,
+                             parameters=model.parameters())
+    if mode == "mp":
+        shard_llama(model, mesh, fsdp_axis="dp", mp_axis="mp")
+        place = [Shard(0)]
+    else:
+        model, opt = group_sharded_parallel(model, opt, level="p_g_os")
+        place = [Shard(0), Replicate(), Shard(0)]
+    ids = np.random.RandomState(0).randint(0, 256, (4, 33)).astype(np.int64)
+    x = shard_tensor(tp.to_tensor(ids[:, :-1]), mesh, place)
+    y = tp.to_tensor(ids[:, 1:])
+    out = {"params": [int(np.prod(p.shape)) for p in model.parameters()]}
+    with _CommBytes() as fwd:
+        _, loss = model(x, labels=y)
+    with _CommBytes() as bwd:
+        loss.backward()
+    out["fwd"], out["bwd"] = (fwd.counts(), fwd.sizes), (bwd.counts(),
+                                                         bwd.sizes)
+    out["loss"] = float(loss)
+    return out
+
+
+def hybrid_comms(rank, world, state):
+    return {mode: llama_comms(rank, world, mode, state)
+            for mode in ("mp", "zero3")}
+
+
+# -------------------------------------------------------------- pipelines
+def _pp_norm(params, group, elsewhere=()):
+    """The global gradient norm over the stages (each rank's own
+    parameters, summed over the 'pp' group; a tied weight's copy on a later
+    stage, ``elsewhere``, not counted twice)."""
+    import torch
+    import torch.distributed as dist
+    sq = torch.zeros(())
+    for p in params:
+        if p.grad is not None and id(p) not in elsewhere:
+            sq = sq + torch.sum(torch.square(p.grad._buf.float()))
+    dist.all_reduce(sq, group=group.pg)
+    return float(sq) ** 0.5
+
+
+def _InfOnce(flag):
+    """A loss scaler whose first unscale reports a non-finite gradient
+    when ``flag`` is set (on one stage of a pipeline only)."""
+    from paddle_tpu_torch.amp import GradScaler
+
+    class _Scaler(GradScaler):
+        calls = 0
+
+        def unscale_(self, optimizer):
+            super().unscale_(optimizer)
+            if flag and self.calls == 0:
+                self._found_inf = True
+            self.calls += 1
+    return _Scaler(init_loss_scaling=2.0 ** 10)
+
+
+def pipeline_runs(rank, world, runs, part_c):
+    """pp = world: each run trains ``LlamaForCausalLMPipe`` from the given
+    state (the pipe's parameter names) under its schedule ("1F1B", "ZB-H1",
+    "VPP", "FThenB") with AdamW, or, given ``clip``, with SGD and
+    ``ClipGradByGlobalNorm(clip)``, and given ``scaler``, under a loss
+    scaler that finds a non-finite gradient on the last stage alone at the
+    first step, returning its losses, the global
+    gradient norm of each step before the clip, the max in flight and the
+    embedding weight at the end (a tied one's copy on the last stage too);
+    then dryrun part C: the SPMD GPipe ``pipeline_forward`` over
+    ``make_decoder_stage`` with the stacked weights given, its output and
+    this rank's stage gradients."""
+    import torch
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.models.llama import (LlamaConfig,
+                                               LlamaForCausalLMPipe,
+                                               make_decoder_stage)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.parallel import (PipelineParallel,
+                                           PipelineParallelWithInterleave,
+                                           ZeroBubblePipelineParallel,
+                                           pipeline_forward)
+    hcg = _hybrid({"pp_degree": world})
+    group = hcg.get_pipe_parallel_group()
+    out = {}
+    for run in runs:
+        mode = run["mode"]
+        cfg = LlamaConfig.tiny(**run["cfg"])
+        vpp = 2 if mode == "VPP" else None
+        pipe = LlamaForCausalLMPipe(cfg, num_stages=world,
+                                    num_virtual_pipeline_stages=vpp)
+        pipe.set_state_dict({k: tp.to_tensor(v)
+                             for k, v in run["state"].items()})
+
+        class _S:
+            pipeline_configs = {"accumulate_steps": run["n_micro"],
+                                "schedule_mode": mode}
+        cls = {"VPP": PipelineParallelWithInterleave,
+               "ZB-H1": ZeroBubblePipelineParallel}.get(mode,
+                                                        PipelineParallel)
+        model = cls(pipe, strategy=_S())
+        norms = []
+        clip = run.get("clip")
+        base = tp.optimizer.AdamW if clip is None else tp.optimizer.SGD
+        scaler = _InfOnce(rank == world - 1) if run.get("scaler") else None
+
+        class _Opt(base):
+            def step(self):
+                norms.append(_pp_norm(self._parameter_list, group,
+                                      pipe._replicas))
+                return super().step()
+        opt = _Opt(learning_rate=run["lr"], parameters=model.parameters(),
+                   grad_clip=None if clip is None
+                   else ClipGradByGlobalNorm(clip))
+        losses = [float(model.train_batch(
+            (tp.to_tensor(b[:, :-1]), tp.to_tensor(b[:, 1:])), opt,
+            scaler=scaler)) for b in run["batches"]]
+        embed = pipe.state_dict().get("_layers_list.0.embed_tokens.weight")
+        out[run["name"]] = {
+            "losses": losses, "norms": norms,
+            "in_flight": model.max_in_flight, "mode": model.schedule_mode,
+            "w_deferred": getattr(model, "w_deferred_total", 0),
+            "embed": None if embed is None else _np(embed)}
+    stacked, xs, cfg_kw = part_c
+    _, apply = make_decoder_stage(LlamaConfig.tiny(**cfg_kw))
+    ws = {k: torch.tensor(v, requires_grad=True) for k, v in stacked.items()}
+    y = pipeline_forward(apply, ws, torch.tensor(xs), axis_name="pp")
+    (y ** 2).sum().backward()
+    out["C"] = {"out": y.detach().numpy(),
+                "grads": {k: v.grad[rank].numpy() for k, v in ws.items()},
+                "others_zero": all(
+                    bool((v.grad[s] == 0).all()) for v in ws.values()
+                    for s in range(world) if s != rank)}
+    return out
+
+
+# ------------------------------------------------------ the 'sep' axis
+def sequence_parallel_cases(rank, world, a):
+    """sep = world: ring and Ulysses attention (causal and not) on q / k / v
+    the same on every rank, their outputs and the gradients of
+    sum(out * out); the ring with grouped K / V; Ulysses' head check;
+    mesh_ppermute's value and gradient of sum(w * ppermute(x)) for three
+    permutations (rank r's row of x and w); then mp = world: the
+    sequence-parallel linear pair."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.distributed import collective as c
+    from paddle_tpu_torch.parallel import (ring_flash_attention,
+                                           ulysses_attention)
+    from paddle_tpu_torch.parallel.sequence_parallel import (
+        ColumnSequenceParallelLinear, RowSequenceParallelLinear, scatter,
+        all_gather)
+    q, k, v, kq = a["q"], a["k"], a["v"], a["kq"]
+    _hybrid({"sep_degree": world})
+    out = {}
+
+    def attn(fn, a, b, cc, causal):
+        ts = [tp.to_tensor(t, stop_gradient=False) for t in (a, b, cc)]
+        o = fn(*ts, causal=causal)
+        (o * o).sum().backward()
+        return _np(o), [_np(t.grad) for t in ts]
+
+    for causal in (False, True):
+        out[("ring", causal)] = attn(ring_flash_attention, q, k, v, causal)
+        out[("ulysses", causal)] = attn(ulysses_attention, q, k, v, causal)
+    out["ring_gqa"] = attn(ring_flash_attention, q, kq, kq, True)
+    try:
+        odd = tp.to_tensor(a["odd"])
+        ulysses_attention(odd, odd, odd)
+        out["divisible"] = None
+    except ValueError as e:
+        out["divisible"] = str(e)
+    _hybrid({"mp_degree": world})
+    perms = {"ring": [(i, (i + 1) % world) for i in range(world)],
+             "partial": [(i, i + 1) for i in range(world - 1)],
+             "shift2": [(i, (i + 2) % world) for i in range(world)]}
+    for name, perm in perms.items():
+        x = tp.to_tensor(a["perm_x"][rank], stop_gradient=False)
+        y = c.mesh_ppermute(x, "mp", perm)
+        (tp.to_tensor(a["perm_w"][rank]) * y).sum().backward()
+        out[("ppermute", name)] = (_np(y), _np(x.grad))
+    col = ColumnSequenceParallelLinear(16, 64)
+    row = RowSequenceParallelLinear(64, 16)
+    col.set_state_dict({n: tp.to_tensor(w) for n, w in a["col"].items()})
+    row.set_state_dict({n: tp.to_tensor(w) for n, w in a["row"].items()})
+    xt = tp.to_tensor(a["x_sp"], stop_gradient=False)
+    o = all_gather(row(col(scatter(xt))))
+    (o * o).sum().backward()
+    out["sp"] = (_np(o), _np(xt.grad), _np(col.weight.grad),
+                 _np(row.weight.grad))
     return out

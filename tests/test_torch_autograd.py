@@ -369,9 +369,31 @@ def test_matmul_grad_matches_reference():
 
 
 def test_backward_split_waits_for_pipeline_parallelism():
-    x = tp.to_tensor([1.0], stop_gradient=False)
-    with pytest.raises(NotImplementedError, match="M12 part 2"):
-        backward_split([(x * 2).sum()], param_ids={id(x)})
+    """``backward_split`` (the zero-bubble split) since pipeline parallelism
+    came: B fills the input's gradient at once and no parameter's; the
+    deferred W closures fill the parameters', as the reference's do, and
+    both equal the reference's."""
+    from paddle_tpu.autograd.backward import backward_split as jsplit
+    rng = np.random.RandomState(3)
+    w, b = rng.rand(2, 2).astype(np.float32), rng.rand(2).astype(np.float32)
+    a = rng.rand(3, 2).astype(np.float32)
+
+    def run(pkg):
+        lin = pkg.nn.Linear(2, 2)
+        lin.set_state_dict({"weight": pkg.to_tensor(w),
+                            "bias": pkg.to_tensor(b)})
+        x = pkg.to_tensor(a, stop_gradient=False)
+        y = lin(x)
+        split = backward_split if pkg is tp else jsplit
+        deferred = split([(y * y).mean()], [None],
+                         {id(p) for p in lin.parameters()})
+        assert x.grad is not None and len(deferred) >= 1
+        assert all(p.grad is None for p in lin.parameters())
+        gx = _np(x.grad)
+        for f in deferred:
+            f()
+        return [gx] + [_np(p.grad) for p in lin.parameters()]
+    _same(run)
 
 
 # ---- test_double_grad.py (the nn-free cases) ----------------------------------

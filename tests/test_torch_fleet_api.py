@@ -80,8 +80,8 @@ def test_pipeline_degree_and_ps_mode_name_their_roadmap_items():
     f = tfleet.Fleet()
     f._hcg = ttopo.HybridCommunicateGroup(
         ttopo.CommunicateTopology(dims=[1, 2, 1, 1, 1, 1]), rank=0)
-    with pytest.raises(NotImplementedError, match="M12 part 2"):
-        f.distributed_model(tnn.Linear(2, 2))
+    from paddle_tpu_torch.parallel import PipelineParallel
+    assert isinstance(f.distributed_model(tnn.Linear(2, 2)), PipelineParallel)
     for call in (lambda: f.init(is_collective=False),
                  f.ps_client, f.init_server, f.run_server, f.stop_worker):
         with pytest.raises(NotImplementedError, match="M12 part 3"):
@@ -188,8 +188,10 @@ def test_meta_parallel_and_mpu_reexports():
     from paddle_tpu_torch import parallel
     assert layers.mpu.ColumnParallelLinear is parallel.ColumnParallelLinear
     assert meta_parallel.TensorParallel is parallel.TensorParallel
-    with pytest.raises(NotImplementedError, match="M12 part 2"):
-        meta_parallel.PipelineParallel(None)
+    assert meta_parallel.PipelineParallel is parallel.PipelineParallel
+    assert meta_parallel.ZeroBubblePipelineParallel is \
+        parallel.ZeroBubblePipelineParallel
+    assert meta_parallel.PipelineParallel(None).schedule_mode == "1F1B"
 
 
 # ---- data parallelism on 2 ranks --------------------------------------------
@@ -289,7 +291,10 @@ DIVERGENT = {
         statement("from ._compat import P, spec_to_placements"),
         "_shard_spec_for", "_axis_size", "shard_accumulators",
         "shard_parameters", "_ShardedModelWrapper", "GroupShardedStage2",
-        "save_group_sharded_model"},
+        "save_group_sharded_model",
+        # stage 3 gathers a parameter at each use and reduce-scatters its
+        # gradient (queue 3, PR 21)
+        "gather_sharded"},
     # the dp reduction of plain gradients (one process a rank); no
     # SelectedRows (M13)
     "distributed/fleet/hybrid_optimizer.py": {

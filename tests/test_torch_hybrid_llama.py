@@ -1,18 +1,25 @@
 """The hybrid-parallel Llama against the JAX package's
-``__graft_entry__.dryrun_multichip`` parts A (without ``sep``), B and E.
+``__graft_entry__.dryrun_multichip`` parts A (with and without ``sep``), B
+and E.
 
 Each part trains the tiny Layer Llama for 2 AdamW steps from the JAX
 model's seeded weights on a hybrid topology: A dense at dp = 2 x mp = 2
 (the batch on dp, ``shard_llama`` Megatron TP on mp with FSDP on dp, clip
-1.0), B the MoE Llama at ep = 2 x mp = 2 (experts on ep, their hidden dim
-on mp), E ZeRO-3 at dp = 2 x sharding = 2 (``group_sharded_parallel``
-``p_g_os``).  The port runs on 4 spawned gloo ranks (one job for the three
-parts); the reference runs the same topology on its CPU mesh meanwhile, as
-the dryrun does.  Each loss must be within 3e-5 (the dryrun's bar) of the
-reference's sharded run and of the port's replicated run, on every rank;
-the gradient norms within 1e-4 relative of the replicated run's."""
+1.0), A_sep at sep = 2 x mp = 2 (the dryrun's split for four devices: ring
+attention over sep), B the MoE Llama at ep = 2 x mp = 2 (experts on ep,
+their hidden dim on mp), E ZeRO-3 at dp = 2 x sharding = 2
+(``group_sharded_parallel`` ``p_g_os``; the port's batch on dp and
+sharding, ZeRO's data-parallel ranks).  The port runs on 4 spawned gloo
+ranks (one job for the parts); the reference runs the same topology on its
+CPU mesh meanwhile, eagerly (its sharded step's losses are the same as
+through ``jit.to_static``, which the dryrun uses and which costs a compile
+of each part); A_sep is held to part A's reference run.  Each loss must
+be within 3e-5 (the dryrun's bar) of the reference's sharded run and of
+the port's replicated run, on every rank; the gradient norms within 1e-4
+relative of the replicated run's."""
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as pt
 import paddle_tpu.nn as jnn
@@ -31,6 +38,8 @@ PARTS = {
     # part: (config kwargs, hybrid degrees, seed, mode, clip)
     "A": ({"num_key_value_heads": 4}, {"dp_degree": 2, "mp_degree": 2}, 0,
           "dense", 1.0),
+    "A_sep": ({"num_key_value_heads": 4}, {"sep_degree": 2, "mp_degree": 2},
+              0, "dense", 1.0),
     "B": ({"num_experts": 4}, {"ep_degree": 2, "mp_degree": 2}, 1, "moe",
           None),
     "E": ({"num_key_value_heads": 4}, {"dp_degree": 2, "sharding_degree": 2},
@@ -40,9 +49,14 @@ PARTS = {
 
 @pytest.fixture(autouse=True, scope="module")
 def on_cpu():
-    prev = tdevice._current_device
+    """The CPU, and one torch thread as the spawned ranks have: the tiny
+    models gain nothing from more, and the suite's workers share the
+    cores."""
+    prev, threads = tdevice._current_device, torch.get_num_threads()
     tp.set_device("cpu")
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     tdevice._current_device = prev
     set_hybrid_communicate_group(HybridCommunicateGroup(
         CommunicateTopology(dims=[1, 1, 1, 1, 1]), rank=0))
@@ -61,8 +75,7 @@ def _ids():
 
 def _reference(part):
     """The JAX package's sharded run of a part on its CPU mesh, as the
-    dryrun runs it (``jit.to_static``: the spy call, then the compiled
-    program); its losses."""
+    dryrun runs it, eagerly; its losses."""
     from paddle_tpu.distributed import Shard, shard_tensor
     from paddle_tpu.distributed.sharding import group_sharded_parallel
     from paddle_tpu.models.llama import (LlamaConfig, LlamaForCausalLM,
@@ -89,8 +102,7 @@ def _reference(part):
             opt.step()
             opt.clear_grad()
             return loss
-        static = pt.jit.to_static(step)
-        return [float(np.asarray(static(x, y)._data, np.float32))
+        return [float(np.asarray(step(x, y)._data, np.float32))
                 for _ in range(2)]
     finally:
         _set_hcg({})
@@ -113,8 +125,13 @@ def runs(tmp_path_factory):
              PARTS[p][4]) for p in sorted(PARTS)]
     job = _torch_dist.start("hybrid_parts", 4, tmp_path_factory.mktemp("h"),
                             jobs, timeout=300)
-    # the references run while the ranks do
-    refs = {p: _reference(p) for p in PARTS}
+    # the references run while the ranks do.  A_sep's is part A's run: the
+    # same model, weights and batch (sep changes where the sequence lives,
+    # not the loss; the reference's own dryrun holds its sep run to its
+    # replicated run at this bar), and its sharded run through the ring
+    # takes minutes of the reference's eager shard_map on the CPU
+    refs = {p: _reference(p) for p in PARTS if p != "A_sep"}
+    refs["A_sep"] = refs["A"]
     plain = {p: cases.llama_train(0, 1, PARTS[p][0], {}, states[p],
                                   _ids(), 2, "none", PARTS[p][4])
              for p in PARTS}
@@ -161,3 +178,52 @@ def test_part_e_shards_parameters_on_the_sharding_axis(runs):
     emb = pl["llama.embed_tokens.weight"]
     assert emb == "[Replicate(), Replicate(), Shard(dim=0), Replicate(), " \
         "Replicate(), Replicate()]", emb
+
+
+# ---- the collectives of a step, pinned ----------------------------------------
+@pytest.fixture(scope="module")
+def comms(tmp_path_factory):
+    state = _state("E")
+    return _torch_dist.run("hybrid_comms", 2, tmp_path_factory.mktemp("c"),
+                           state, timeout=120)
+
+
+def _total(sizes, kind):
+    return sum(sizes.get(kind, []))
+
+
+@pytest.mark.parametrize("mode", ["mp", "zero3"])
+def test_step_collectives_are_pinned(comms, mode):
+    """One tiny-Llama step's collectives by kind and bytes a rank
+    (CommDebugMode's counts, the bytes of each op's input).  ZeRO-3 at
+    sharding = 2 (the batch split over it): one all-gather of each
+    parameter's rows in the forward (its rows' bytes), none in the
+    backward, one reduce-scatter of each gradient (its whole bytes), and
+    no all-reduce but the loss's scalar.  Megatron mp = 2: one all-reduce
+    of the [B, S, h] activations after the vocabulary-parallel lookup and
+    after each layer's o_proj and down_proj, the three [tokens]-sized ones
+    of the vocabulary-parallel loss, and the matching all-reduces in the
+    backward; no all-gather and no reduce-scatter."""
+    for r in range(2):
+        res = comms[r][mode]
+        (fc, fs), (bc, bs) = res["fwd"], res["bwd"]
+        params = res["params"]
+        if mode == "zero3":
+            assert fc.get("all_gather_into_tensor") == len(params)
+            assert _total(fs, "all_gather_into_tensor") == sum(params) * 4 // 2
+            assert all(b <= 4 for b in fs.get("all_reduce", []))
+            assert bc.get("reduce_scatter_tensor") == len(params)
+            assert _total(bs, "reduce_scatter_tensor") == sum(params) * 4
+            assert "all_gather_into_tensor" not in bc
+            assert "all_reduce" not in bc
+        else:
+            layers = 2
+            act = 4 * 32 * 64 * 4          # [B, S, h] float32
+            assert fc.get("all_reduce") == 2 * layers + 1
+            assert fs["all_reduce"] == [act] * (2 * layers + 1)
+            assert fc.get("allreduce") == 3
+            assert bc.get("all_reduce") == 2 * layers + 1
+            assert bs["all_reduce"] == [act] * (2 * layers + 1)
+            for c in (fc, bc):
+                assert "reduce_scatter_tensor" not in c
+                assert "all_gather_into_tensor" not in c

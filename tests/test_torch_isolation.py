@@ -555,7 +555,8 @@ def _refused(case):
         topology._hcg = topology.HybridCommunicateGroup(
             topology.CommunicateTopology(dims=[1, 1, 1, 2, 1, 1]), rank=0)
         try:
-            m(paddle.to_tensor(np.zeros((1, 4), np.int32)))
+            out = m(paddle.to_tensor(np.zeros((1, 4), np.int32)))
+            assert out.shape == [1, 4, cfg.vocab_size]
         finally:
             topology._hcg = saved
     elif case == "shard_llama":
@@ -564,11 +565,18 @@ def _refused(case):
         assert llama.shard_llama(
             m, topology.get_hybrid_communicate_group().get_mesh()) is m
     elif case == "make_decoder_stage":
-        llama.make_decoder_stage(cfg)
+        init, apply = llama.make_decoder_stage(cfg)
+        p = init(torch.Generator().manual_seed(0))
+        x = torch.zeros(1, 4, cfg.hidden_size)
+        assert tuple(apply(p, x).shape) == (1, 4, cfg.hidden_size)
     elif case == "llama_pipe":
-        llama.LlamaForCausalLMPipe(cfg)
+        assert llama.LlamaForCausalLMPipe(cfg).num_chunks == 2
     elif case == "llama_stage_pipe":
-        llama.LlamaDecoderLayerPipe(cfg)
+        import paddle_tpu_torch as paddle
+        layer = llama.LlamaDecoderLayerPipe(cfg)
+        h, aux = layer((paddle.zeros([1, 4, cfg.hidden_size]),
+                        paddle.zeros([])))
+        assert h.shape == [1, 4, cfg.hidden_size] and float(aux) == 0.0
     elif case == "flash_attn_varlen_qkvpacked":
         F.flash_attn_varlen_qkvpacked(None)
     elif case == "sparse_attention":
@@ -582,17 +590,18 @@ def _refused(case):
 
 
 @pytest.mark.parametrize("case,what", [
-    ("llama_moe", None), ("llama_sep", "M12 part 2"), ("shard_llama", None),
-    ("make_decoder_stage", "M12 part 2"), ("llama_pipe", "M12 part 2"),
-    ("llama_stage_pipe", "M12 part 2"),
+    ("llama_moe", None), ("llama_sep", None), ("shard_llama", None),
+    ("make_decoder_stage", None), ("llama_pipe", None),
+    ("llama_stage_pipe", None),
     ("flash_attn_varlen_qkvpacked", "varlen"),
     ("sparse_attention", "block-sparse"), ("flash_attn_unpadded", "varlen"),
     ("fractional_max_pool3d_mask", "return_mask")])
 def test_layer_llama_and_m2_rest_refusals(case, what):
-    """What the Layer Llama and M2's rest refuse, as the reference does or
-    because its module waits for M12 part 2: each raises, naming it, and
-    never runs some other way.  The MoE Llama and ``shard_llama`` came with
-    M12's first part and run."""
+    """What the Layer Llama and M2's rest refuse, as the reference does:
+    each raises, naming it, and never runs some other way.  The MoE Llama
+    and ``shard_llama`` came with M12's first part and run; the sep group
+    (a group of one in a single process), ``make_decoder_stage`` and the
+    pipe classes with its second, and run."""
     from paddle_tpu_torch.core import device as core_device
     prev = core_device._current_device
     core_device._current_device = torch.device("cpu")
@@ -686,7 +695,10 @@ def test_workflow_entry_points_need_the_card_or_an_explicit_cpu(
 def test_unported_distributed_names_raise_naming_their_item(name, item):
     """The reference's ``paddle.distributed`` names whose modules the port
     does not have yet stay on the surface and raise, naming their ROADMAP
-    item (M12 part 2 or 3); they never vanish or run some other way."""
+    item (M12 part 3); they never vanish or run some other way.  Those of
+    M12 part 2 came: each is the port's module of the reference's
+    ``parallel/`` module of that name, with its public names."""
+    import importlib
     import paddle_tpu.distributed as jdist
     import paddle_tpu_torch.distributed as tdist
     ref = REPO / "paddle_tpu"
@@ -694,6 +706,13 @@ def test_unported_distributed_names_raise_naming_their_item(name, item):
         (ref / pkg / name).exists() or (ref / pkg / f"{name}.py").exists()
         for pkg in ("distributed", "parallel"))
     obj = getattr(tdist, name)
+    if item == "part 2":
+        assert obj.__name__ == f"paddle_tpu_torch.parallel.{name}"
+        jmod = importlib.import_module(f"paddle_tpu.parallel.{name}")
+        public = [n for n, v in vars(jmod).items() if not n.startswith("_")
+                  and getattr(v, "__module__", None) == jmod.__name__]
+        assert public and all(hasattr(obj, n) for n in public), public
+        return
     with pytest.raises(NotImplementedError, match=f"M12 {item}"):
         if callable(obj):
             obj()

@@ -92,18 +92,16 @@ DIVERGENT = {
     "__doc__",
     statement("import jax.numpy as jnp"),
     statement("import torch"),
-    # the refusals of what needs M12 part 2 (the sep group, pipes)
-    statement('_M12 = ("needs M12 part 2 (pipeline schedules and the \'sep\' '
-              'axis, ROADMAP queue 1), which the port does not have yet")'),
+    # the sep group's ring / Ulysses on the kernels, which take grouped K / V
+    # as they are (the reference repeats them first); the stacked-stage
+    # block in torch on the flash path
     "LlamaAttention.forward", "make_decoder_stage",
     # the partition spec from parallel/_compat (no jax.sharding)
     "shard_llama",
-    "LlamaEmbeddingPipe", "LlamaEmbeddingPipe.__init__",
-    "LlamaEmbeddingPipe.forward", "LlamaDecoderLayerPipe",
-    "LlamaDecoderLayerPipe.__init__", "LlamaDecoderLayerPipe.forward",
-    "LlamaNormHeadPipe", "LlamaNormHeadPipe.__init__",
-    "LlamaNormHeadPipe.forward", "LlamaForCausalLMPipe",
-    "LlamaForCausalLMPipe.__new__",
+    # the loss over [B, S, V] unflattened (a sequence split over 'sep')
+    "causal_lm_loss",
+    # the MoE stream's aux seed in torch
+    "LlamaEmbeddingPipe.forward",
     # in-place cache writes and offset (queue 3), torch bodies
     "KVCache", "KVCache.__init__", "KVCache.update", "KVCache.reset",
     "_cached_sdpa",
@@ -471,11 +469,50 @@ def _shard_llama_on_one_rank():
     assert not any(p.is_dist() for p in m.parameters())
 
 
-def _still_refused(build):
-    def run():
-        with pytest.raises(NotImplementedError, match="M12 part 2"):
-            build()
-    return run
+def _pieces_match(jpiece, tpiece, inputs):
+    """A pipe piece of each package holding the JAX one's seeded weights:
+    the same outputs on the same inputs (logits at the file's atol)."""
+    pt.seed(0)
+    jm = jpiece()
+    state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
+    tm = tpiece()
+    missing, unexpected = tm.set_state_dict(state)
+    assert not missing and not unexpected
+    jo, to = jm(inputs(pt)), tm(inputs(tp))
+    for a, b in zip(jo if isinstance(jo, tuple) else (jo,),
+                    to if isinstance(to, tuple) else (to,)):
+        np.testing.assert_allclose(_np(b), _np(a), atol=1e-4, rtol=1e-5)
+    return jm, tm
+
+
+def _decoder_stage_matches():
+    """make_decoder_stage's apply from the JAX stage's stacked weights (as
+    numpy) against the JAX apply; its init draws the same shapes from a
+    torch.Generator."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    jinit, japply = jl.make_decoder_stage(jl.LlamaConfig.tiny())
+    tinit, tapply = tl.make_decoder_stage(tl.LlamaConfig.tiny())
+    p = jinit(jax.random.PRNGKey(0))
+    x = np.random.RandomState(0).rand(2, 16, 64).astype(np.float32)
+    want = np.asarray(japply(p, jnp.asarray(x)))
+    got = tapply({k: torch.tensor(np.asarray(v)) for k, v in p.items()},
+                 torch.tensor(x))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    drawn = tinit(torch.Generator().manual_seed(0))
+    assert {k: tuple(v.shape) for k, v in drawn.items()} == \
+        {k: tuple(v.shape) for k, v in p.items()}
+
+
+def _ids_in(pkg):
+    return pkg.to_tensor(_ids(2, 2, 8))
+
+
+def _hidden_in(pkg, aux=False):
+    h = pkg.to_tensor(np.random.RandomState(5).rand(2, 8, 64).astype(
+        np.float32))
+    return (h, pkg.to_tensor(np.float32(0.25))) if aux else h
 
 
 @pytest.mark.parametrize("case", [
@@ -484,35 +521,48 @@ def _still_refused(build):
              tl.llama_tiny_moe().llama.layers[1].mlp.top_k == 2),
     lambda: _moe_matches_reference(num_experts=2),
     _shard_llama_on_one_rank,
-    _still_refused(lambda: tl.make_decoder_stage(tl.LlamaConfig.tiny())),
-    _still_refused(lambda: tl.LlamaEmbeddingPipe(tl.LlamaConfig.tiny())),
-    _still_refused(lambda: tl.LlamaDecoderLayerPipe(tl.LlamaConfig.tiny())),
-    _still_refused(lambda: tl.LlamaNormHeadPipe(tl.LlamaConfig.tiny())),
-    _still_refused(lambda: tl.LlamaForCausalLMPipe(tl.LlamaConfig.tiny())),
+    _decoder_stage_matches,
+    lambda: _pieces_match(
+        lambda: jl.LlamaEmbeddingPipe(jl.LlamaConfig.tiny(), emit_aux=True),
+        lambda: tl.LlamaEmbeddingPipe(tl.LlamaConfig.tiny(), emit_aux=True),
+        _ids_in),
+    lambda: _pieces_match(
+        lambda: jl.LlamaDecoderLayerPipe(jl.LlamaConfig.tiny_moe()),
+        lambda: tl.LlamaDecoderLayerPipe(tl.LlamaConfig.tiny_moe()),
+        lambda pkg: _hidden_in(pkg, aux=True)),
+    lambda: _pieces_match(
+        lambda: jl.LlamaNormHeadPipe(jl.LlamaConfig.tiny()),
+        lambda: tl.LlamaNormHeadPipe(tl.LlamaConfig.tiny()), _hidden_in),
+    lambda: _pieces_match(
+        lambda: jl.LlamaForCausalLMPipe(jl.LlamaConfig.tiny()),
+        lambda: tl.LlamaForCausalLMPipe(tl.LlamaConfig.tiny()), _ids_in),
 ], ids=["tiny_moe", "llama_tiny_moe", "num_experts", "shard_llama",
         "make_decoder_stage", "embedding_pipe", "decoder_pipe", "head_pipe",
         "causal_lm_pipe"])
 def test_what_needs_m12_raises(case):
     """Since M12's first part the MoE Llama and ``shard_llama`` work (held
     to the reference here, sharded across ranks in
-    ``test_torch_hybrid_llama.py``); the pipeline pieces still raise,
-    naming M12 part 2."""
+    ``test_torch_hybrid_llama.py``); since its second, the pipeline pieces
+    do: each is held to the reference's on the same weights and inputs
+    (the schedules in ``test_torch_pipeline.py``)."""
     case()
 
 
 def test_moe_configs_build_and_a_sep_group_raises(monkeypatch):
     """The MoE configs build (the full ones stay configs here: too large to
-    make on the CPU); a sequence-parallel group larger than 1 raises at the
-    attention, naming M12 part 2 (ring / Ulysses attention)."""
+    make on the CPU); a sequence-parallel group larger than 1 in a process
+    of its own (no process group: a group of one) takes the plain
+    attention and gives the same logits (the ring over launched ranks is
+    held in ``test_torch_sequence_parallel.py``)."""
     from paddle_tpu_torch.distributed.fleet import topology
     for name in ("qwen2_moe_a14b", "deepseek_moe_16b", "tiny_moe"):
         assert getattr(tl.LlamaConfig, name)().num_experts > 0
     assert tl.llama_tiny_moe().llama.layers[0].mlp.num_experts == 4
     m = tl.llama_tiny()
     x = tp.to_tensor(_ids(0, 1, 4))
-    assert m(x).shape == [1, 4, 256]
+    plain = m(x)
+    assert plain.shape == [1, 4, 256]
     hcg = topology.HybridCommunicateGroup(
         topology.CommunicateTopology(dims=[1, 1, 1, 2, 1, 1]), rank=0)
     monkeypatch.setattr(topology, "_hcg", hcg)
-    with pytest.raises(NotImplementedError, match="M12 part 2"):
-        m(x)
+    np.testing.assert_allclose(_np(m(x)), _np(plain), rtol=1e-6, atol=1e-6)

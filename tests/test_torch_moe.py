@@ -54,8 +54,11 @@ DIVERGENT = {
     # one_hot refuses an index past the capacity, jax's gives zeros)
     "topk_gating",
     # the experts and the combine run on each rank's shards (DTensor
-    # local_map), the gate on every token of every rank
-    "ExpertMLP.forward", "MoELayer.forward",
+    # local_map), the gate on every token of every rank; each rank
+    # dispatches its own experts' tokens and the combine weights cross to
+    # the experts' shards as [S, E] (their gradient gathers [S, E], not the
+    # dense [S, E, C])
+    "ExpertMLP.forward", "MoELayer.forward", "_ep_dim", "_local_rows",
 }
 
 

@@ -152,8 +152,10 @@ def test_fleet_utils_reexports_recompute():
     from paddle_tpu_torch.distributed.fleet import utils
     assert utils.recompute is trc.recompute
     assert utils.recompute_sequential is trc.recompute_sequential
-    with pytest.raises(NotImplementedError, match="M12 part 2"):
-        utils.sequence_parallel_utils.ColumnSequenceParallelLinear
+    from paddle_tpu_torch.parallel import sequence_parallel
+    assert utils.sequence_parallel_utils is sequence_parallel
+    assert utils.sequence_parallel_utils.ColumnSequenceParallelLinear is \
+        sequence_parallel.ColumnSequenceParallelLinear
 
 
 @pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["no_dropout", "dropout"])

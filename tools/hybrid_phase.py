@@ -21,9 +21,22 @@ This file is the phase's worker script, run in three ways:
   twins of (b) and (c) at the same seeds, and GPT-2 124M
   (``bench.py``'s configuration) with ``use_recompute`` on and off.
   Writes ``DIR/twin.json``.
-- ``python3 tools/hybrid_phase.py`` from the root of a checkout: builds the
-  flash kernels and the ``staged`` backend, then runs
-  ``chip_smoke.hybrid_phase`` (both jobs above and their checks) alone.
+- ``python3 -m paddle_tpu_torch.distributed.launch --nproc_per_node 2
+  tools/hybrid_phase.py --pp-sep-ranks --out DIR``: (d) the pipeline and
+  the 'sep' axis on the two ranks: a 32 MB exchange over the CUDA backend;
+  the ring's kernels against its plain twin at the sep run's shapes;
+  ``_llama_child`` at pp = 2 (``LlamaForCausalLMPipe``, 4 microbatches)
+  under 1F1B, the interleaved schedule and ZB-H1, at sep = 2 (the
+  sequence split, ring and Ulysses attention on K1-K3), and dryrun part C
+  (``pipeline_forward`` over two f32 decoder stages at hidden 2048).
+  Writes ``DIR/pp_sep.<rank>.json``.
+- ``python3 tools/hybrid_phase.py --pp-sep-twin --out DIR``: (d)'s NCCL
+  world-1 twins (the microbatched and the full-batch step, part C's
+  stages in sequence).  Writes ``DIR/pp_sep_twin.json``.
+- ``python3 tools/hybrid_phase.py [--phase hybrid|pipeline_sep|both]`` from
+  the root of a checkout: builds the flash kernels and the ``staged``
+  backend, then runs ``chip_smoke.hybrid_phase`` and / or
+  ``chip_smoke.pipeline_sep_phase`` (the jobs above and their checks).
 """
 import argparse
 import json
@@ -237,10 +250,11 @@ def part_a(dev):
 
 
 # ----------------------------------------------------------- (b) full width
-def full_model(dev):
+def full_model(dev, sep_backend="ring"):
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
     cfg, b, s = full_config()
+    cfg.sep_backend = sep_backend
     paddle.set_device(dev)
     paddle.seed(SEED)
     model = LlamaForCausalLM(cfg)
@@ -251,7 +265,8 @@ def full_model(dev):
 def full_run(kind, dev, rank):
     """(b): ``bench.py``'s Llama under dp / mp / sharding = 2."""
     import paddle_tpu_torch as paddle
-    from paddle_tpu_torch.distributed import Shard, fleet, shard_tensor
+    from paddle_tpu_torch.distributed import Replicate, Shard, fleet, \
+        shard_tensor
     from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
     from paddle_tpu_torch.models.llama import shard_llama
     hcg = _hybrid(**{kind: 2})
@@ -273,8 +288,12 @@ def full_run(kind, dev, rank):
         opt = _adamw(model)
         model, opt = group_sharded_parallel(model, opt, level="p_g_os")
     x, y = paddle.to_tensor(ids[:, :-1]), paddle.to_tensor(ids[:, 1:])
-    if kind != "dp":
+    if kind == "mp":
         x = shard_tensor(x, hcg.get_mesh(), [Shard(0)])
+    elif kind == "sharding":
+        # ZeRO's ranks are data-parallel: the batch split 4 / 4 over them
+        x = shard_tensor(x, hcg.get_mesh(), [Replicate(), Replicate(),
+                                             Shard(0)])
     out = run_steps(model, opt, (x, y), FULL_STEPS, post=post)
     out["tokens_per_step"] = b * s
     out["layers"] = cfg.num_hidden_layers
@@ -311,6 +330,278 @@ def moe_run(dev, hcg=None):
     return out
 
 
+# ------------------------------------------- (d) pipeline and the sep axis
+PP_MICRO = 4                   # accumulate_steps of the pipeline runs
+PP_STEPS = {"1F1B": 4, "VPP": 2, "ZB-H1": 2}
+SEP_STEPS = 3                  # steps of each sep run
+TWIN_STEPS = 4                 # steps of (d)'s twins (the first warms up)
+PART_C = (4, 2, 1024)          # part C: microbatches, their batch, seq
+
+
+class _NormOpt:
+    """An optimizer that records ``norm()`` when it steps (the pipeline
+    schedules step it themselves, after their backward)."""
+
+    def __init__(self, inner, norm):
+        self.inner, self.norm, self.norms = inner, norm, []
+
+    def step(self):
+        self.norms.append(self.norm())
+        self.inner.step()
+
+    def clear_grad(self):
+        self.inner.clear_grad()
+
+
+def _timed(step, steps, timed_from=1):
+    """``steps`` calls of ``step()`` (it returns the loss Tensor), each
+    synchronised and timed; the staged collectives a timed step, the
+    launches and the peak memory."""
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    for i in range(steps):
+        if i == timed_from:
+            _reset_comm()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    comm = _comm_counts()
+    n = max(steps - timed_from, 1)
+    return {"losses": losses, "ms": ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "comm_per_step": {k: [c / n, b / n] for k, (c, b) in comm.items()},
+            "launches": _launches()}
+
+
+def pp_run(kind, dev):
+    """pp = 2 over the two ranks: ``_llama_child`` as
+    ``LlamaForCausalLMPipe`` (tied embedding and head on stages 0 and 1)
+    under 1F1B, the interleaved schedule (v = 2, one layer a chunk) or
+    ZB-H1, ``accumulate_steps`` 4; ``tie_diff`` is the largest difference
+    between the tied weight's copies after the steps."""
+    import paddle_tpu_torch as paddle
+    import torch.distributed as dist
+    from paddle_tpu_torch.models.llama import LlamaForCausalLMPipe
+    from paddle_tpu_torch.parallel import (PipelineParallel,
+                                           PipelineParallelWithInterleave,
+                                           ZeroBubblePipelineParallel)
+    hcg = _hybrid(pp=2)
+    cfg, b, s = full_config()
+    paddle.set_device(dev)
+    paddle.seed(SEED)
+    pipe = LlamaForCausalLMPipe(cfg, num_stages=2,
+                                num_virtual_pipeline_stages=2
+                                if kind == "VPP" else None)
+    pipe.to(dtype="bfloat16")
+
+    class _S:
+        pipeline_configs = {"accumulate_steps": PP_MICRO}
+    cls = {"VPP": PipelineParallelWithInterleave,
+           "ZB-H1": ZeroBubblePipelineParallel}.get(kind, PipelineParallel)
+    model = cls(pipe, strategy=_S())
+    group = hcg.get_pipe_parallel_group()
+
+    def norm():
+        sq = torch.zeros((), device=dev)
+        for p in model.parameters():
+            if p.grad is not None and id(p) not in pipe._replicas:
+                sq = sq + torch.sum(torch.square(p.grad._buf.float()))
+        dist.all_reduce(sq, group=group.pg)
+        return float(sq) ** 0.5
+    opt = _NormOpt(_adamw(model), norm)
+    ids = _ids(cfg.vocab_size, b, s, SEED)
+    x, y = paddle.to_tensor(ids[:, :-1]), paddle.to_tensor(ids[:, 1:])
+    out = _timed(lambda: model.train_batch((x, y), opt), PP_STEPS[kind])
+    tie = 0.0                  # the tied weight's two copies after the steps
+    for g, params in pipe._shared_groups:
+        for p in params:
+            mine = p._buf.detach()
+            first = mine.clone()
+            dist.broadcast(first, g.ranks[0], group=g.pg)
+            tie = max(tie, float((first.float() - mine.float()).abs().max()))
+    out.update(norms=opt.norms, tokens_per_step=b * s, tie_diff=tie,
+               layers=cfg.num_hidden_layers, in_flight=model.max_in_flight,
+               params_this_rank=int(sum(p.size for p in model.parameters())))
+    del model, pipe, opt
+    _free()
+    return out
+
+
+def sep_run(backend, dev):
+    """sep = 2: ``_llama_child`` with the batch's sequence split over the
+    two ranks (q [8, 512, 16, 128] a rank), attention by ring or
+    Ulysses."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import Replicate, Shard, shard_tensor
+    hcg = _hybrid(sep=2)
+    model, cfg, b, s = full_model(dev, sep_backend=backend)
+    opt = _adamw(model)
+    ids = _ids(cfg.vocab_size, b, s, SEED)
+    x, y = paddle.to_tensor(ids[:, :-1]), paddle.to_tensor(ids[:, 1:])
+    x = shard_tensor(x, hcg.get_mesh(), [Replicate()] * 3 + [Shard(1)])
+    out = run_steps(model, opt, (x, y), SEP_STEPS)
+    out["tokens_per_step"] = b * s
+    out["layers"] = cfg.num_hidden_layers
+    del model, opt
+    _free()
+    return out
+
+
+def ring_check(dev):
+    """The ring (K1-K3 a block) against its plain twin
+    (``_ring_attn_local``, f32 online softmax) on this rank's block at the
+    sep run's shapes, bf16: output and gradients, relative to the twin's
+    largest magnitude; both timed, forward and backward."""
+    from paddle_tpu_torch.parallel.ring_attention import (_Ring,
+                                                          _ring_attn_local)
+    hcg = _hybrid(sep=2)
+    g = hcg.axis_group("sep")
+    cfg, b, s = full_config()
+    h, kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, \
+        cfg.hidden_size // cfg.num_attention_heads
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7 + g.get_rank())
+    q, k, v, do = (torch.randn(b, s // 2, n, d, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+                   for n in (h, kv, kv, h))
+    scale = d ** -0.5
+
+    def run(fn):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*ts)
+        o.backward(do)
+        return [o.detach()] + [t.grad for t in ts]
+
+    kernel = lambda a, b_, c: _Ring.apply(a, b_, c, g, True, scale)  # noqa
+    plain = lambda a, b_, c: _ring_attn_local(a, b_, c, "sep", True,  # noqa
+                                              scale)
+    _reset_launches()
+    got, want = run(kernel), run(plain)
+    launches = _launches()
+    errs = [float((x.float() - w.float()).abs().max()
+                  / w.float().abs().max()) for x, w in zip(got, want)]
+    ms = {}
+    for name, fn in (("kernel", kernel), ("plain", plain)):
+        run(fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run(fn)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / 3
+    return {"errs": errs, "ms": ms, "launches": launches,
+            "shape": [list(q.shape), list(k.shape)]}
+
+
+def part_c_inputs(dev, cfg):
+    """Dryrun part C at hidden 2048, f32: two stages of one decoder layer
+    (``make_decoder_stage`` drawn from a seeded generator), M = 4
+    microbatches."""
+    from paddle_tpu_torch.models.llama import make_decoder_stage
+    init, apply = make_decoder_stage(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    stages = [init(gen, device=dev) for _ in range(2)]
+    stacked = {k: torch.stack([st[k] for st in stages]).requires_grad_(True)
+               for k in stages[0]}
+    m, b, s = PART_C
+    xs = torch.randn(m, b, s, cfg.hidden_size, generator=gen, device=dev)
+    return apply, stacked, xs
+
+
+def part_c_run(dev, ranks):
+    """The SPMD GPipe ``pipeline_forward`` over the two ranks (ranks) or the
+    same stages in sequence in one process: sum(out ** 2), its gradient
+    norm and time."""
+    from paddle_tpu_torch.parallel import pipeline_forward
+    cfg, _, _ = full_config()
+    if ranks:
+        hcg = _hybrid(pp=2)
+    apply, stacked, xs = part_c_inputs(dev, cfg)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if ranks:
+        out = pipeline_forward(apply, stacked, xs, axis_name="pp")
+    else:
+        outs = []
+        for m in range(xs.shape[0]):
+            hh = xs[m]
+            for st in range(2):
+                hh = apply({k: v[st] for k, v in stacked.items()}, hh)
+            outs.append(hh)
+        out = torch.stack(outs)
+    loss = (out.float() ** 2).sum()
+    loss.backward()
+    sq = sum(torch.sum(v.grad.double() ** 2) for v in stacked.values())
+    if ranks:
+        import torch.distributed as dist
+        dist.all_reduce(sq, group=hcg.get_pipe_parallel_group().pg)
+    torch.cuda.synchronize()
+    res = {"loss": float(loss), "norm": float(sq) ** 0.5,
+           "ms": (time.perf_counter() - t0) * 1e3, "launches": _launches()}
+    del stacked, xs, out
+    _free()
+    return res
+
+
+def exchange_check(dev):
+    """A 32 MB ring exchange between the two ranks over the CUDA backend
+    (each sends before it receives): its time and whether it arrived."""
+    from paddle_tpu_torch.distributed import collective as c
+    hcg = _hybrid(sep=2)
+    g = hcg.axis_group("sep")
+    me = g.get_rank()
+    a = torch.full((8 * 2 ** 20,), float(me + 1), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = c._permute(a, g, ((0, 1), (1, 0)))
+    torch.cuda.synchronize()
+    return {"ok": bool((got == float(2 - me)).all()),
+            "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def pp_sep_ranks(dev):
+    out = {"exchange": exchange_check(dev), "ring_check": ring_check(dev)}
+    for kind in ("1F1B", "VPP", "ZB-H1"):
+        out[kind] = pp_run(kind, dev)
+    for backend in ("ring", "ulysses"):
+        out[backend] = sep_run(backend, dev)
+    out["C"] = part_c_run(dev, True)
+    return out
+
+
+def micro_twin(dev):
+    """The world-1 twin of the pipeline runs: ``_llama_child`` with the
+    same 4 microbatches a step, gradients accumulated."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import ops
+    model, cfg, b, s = full_model(dev)
+    opt = _NormOpt(_adamw(model), lambda: grad_norm(model.parameters()))
+    ids = _ids(cfg.vocab_size, b, s, SEED)
+    x, y = paddle.to_tensor(ids[:, :-1]), paddle.to_tensor(ids[:, 1:])
+
+    def step():
+        total = None
+        for xm, ym in zip(ops.split(x, PP_MICRO, axis=0),
+                          ops.split(y, PP_MICRO, axis=0)):
+            _, loss = model(xm, labels=ym)
+            (loss / PP_MICRO).backward()
+            d = (loss / PP_MICRO).detach()
+            total = d if total is None else total + d
+        opt.step()
+        opt.clear_grad()
+        return total
+    out = _timed(step, TWIN_STEPS)
+    out["norms"] = opt.norms
+    out["tokens_per_step"] = b * s
+    del model, opt
+    _free()
+    return out
+
+
 def ranks_main(out_dir):
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import distributed as dist
@@ -340,6 +631,28 @@ def ranks_main(out_dir):
     print(f"rank {rank}: (c) {time.time() - t0:.1f} s: losses "
           f"{res['c']['losses']} aux {res['c']['aux']}", flush=True)
     Path(out_dir, f"ranks.{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def pp_sep_ranks_main(out_dir):
+    """(d) on the two launched ranks: pp = 2 and sep = 2."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.ops import _build
+    env_ = dist.init_parallel_env()
+    rank, dev = env_.rank, env_.device
+    backend, why = env.backend_choice()
+    print(f"rank {rank} of {env_.world_size} on {dev}: backend {backend} "
+          f"({why})", flush=True)
+    _build.load("flash_attention")
+    paddle.set_device(dev)
+    t0 = time.time()
+    res = {"rank": rank, "backend": backend, "d": pp_sep_ranks(dev)}
+    print(f"rank {rank}: (d) {time.time() - t0:.1f} s", flush=True)
+    Path(out_dir, f"pp_sep.{rank}.json").write_text(json.dumps(res))
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -421,10 +734,45 @@ def twin_main(out_dir):
     return 0
 
 
+def pp_sep_twin_main(out_dir):
+    """(d)'s world-1 twins: the microbatched step of the pipeline runs,
+    the full-batch step of the sep runs and part C's stages in
+    sequence."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.ops import _build
+    _hybrid()
+    import torch.distributed as tdist
+    dev = env._env().device
+    _build.load("flash_attention")
+    paddle.set_device(dev)
+    t0 = time.time()
+    model, cfg, b, s = full_model(dev)
+    ids = _ids(cfg.vocab_size, b, s, SEED)
+    x, y = paddle.to_tensor(ids[:, :-1]), paddle.to_tensor(ids[:, 1:])
+    opt = _adamw(model)
+    res = {"backend": tdist.get_backend(),
+           "full": run_steps(model, opt, (x, y), TWIN_STEPS)}
+    res["full"]["tokens_per_step"] = b * s
+    del model, opt
+    _free()
+    res["micro"] = micro_twin(dev)
+    res["C"] = part_c_run(dev, False)
+    print(f"pp/sep twin: {time.time() - t0:.1f} s", flush=True)
+    Path(out_dir, "pp_sep_twin.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ranks", action="store_true")
     ap.add_argument("--twin", action="store_true")
+    ap.add_argument("--pp-sep-ranks", action="store_true")
+    ap.add_argument("--pp-sep-twin", action="store_true")
+    ap.add_argument("--phase", choices=("hybrid", "pipeline_sep", "both"),
+                    default="both")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -434,6 +782,10 @@ def main():
         return ranks_main(args.out)
     if args.twin:
         return twin_main(args.out)
+    if args.pp_sep_ranks:
+        return pp_sep_ranks_main(args.out)
+    if args.pp_sep_twin:
+        return pp_sep_twin_main(args.out)
     import chip_smoke as cs
     from paddle_tpu_torch.distributed import staged
     from paddle_tpu_torch.ops import _build
@@ -445,10 +797,16 @@ def main():
     staged.load()
     print(f"build flash_attention + staged backend {time.time() - t0:.1f} s",
           flush=True)
-    t0 = time.time()
-    out = cs.hybrid_phase(torch.device("cuda", 0), card)
-    print(f"hybrid phase {time.time() - t0:.1f} s: {json.dumps(out)}",
-          flush=True)
+    if args.phase in ("hybrid", "both"):
+        t0 = time.time()
+        out = cs.hybrid_phase(torch.device("cuda", 0), card)
+        print(f"hybrid phase {time.time() - t0:.1f} s: {json.dumps(out)}",
+              flush=True)
+    if args.phase in ("pipeline_sep", "both"):
+        t0 = time.time()
+        out = cs.pipeline_sep_phase(torch.device("cuda", 0), card)
+        print(f"pipeline_sep phase {time.time() - t0:.1f} s: "
+              f"{json.dumps(out)}", flush=True)
     return 0
 
 
