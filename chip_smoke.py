@@ -230,7 +230,26 @@ Phases (any failure raises and the script exits non-zero):
    (48 ``QuantedLinear``) captured by ``to_static`` and bitwise its eager
    twin over 6 steps, the 48 EMA scales included, its replays timed and
    profiled beside the float captured step of the same run, K1-K3 12 a
-   replay, converted to 48 int8 layers within the bar.
+   replay, converted to 48 int8 layers within the bar.  Then M13 part 1
+   (``vision_audio_phase``, no kernel of K1-K8 on its path): the
+   reference's ``vision.models.resnet50()`` (1000 classes, 25,557,032
+   parameters) trained through ``Model.fit`` (O1 bf16 autocast, B64 x 224,
+   ``Momentum(0.1, 0.9)`` + L2 1e-4) on a ``DataLoader`` of 4 forked
+   workers over a ``DatasetFolder`` of 512 seeded uint8 .npy images with
+   ``RandomResizedCrop`` / ``RandomHorizontalFlip`` / ``Transpose`` /
+   ``Normalize``: its first loss, every gradient and the 106 running
+   statistics held to a ``torch.nn`` twin with the reference's
+   BatchNorm; step ms, images/s, MFU, peak memory, ``train_batch``
+   against the bare step, dispatches, a profiled step, the loader's
+   rate alone; the bare step captured by ``jit.to_static`` and replayed
+   bitwise an eager twin (BatchNorm's statistics updated in the graph);
+   ``LogMelSpectrogram`` / ``MFCC(40)`` over 64 clips of 5 s at 32 kHz
+   (PANNs' front end) and a waveform gradient against the CPU, ``ESC50``
+   over seeded WAV files through a 2-worker loader; ``nms`` (6000 boxes),
+   ``roi_align`` (with its feature gradient) and ``roi_pool`` at Faster
+   R-CNN R50-C4 sizes against the CPU; ``viterbi_decode`` at B64 T128
+   against the CPU; and every ``vision.models`` factory's parameter count
+   and f32 forward (TF32 off) against the CPU.
 7. weight-only, K8's path: Llama-3-8B's 224 projection weights (32
    layers, random bf16 from a seeded generator on the card) quantized to
    int8 and int4 through ``weight_quantize``; one decode step of linear
@@ -7252,6 +7271,758 @@ def dist_rest_phase(dev, card):
     return res
 
 
+# ------------------------------------- phase 6i: vision, audio, text (M13)
+# (a): the reference's ResNet-50 trained through Model.fit at ImageNet width
+VA_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_vision"
+VA_IMAGES, VA_CLASSES, VA_HW = 512, 8, 256   # seeded uint8 .npy images
+VA_B = 64                        # PaddleClas ResNet50's batch a card
+VA_EPOCHS = 2                    # fit epochs (8 batches each)
+VA_WORKERS = 4                   # the loader's forked workers
+VA_LR, VA_MOMENTUM, VA_WD = 0.1, 0.9, 1e-4   # PaddleClas's recipe, L2 decay
+VA_TIMED = 6                     # interleaved train_batch / bare steps
+VA_REPLAYS = 6                   # timed replays of the captured step
+IMAGENET_MEAN = [123.675, 116.28, 103.53]    # 255 x (0.485, 0.456, 0.406)
+IMAGENET_STD = [58.395, 57.12, 57.375]       # 255 x (0.229, 0.224, 0.225)
+RESNET50_PARAMS = 25_557_032
+# (b): ESC-50 clips through PANNs' front end
+ESC_CLIPS, ESC_SR, ESC_SECONDS = 64, 32000, 5
+PANNS = dict(sr=32000, n_fft=1024, hop_length=320, window="hann", n_mels=64,
+             f_min=50.0, f_max=14000.0)
+ESC_FILES, ESC_FOLDS = 40, 4     # seeded WAV files, classes, for ESC50
+# (c): PaddleDetection's Faster R-CNN R50-C4 defaults
+DET_BOXES, DET_IOU, DET_TOPK = 6000, 0.7, 1000
+ROI_N, ROI_FEAT, ROI_SCALE = 512, (1, 1024, 50, 76), 1 / 16
+ROI_ALIGN_OUT, ROI_POOL_OUT = 14, 7
+# (d): a CRF over 9 BIO tags plus BOS and EOS
+VIT_B, VIT_T, VIT_N = 64, 128, 11
+# card against the CPU in float32 with TF32 off: of the largest magnitude
+VA_F32_TOL = 1e-4
+# log-mel / MFCC in dB, absolute: a float32 FFT's rounding is about 1e-7
+# of a frame's largest power, so a mel band 60 dB under it carries about
+# 1e-3 relative (4e-3 dB), and the dB scale spans 80+ dB (the first card
+# run saw 1.13e-3 dB against a 1e-3 bar)
+VA_DB_TOL = 2e-2
+VA_TIMED_OPS = 5                 # timed calls of each op (median)
+# (e): every factory, f32 B2 at 224, canonical (torchvision) counts
+ZOO_PARAMS = {
+    "resnet18": 11_689_512, "resnet34": 21_797_672, "resnet50": 25_557_032,
+    "resnet101": 44_549_160, "resnet152": 60_192_808,
+    "resnext50_32x4d": 25_028_904, "resnext101_32x4d": 44_177_704,
+    "resnext101_64x4d": 83_455_272, "wide_resnet50_2": 68_883_240,
+    "wide_resnet101_2": 126_886_696, "vgg16": 138_357_544,
+    "vgg19": 143_667_240, "mobilenet_v2": 3_504_872, "alexnet": 61_100_840,
+    "densenet121": 7_978_856, "densenet161": 28_681_000,
+    "densenet169": 14_149_480, "densenet201": 20_013_928,
+    "squeezenet1_0": 1_248_424, "squeezenet1_1": 1_235_496,
+    "shufflenet_v2_x0_25": 603_688, "shufflenet_v2_x0_5": 1_366_792,
+    "shufflenet_v2_x1_0": 2_278_604, "shufflenet_v2_x1_5": 3_503_624,
+    "shufflenet_v2_x2_0": 7_393_996, "shufflenet_v2_swish": 2_278_604,
+    "mobilenet_v1": 4_231_976, "mobilenet_v3_large": 5_483_032,
+    "mobilenet_v3_small": 2_542_856, "googlenet": 13_004_888,
+    "inception_v3": 23_834_568,
+}
+ZOO_B = 2
+
+
+@contextlib.contextmanager
+def _tf32_off():
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+@contextlib.contextmanager
+def _place(place):
+    """The port's current place set to ``place`` for the block."""
+    from paddle_tpu_torch.core import device as core_device
+    prev = core_device._current_device
+    core_device.set_device(place)
+    try:
+        yield
+    finally:
+        core_device._current_device = prev
+
+
+def _close_to(tag, got, want, tol=VA_F32_TOL, absolute=False):
+    """got (card) against want (CPU) within tol of want's largest magnitude
+    (or tol absolute); returns the error over the largest magnitude."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+          f"{tag}: shape {tuple(g.shape)} vs {tuple(w.shape)} or not finite")
+    top = max(w.abs().max().item(), 1e-30)
+    err = (g - w).abs().max().item()
+    check(err <= (tol if absolute else tol * top),
+          f"{tag}: off the CPU's by {err} (largest {top}, tol {tol})")
+    return err if absolute else err / top
+
+
+def _ms(fn, n=VA_TIMED_OPS):
+    """Median wall ms of fn over n synchronised calls (after one warm)."""
+    fn()
+    return float(np.median([_synced(fn)[1] for _ in range(n)]))
+
+
+def _imagenet_folder():
+    """VA_IMAGES seeded uint8 HWC images in VA_CLASSES class folders, each
+    class shifted towards its own colour so that the loss can fall."""
+    root = VA_DIR / "imagenet"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.RandomState(SEED)
+    shifts = rng.uniform(-60, 60, (VA_CLASSES, 1, 1, 3))
+    per = VA_IMAGES // VA_CLASSES
+    for c in range(VA_CLASSES):
+        d = root / f"n{c:08d}"
+        d.mkdir(parents=True)
+        imgs = rng.randint(0, 256, (per, VA_HW, VA_HW, 3)) + shifts[c]
+        for i, img in enumerate(np.clip(imgs, 0, 255).astype(np.uint8)):
+            np.save(d / f"{i:04d}.npy", img)
+    return root
+
+
+class _TwinBN(torch.nn.Module):
+    """BatchNorm2D as the reference's ``nn/layer/norm.py`` computes it, in
+    float32: the biased batch variance normalises and feeds the running
+    update, running = 0.9 running + 0.1 batch (Paddle's momentum 0.9, not
+    torch's unbiased running variance)."""
+
+    def __init__(self, c):
+        super().__init__()
+        self.weight = torch.nn.Parameter(torch.ones(c))
+        self.bias = torch.nn.Parameter(torch.zeros(c))
+        self.register_buffer("_mean", torch.zeros(c))
+        self.register_buffer("_variance", torch.ones(c))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean((0, 2, 3))
+        var = xf.var((0, 2, 3), correction=0)
+        with torch.no_grad():
+            self._mean.copy_(0.9 * self._mean + 0.1 * mean)
+            self._variance.copy_(0.9 * self._variance + 0.1 * var)
+        out = (xf - mean[:, None, None]) * torch.rsqrt(
+            var[:, None, None] + 1e-5)
+        return out * self.weight[:, None, None] + self.bias[:, None, None]
+
+
+class _TwinBottleneck(torch.nn.Module):
+    def __init__(self, cin, planes, stride, down):
+        super().__init__()
+        conv = torch.nn.Conv2d
+        self.conv1, self.bn1 = conv(cin, planes, 1, bias=False), \
+            _TwinBN(planes)
+        self.conv2, self.bn2 = conv(planes, planes, 3, stride, 1,
+                                    bias=False), _TwinBN(planes)
+        self.conv3, self.bn3 = conv(planes, 4 * planes, 1, bias=False), \
+            _TwinBN(4 * planes)
+        self.downsample = torch.nn.Sequential(
+            conv(cin, 4 * planes, 1, stride, bias=False),
+            _TwinBN(4 * planes)) if down else None
+
+    def forward(self, x):
+        relu = torch.nn.functional.relu
+        out = relu(self.bn1(self.conv1(x)))
+        out = relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return relu(out + (x if self.downsample is None
+                           else self.downsample(x)))
+
+
+class ResNet50Twin(torch.nn.Module):
+    """``vision.models.resnet50()`` in torch.nn with the port's parameter
+    names (Linear's weight stored [in, out] as Paddle's)."""
+
+    def __init__(self, num_classes=1000):
+        super().__init__()
+        self.conv1 = torch.nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = _TwinBN(64)
+        cin, layers = 64, []
+        for planes, n, stride in ((64, 3, 1), (128, 4, 2), (256, 6, 2),
+                                  (512, 3, 2)):
+            blocks = []
+            for i in range(n):
+                blocks.append(_TwinBottleneck(cin, planes,
+                                              stride if i == 0 else 1, i == 0))
+                cin = 4 * planes
+            layers.append(torch.nn.Sequential(*blocks))
+        self.layer1, self.layer2, self.layer3, self.layer4 = layers
+        self.fc_weight = torch.nn.Parameter(torch.zeros(2048, num_classes))
+        self.fc_bias = torch.nn.Parameter(torch.zeros(num_classes))
+
+    def forward(self, x):
+        x = torch.nn.functional.relu(self.bn1(self.conv1(x)))
+        x = torch.nn.functional.max_pool2d(x, 3, 2, 1)
+        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        x = torch.flatten(torch.nn.functional.adaptive_avg_pool2d(x, 1), 1)
+        return torch.nn.functional.linear(x, self.fc_weight.t(),
+                                          self.fc_bias)
+
+    def load_port_state(self, state):
+        """``state``: the port model's {name: torch tensor}."""
+        own = dict(self.named_parameters()) | dict(self.named_buffers())
+        for n, v in state.items():
+            own[n.replace("fc.", "fc_")].data.copy_(v)
+
+    def port_grads(self):
+        return {n.replace("fc_", "fc."): p.grad
+                for n, p in self.named_parameters()}
+
+
+def conv_macs(twin, hw=224):
+    """Multiply-adds of one hw x hw image through the twin's convolutions
+    and its classifier, counted by forward hooks."""
+    total = [0]
+
+    def hook(m, inp, out):
+        total[0] += out[0].numel() * m.in_channels // m.groups \
+            * m.kernel_size[0] * m.kernel_size[1]
+    hooks = [m.register_forward_hook(hook) for m in twin.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    p = next(twin.parameters())
+    with torch.no_grad():
+        twin.eval()
+        twin(torch.zeros(1, 3, hw, hw, device=p.device))
+        twin.train()
+    for h in hooks:
+        h.remove()
+    return total[0] + twin.fc_weight.numel()
+
+
+def _amp_net(nn, paddle, net):
+    """The network whose forward runs under ``amp.auto_cast`` O1 bf16 (the
+    reference's hapi ``prepare`` takes ``amp_configs`` and applies none)."""
+    class AutoCast(nn.Layer):
+        def __init__(self, inner):
+            super().__init__()
+            self.net = inner
+
+        def forward(self, x):
+            with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+                return self.net(x)
+    return AutoCast(net)
+
+
+def vision_train(dev, card):
+    """(a): ``vision.models.resnet50()`` trained through ``Model.fit``; its
+    first step held to the torch.nn twin, its costs, and its step captured
+    by ``jit.to_static``.  Returns the readings."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import io, nn
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.vision import models, transforms as T
+    from paddle_tpu_torch.vision.datasets import DatasetFolder
+    t0 = time.perf_counter()
+    root = _imagenet_folder()
+    gen_s = time.perf_counter() - t0
+    tf = T.Compose([T.RandomResizedCrop(224), T.RandomHorizontalFlip(),
+                    T.Transpose(), T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+    ds = DatasetFolder(str(root), transform=tf)
+    check(len(ds) == VA_IMAGES and len(ds.classes) == VA_CLASSES,
+          f"vision (a): the folder holds {len(ds)} images")
+
+    def loader():
+        return io.DataLoader(ds, batch_size=VA_B, shuffle=True,
+                             drop_last=True, num_workers=VA_WORKERS)
+    np.random.seed(SEED)
+    stamps, batches = [time.perf_counter()], []
+    for b in loader():
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        batches.append(b)
+    x0, y0 = batches[0]
+    check(len(batches) == VA_IMAGES // VA_B and list(x0.shape) ==
+          [VA_B, 3, 224, 224] and x0._buf.device.type == dev.type,
+          f"vision (a): loader batches {len(batches)} of {x0.shape}")
+    # the workers' start (forking this process) apart from their rate
+    load_s, first_s = stamps[-1] - stamps[0], stamps[1] - stamps[0]
+    loader_rate = (len(batches) - 1) / (stamps[-1] - stamps[1])
+    del batches
+
+    paddle.seed(SEED)
+    net = models.resnet50()
+    n_params = sum(p.size for p in net.parameters())
+    check(n_params == RESNET50_PARAMS, f"vision (a): resnet50 has "
+          f"{n_params} parameters, not {RESNET50_PARAMS}")
+    state0 = {k: v._buf.detach().clone() for k, v in net.state_dict().items()}
+    twin = ResNet50Twin().to(dev)
+    macs = conv_macs(twin)
+    per_position = paddle.flops(net, [1, 3, 224, 224])
+    model = paddle.Model(_amp_net(nn, paddle, net))
+    opt = paddle.optimizer.Momentum(VA_LR, VA_MOMENTUM,
+                                    parameters=net.parameters(),
+                                    weight_decay=VA_WD)
+    model.prepare(opt, nn.CrossEntropyLoss())
+    first, walls, losses = {}, [], []
+    fit_step, opt_step = model.train_batch, opt.step
+
+    def train_batch(data, label):
+        if not first:
+            first["batch"] = (data, label)
+        out = fit_step(data, label)
+        first.setdefault("loss", out[0])      # [loss] without metrics
+        return out
+
+    def step_spy():
+        if "grads" not in first:
+            first["grads"] = {n: p.grad._buf.float().clone()
+                              for n, p in net.named_parameters()}
+            first["stats"] = {n: b._buf.clone()
+                              for n, b in net.named_buffers()}
+        return opt_step()
+
+    class Walls(Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            walls.append((time.perf_counter() - self.t0) * 1e3)
+            losses.append(logs["loss"] if np.isscalar(logs["loss"])
+                          else logs["loss"][0])
+
+    model.train_batch, opt.step = train_batch, step_spy
+    np.random.seed(SEED + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(loader(), epochs=VA_EPOCHS, verbose=0, callbacks=[Walls()])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = {k: v for k, v in launch_counts().items() if v}
+    del model.train_batch, opt.step
+    steps = VA_EPOCHS * (VA_IMAGES // VA_B)
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"vision (a): fit losses {losses}")
+    head, tail = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    check(tail < head, f"vision (a): the loss did not fall ({losses})")
+    check(not launched, f"vision (a): the path launched {launched}")
+
+    # the first step against the torch.nn twin from the same weights
+    twin.load_port_state(state0)
+    x, y = first["batch"]
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        logits = twin(x._buf)
+    ref = torch.nn.functional.cross_entropy(logits.float(), y._buf.long())
+    ref.backward()
+    ref_loss = ref.item()
+    check(abs(first["loss"] - ref_loss) <= TRAIN_LOSS_TOL * abs(ref_loss),
+          f"vision (a): first loss {first['loss']} vs the twin's {ref_loss}")
+    errs = _grad_errors(first["grads"], {
+        n: g.float() for n, g in twin.port_grads().items()})
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= TRAIN_GRAD_TOL, f"vision (a): gradient {worst} off "
+          f"the twin's by {errs[worst]:.3e} of its largest element")
+    twin_stats = dict(twin.named_buffers())
+    stat_errs = {n: ((b.float() - twin_stats[n]).abs().max()
+                     / twin_stats[n].abs().max()).item()
+                 for n, b in first["stats"].items()}
+    worst_stat = max(stat_errs, key=stat_errs.get)
+    check(len(stat_errs) == 106 and stat_errs[worst_stat] <= TRAIN_GRAD_TOL,
+          f"vision (a): running statistic {worst_stat} off the twin's by "
+          f"{stat_errs[worst_stat]:.3e}")
+    print(f"vision (a) twin: first loss {first['loss']:.6f} vs the "
+          f"torch.nn twin's {ref_loss:.6f} (tol {TRAIN_LOSS_TOL}); "
+          f"{len(errs)} gradients, worst {worst} {errs[worst]:.3e} of its "
+          f"largest element (tol {TRAIN_GRAD_TOL}); {len(stat_errs)} running "
+          f"statistics after the step, worst {worst_stat} "
+          f"{stat_errs[worst_stat]:.3e}; O1 bf16 autocast on both, cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32}; on {card}", flush=True)
+    del twin, logits, ref, first
+    gc.collect()
+
+    # costs: train_batch against the bare step, interleaved, on one batch
+    inner, loss_fn = model.network, model._loss
+
+    def bare_step():
+        loss = loss_fn(inner(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    hapi_ms, bare_ms = [], []
+    for _ in range(VA_TIMED):
+        hapi_ms.append(_synced(lambda: model.train_batch(x, y))[1])
+        bare_ms.append(_synced(bare_step)[1])
+    n_hapi, hapi_us = _dispatch_costs(lambda: model.train_batch(x, y))
+    wall, busy, rows = _profiled(lambda: model.train_batch(x, y), dev)
+    ms = float(np.median(walls[2:]))
+    img_s = VA_B / (ms / 1e3)
+    mfu = img_s * 3 * 2 * macs / BF16_FLOPS
+    h_ms, b_ms = float(np.median(hapi_ms)), float(np.median(bare_ms))
+    print(f"vision (a) fit: resnet50 ({n_params} parameters) O1 bf16 "
+          f"B{VA_B} x 3 x 224 x 224, Momentum({VA_LR}, {VA_MOMENTUM}) + L2 "
+          f"{VA_WD}, {steps} steps of Model.fit over a DatasetFolder of "
+          f"{VA_IMAGES} seeded .npy images ({VA_CLASSES} classes, written in "
+          f"{gen_s:.1f} s; RandomResizedCrop(224), RandomHorizontalFlip, "
+          f"Transpose, Normalize; {VA_WORKERS} workers) in {fit_s:.2f} s: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (first four mean "
+          f"{head:.4f}, last four {tail:.4f}); step median {ms:.2f} ms "
+          f"({[round(w, 1) for w in walls]}), {img_s:.1f} images/s, MFU "
+          f"{mfu:.4f} (3 x 2 x {macs} multiply-adds an image, counted by "
+          f"hooks on the twin's convolutions and classifier; paddle.flops "
+          f"gives {per_position}, its per-position count); peak memory "
+          f"{peak:.2f} GiB; the loader alone {loader_rate:.2f} batches/s "
+          f"after its first batch (one epoch {load_s:.2f} s, the first "
+          f"batch {first_s:.2f} s: forking the workers) against the step's "
+          f"demand of {1e3 / ms:.2f}; on {card}", flush=True)
+    print(f"vision (a) hapi: train_batch median {h_ms:.2f} ms "
+          f"({[round(v, 2) for v in hapi_ms]}) against the bare step's "
+          f"{b_ms:.2f} ms ({[round(v, 2) for v in bare_ms]}); {n_hapi} "
+          f"apply_op dispatches a train_batch at {hapi_us:.2f} host us each; "
+          f"a profiled train_batch {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}%); top kernels "
+          + ", ".join(f"{k[:40]} {v:.2f} ms" for k, _, v in rows[:4])
+          + f"; on {card}", flush=True)
+    out = {"step_ms": ms, "images_s": img_s, "mfu": mfu, "macs": macs,
+           "peak_gib": peak, "fit_s": fit_s, "losses": losses,
+           "hapi_ms": h_ms, "bare_ms": b_ms, "dispatches": n_hapi,
+           "host_us": hapi_us, "busy_ms": busy, "profiled_ms": wall,
+           "loader_batches_s": loader_rate, "loader_first_s": first_s,
+           "grad_err": errs[worst]}
+    del model, opt, inner
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["capture"] = vision_capture(dev, card, state0, x, y)
+    return out
+
+
+def vision_capture(dev, card, state0, x, y):
+    """(a)'s bare step captured by ``jit.to_static`` and replayed, held
+    bitwise to an eager twin from the same weights (losses, parameters and
+    BatchNorm's running statistics, which the graph updates)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.vision import models
+
+    def build():
+        net = models.resnet50()
+        net.set_state_dict({k: v.clone() for k, v in state0.items()})
+        opt = paddle.optimizer.Momentum(VA_LR, VA_MOMENTUM,
+                                        parameters=net.parameters(),
+                                        weight_decay=VA_WD)
+        amp_net, loss_fn = _amp_net(nn, paddle, net), nn.CrossEntropyLoss()
+        amp_net.train()
+
+        def step(xb, yb):
+            loss = loss_fn(amp_net(xb), yb)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return net, step
+
+    net_c, step_c = build()
+    static = paddle.jit.to_static(step_c)
+    t0 = time.perf_counter()
+    warm, peak = _warm_capture(static, lambda: static(x, y), "vision (a)")
+    capture_s = time.perf_counter() - t0
+    replays = [_synced(lambda: static(x, y)) for _ in range(VA_REPLAYS)]
+    got = [float(v) for v in warm] + [float(r[0]) for r in replays]
+    replay_ms = float(np.median([r[1] for r in replays]))
+    net_e, step_e = build()
+    want = [float(step_e(x, y)) for _ in got]
+    same = _hold_twins("vision (a)", got, want, net_c, net_e)
+    same_stats = all(torch.equal(a._buf, b._buf) for a, b in
+                     zip(net_c.buffers(), net_e.buffers()))
+    moved = not torch.equal(net_c.bn1._mean._buf, state0["bn1._mean"])
+    check(same and same_stats and moved, f"vision (a) capture: replays "
+          f"not bitwise the eager twin (losses and parameters "
+          f"{same}, running statistics {same_stats}, moved {moved})")
+    n_replay, replay_us = _dispatch_costs(lambda: static(x, y))
+    wall, busy, _ = _profiled(lambda: static(x, y), dev)
+    print(f"vision (a) capture: the bare step under jit.to_static, "
+          f"{len(warm)} calls to capture in {capture_s:.2f} s (peak "
+          f"{peak:.2f} GiB), replay median {replay_ms:.2f} ms "
+          f"({[round(r[1], 2) for r in replays]}), {VA_B / replay_ms * 1e3:.1f} "
+          f"images/s; a profiled replay {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / wall:.1f}%), {n_replay} dispatches "
+          f"a replay; {len(got)} losses, the parameters and BatchNorm's "
+          f"running statistics bitwise the eager twin's; on {card}",
+          flush=True)
+    return {"replay_ms": replay_ms, "capture_s": capture_s, "busy_ms": busy,
+            "profiled_ms": wall, "peak_gib": peak}
+
+
+def _esc50_clips():
+    """ESC_CLIPS seeded clips of ESC_SECONDS at ESC_SR: a few tones in
+    noise, at -1..1."""
+    rng = np.random.RandomState(SEED)
+    n = ESC_SR * ESC_SECONDS
+    t = np.arange(n) / ESC_SR
+    f = rng.uniform(80, 12000, (ESC_CLIPS, 3, 1))
+    tones = np.sin(2 * np.pi * f * t).sum(1) / 3
+    return (0.5 * tones + 0.1 * rng.randn(ESC_CLIPS, n)).astype(np.float32)
+
+
+def audio_features(dev, card):
+    """(b): ESC-50-shaped clips through ``LogMelSpectrogram`` and
+    ``MFCC(n_mfcc=40)`` at PANNs' front end on the card and on the CPU, a
+    waveform gradient, then ``audio.datasets.ESC50`` over seeded WAV files
+    written by ``audio.save`` through a two-worker ``DataLoader``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import audio, io
+    from paddle_tpu_torch.audio.features import LogMelSpectrogram, MFCC
+    clips = _esc50_clips()
+    w = None
+    res, readings = {}, {}
+    with _tf32_off():
+        for place in ("cpu", dev):
+            with _place(place):
+                lm = LogMelSpectrogram(**PANNS)
+                mf = MFCC(n_mfcc=40, **PANNS)
+                x = paddle.to_tensor(clips)
+                if w is None:
+                    shape = lm(x).shape
+                    w = np.random.RandomState(1).rand(*shape) \
+                        .astype(np.float32) / np.prod(shape)
+                xg = paddle.to_tensor(clips, stop_gradient=False)
+                (lm(xg) * paddle.to_tensor(w)).sum().backward()
+                res[str(place)] = [lm(x)._buf, mf(x)._buf,
+                                   xg.grad._buf.clone()]
+                if place == dev:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    readings["logmel_ms"] = _ms(lambda: lm(x))
+                    readings["mfcc_ms"] = _ms(lambda: mf(x))
+                    readings["peak_mib"] = (torch.cuda.max_memory_allocated()
+                                            - base) / 2 ** 20
+    cpu, card_res = res["cpu"], res[str(dev)]
+    errs = [_close_to("audio (b) log-mel", card_res[0], cpu[0], VA_DB_TOL,
+                      absolute=True),
+            _close_to("audio (b) mfcc", card_res[1], cpu[1], VA_DB_TOL,
+                      absolute=True),
+            _close_to("audio (b) waveform gradient", card_res[2], cpu[2])]
+    check(list(card_res[0].shape) == [ESC_CLIPS, 64, 501] and
+          list(card_res[1].shape) == [ESC_CLIPS, 40, 501],
+          f"audio (b): shapes {card_res[0].shape}, {card_res[1].shape}")
+    clips_s = ESC_CLIPS / (readings["logmel_ms"] / 1e3)
+
+    # ESC50 over seeded WAV files, class folders, a two-worker loader
+    root = VA_DIR / "esc50"
+    shutil.rmtree(root, ignore_errors=True)
+    per = ESC_FILES // ESC_FOLDS
+    for c in range(ESC_FOLDS):
+        (root / f"{c:02d}").mkdir(parents=True)
+        for i in range(per):
+            audio.save(str(root / f"{c:02d}" / f"{c}-{i}.wav"),
+                       paddle.to_tensor(clips[(c * per + i) % ESC_CLIPS][None, :]),
+                       ESC_SR)
+    ds = audio.datasets.ESC50(mode="train", data_dir=str(root),
+                              feat_type="logmelspectrogram", **{
+                                  k: v for k, v in PANNS.items()
+                                  if k != "sr"})
+    t0 = time.perf_counter()
+    batches = list(io.DataLoader(ds, batch_size=8, num_workers=2))
+    load_s = time.perf_counter() - t0
+    feats = torch.cat([b[0]._buf for b in batches])
+    labels = torch.cat([b[1]._buf.reshape(-1) for b in batches])
+    check(len(ds) == int(per * 0.8) * ESC_FOLDS and feats.shape[0] == len(ds)
+          and labels.tolist() == ds._labels, f"audio (b) ESC50: {len(ds)} "
+          f"items, features {tuple(feats.shape)}, labels {labels.tolist()}")
+    # the first file through the card's feature (the WAV's 16-bit rounding)
+    wav, sr = audio.load(ds._files[0])
+    direct = ds._feature(sr)(wav)._buf
+    esc_err = _close_to("audio (b) ESC50 item 0", feats[0], direct,
+                        VA_DB_TOL, absolute=True)
+    print(f"audio (b): {ESC_CLIPS} clips x {ESC_SECONDS} s at {ESC_SR} Hz "
+          f"(PANNs' front end: n_fft 1024, hop 320, hann, 64 mels 50-14000 "
+          f"Hz): LogMelSpectrogram {readings['logmel_ms']:.3f} ms "
+          f"({clips_s:.0f} clips/s), MFCC(40) {readings['mfcc_ms']:.3f} ms, "
+          f"peak {readings['peak_mib']:.1f} MiB over the inputs; card vs "
+          f"CPU (f32, TF32 off): log-mel {errs[0]:.2e} dB, MFCC "
+          f"{errs[1]:.2e}, waveform gradient {errs[2]:.2e} of the largest; "
+          f"ESC50(logmelspectrogram) over {len(ds)} WAV files in "
+          f"{ESC_FOLDS} class folders through a 2-worker DataLoader in "
+          f"{load_s:.2f} s, item 0 vs the card's feature {esc_err:.2e} dB; "
+          f"on {card}", flush=True)
+    return dict(readings, clips_s=clips_s, errors=errs, esc50_s=load_s)
+
+
+def _det_boxes(rng, n, h, w):
+    xy = rng.uniform(0, 1, (n, 2)) * [w, h]
+    wh = rng.uniform(16, 256, (n, 2))
+    b = np.concatenate([xy, xy + wh], 1)
+    return np.minimum(b, [w, h, w, h]).astype(np.float32)
+
+
+def detection_ops(dev, card):
+    """(c): ``nms``, ``roi_align`` (forward and the feature gradient) and
+    ``roi_pool`` at Faster R-CNN R50-C4 sizes on the card, each held to the
+    port's CPU run: NMS indices exactly, the others at VA_F32_TOL."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision import ops
+    rng = np.random.RandomState(SEED)
+    img_h, img_w = ROI_FEAT[2] * 16, ROI_FEAT[3] * 16
+    boxes = _det_boxes(rng, DET_BOXES, img_h, img_w)
+    scores = rng.rand(DET_BOXES).astype(np.float32)
+    feat = rng.standard_normal(ROI_FEAT).astype(np.float32)
+    rois = _det_boxes(rng, ROI_N, img_h, img_w)
+    wa = rng.rand(ROI_N, ROI_FEAT[1], ROI_ALIGN_OUT, ROI_ALIGN_OUT) \
+        .astype(np.float32)
+    res, ms = {}, {}
+    with _tf32_off():
+        for place in ("cpu", dev):
+            with _place(place):
+                b, s = paddle.to_tensor(boxes), paddle.to_tensor(scores)
+                f = paddle.to_tensor(feat, stop_gradient=False)
+                r, num = paddle.to_tensor(rois), paddle.to_tensor(
+                    np.array([ROI_N]))
+
+                def nms():
+                    return ops.nms(b, DET_IOU, s, top_k=DET_TOPK)
+
+                def align():
+                    return ops.roi_align(f, r, num, ROI_ALIGN_OUT, ROI_SCALE,
+                                         sampling_ratio=0)
+
+                def pool():
+                    return ops.roi_pool(f, r, num, ROI_POOL_OUT, ROI_SCALE)
+                w = paddle.to_tensor(wa)
+                out = align()
+                (out * w).sum().backward()
+                # copies: the timed backward calls below accumulate into
+                # the same gradient buffer
+                res[str(place)] = [t.clone() for t in (
+                    nms()._buf, out._buf, f.grad._buf, pool()._buf)]
+                if place == dev:
+                    def align_bwd():
+                        (align() * w).sum().backward()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    ms = {"nms": _ms(nms), "roi_align": _ms(align),
+                          "roi_align_fwd_bwd": _ms(align_bwd),
+                          "roi_pool": _ms(pool)}
+                    ms["peak_gib"] = (torch.cuda.max_memory_allocated()
+                                      - base) / 2 ** 30
+    cpu, got = res["cpu"], res[str(dev)]
+    check(torch.equal(got[0].cpu(), cpu[0]), f"detection (c): nms kept "
+          f"{got[0].shape[0]} boxes on the card, {cpu[0].shape[0]} on the "
+          "CPU, or other indices")
+    errs = {"roi_align": _close_to("detection (c) roi_align", got[1], cpu[1]),
+            "roi_align feature grad": _close_to(
+                "detection (c) roi_align gradient", got[2], cpu[2]),
+            "roi_pool": _close_to("detection (c) roi_pool", got[3], cpu[3])}
+    print(f"detection (c): nms over {DET_BOXES} boxes at IoU {DET_IOU}, "
+          f"top_k {DET_TOPK}: {got[0].shape[0]} kept, indices equal to the "
+          f"CPU's, {ms['nms']:.2f} ms; roi_align {ROI_N} rois on "
+          f"{list(ROI_FEAT)} x {ROI_SCALE:.4f} -> {ROI_ALIGN_OUT}x"
+          f"{ROI_ALIGN_OUT} (sampling_ratio 0) {ms['roi_align']:.2f} ms, with "
+          f"the feature gradient {ms['roi_align_fwd_bwd']:.2f} ms; roi_pool "
+          f"{ROI_POOL_OUT}x{ROI_POOL_OUT} {ms['roi_pool']:.2f} ms; peak "
+          f"{ms['peak_gib']:.2f} GiB over the inputs; card vs CPU (f32, TF32 "
+          f"off): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" of the largest (tol {VA_F32_TOL}); on {card}", flush=True)
+    return dict(ms, errors=errs, kept=int(got[0].shape[0]))
+
+
+def viterbi_check(dev, card):
+    """(d): ``viterbi_decode`` at B VIT_B, T VIT_T, VIT_N tags (with BOS and
+    EOS) on the card against the CPU: paths equal, scores within 1e-5
+    relative."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import text
+    rng = np.random.RandomState(SEED)
+    emit = rng.standard_normal((VIT_B, VIT_T, VIT_N)).astype(np.float32)
+    trans = rng.standard_normal((VIT_N, VIT_N)).astype(np.float32)
+    lens = rng.randint(1, VIT_T + 1, VIT_B)
+    lens[0] = VIT_T
+    res, ms = {}, None
+    for place in ("cpu", dev):
+        with _place(place):
+            dec = text.ViterbiDecoder(trans)
+            e, n = paddle.to_tensor(emit), paddle.to_tensor(lens)
+
+            def run():
+                return dec(e, n)
+            s, p = run()
+            res[str(place)] = (s._buf, p._buf)
+            if place == dev:
+                ms = _ms(run)
+    (s, p), (cs, cp) = res[str(dev)], res["cpu"]
+    check(torch.equal(p.cpu(), cp), "text (d): viterbi paths differ from "
+          "the CPU's")
+    err = ((s.cpu() - cs).abs() / cs.abs()).max().item()
+    check(err <= 1e-5, f"text (d): viterbi scores off the CPU's by {err}")
+    print(f"text (d): viterbi_decode B{VIT_B} T{VIT_T} {VIT_N} tags (BOS / "
+          f"EOS), lengths 1-{VIT_T}: {ms:.2f} ms; paths equal to the CPU's, "
+          f"scores within {err:.1e} relative; on {card}", flush=True)
+    return {"ms": ms, "score_err": err}
+
+
+def zoo_sweep(dev, card):
+    """(e): every factory of ``vision.models``, once: its parameter count
+    against the canonical one, then an f32 forward at B ZOO_B x 224 x 224
+    (TF32 off, eval mode) on the card against the same weights on the
+    CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision import models
+    x = np.random.RandomState(SEED).rand(ZOO_B, 3, 224, 224) \
+        .astype(np.float32)
+    errs, card_ms = {}, {}
+    t0 = time.perf_counter()
+    with _tf32_off():
+        for name, count in ZOO_PARAMS.items():
+            with _place("cpu"):
+                paddle.seed(SEED)
+                m = getattr(models, name)()
+                n = sum(p.size for p in m.parameters())
+                check(n == count, f"zoo (e): {name} has {n} parameters, not "
+                      f"{count}")
+                m.eval()
+                want = m(paddle.to_tensor(x))._buf
+            m.to(dev)
+            with _place(dev):
+                xt = paddle.to_tensor(x)
+                got, card_ms[name] = _synced(lambda: m(xt))
+            errs[name] = _close_to(f"zoo (e) {name}", got._buf, want)
+            del m, got
+            torch.cuda.empty_cache()
+    worst = max(errs, key=errs.get)
+    print(f"zoo (e): {len(errs)} factories, each parameter count the "
+          f"canonical one, f32 forward B{ZOO_B} x 3 x 224 x 224 (TF32 off) "
+          f"within {errs[worst]:.2e} of the CPU's largest logit (worst "
+          f"{worst}; tol {VA_F32_TOL}); first card forwards "
+          + ", ".join(f"{k} {v:.0f} ms" for k, v in card_ms.items())
+          + f"; the sweep {time.perf_counter() - t0:.1f} s; on {card}",
+          flush=True)
+    return {"errors": errs, "card_ms": card_ms}
+
+
+def vision_audio_phase(dev, card):
+    """M13 part 1 on the card: (a) the reference's ResNet-50 trained
+    through ``Model.fit`` at ImageNet width (``vision_train``), (b) audio
+    features at ESC-50's shape (``audio_features``), (c) detection ops at
+    Faster R-CNN sizes (``detection_ops``), (d) a CRF's Viterbi decode
+    (``viterbi_check``) and (e) the zoo sweep (``zoo_sweep``).  Returns the
+    readings."""
+    import paddle_tpu_torch as paddle
+    gc.collect()
+    torch.cuda.empty_cache()
+    paddle.set_device(dev)
+    t0 = time.perf_counter()
+    out = {"train": vision_train(dev, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["audio"] = audio_features(dev, card)
+    out["detection"] = detection_ops(dev, card)
+    out["viterbi"] = viterbi_check(dev, card)
+    out["zoo"] = zoo_sweep(dev, card)
+    paddle.set_device(dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"vision_audio: the phase took {out['seconds']:.1f} s on {card}",
+          flush=True)
+    return out
+
+
 # --------------------------------------------------- phase 5: weight-only
 # Llama-3-8B's seven projections of a layer, (name, in_features K,
 # out_features N), as weight_only_linear stores them: [K, N]
@@ -7917,6 +8688,8 @@ def main():
     mark("llama layer")
     workflow_phase(dev, card)
     mark("workflow")
+    vision_audio_phase(dev, card)
+    mark("vision_audio")
     wo_lines, wo_launches = weight_only_phase(dev, card)
     mark("weight-only")
     kernels += wo_lines

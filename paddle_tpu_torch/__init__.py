@@ -80,7 +80,7 @@ def disable_signal_handler():
 _LAZY = {
     "nn", "optimizer", "amp", "io", "jit", "distributed", "device", "models",
     "inference", "quantization", "observability", "testing", "framework",
-    "metric", "hapi",
+    "metric", "hapi", "fft", "signal", "audio", "vision", "text",
 }
 
 _LAZY_ATTRS = {

@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.tensor import Tensor, _wrap
+from ..core.tensor import Tensor, _wrap, _conj
 
 
 def _cotangent(t: Tensor, g):
@@ -38,8 +38,9 @@ def _cotangent(t: Tensor, g):
     if g is None:
         return torch.ones_like(b)
     if isinstance(g, Tensor):
-        return g._buf
-    return torch.as_tensor(np.asarray(g), dtype=b.dtype, device=b.device)
+        return _conj(g._buf)
+    return _conj(torch.as_tensor(np.asarray(g), dtype=b.dtype,
+                                 device=b.device))
 
 
 def backward(tensors, grad_tensors=None, retain_graph=False,
@@ -157,7 +158,7 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None, create_graph=Fal
             retain_graph=bool(retain_graph) or create_graph,
             create_graph=create_graph, allow_unused=True)
         for i, g in zip(want, gs):
-            res[i] = g
+            res[i] = _conj(g)
     if not allow_unused and any(g is None for g in res):
         raise RuntimeError(
             "one of the input tensors received no gradient; pass "

@@ -67,6 +67,13 @@ def _host_buf(data, dtype=None, device=None) -> torch.Tensor:
     return buf.to(device=dev, dtype=dt)
 
 
+def _conj(g):
+    """Between the reference's complex convention and torch's: JAX's
+    cotangents and gradients of complex tensors are the conjugates of
+    torch's (``|z|^2`` at ``z`` gives ``2 conj(z)`` there, ``2 z`` here)."""
+    return g.conj().resolve_conj() if g is not None and g.is_complex() else g
+
+
 def _wrap(buf: torch.Tensor) -> "Tensor":
     """A Tensor around an op's output buffer, its autograd state as is."""
     t = Tensor.__new__(Tensor)
@@ -203,6 +210,8 @@ class Tensor:
         if g is None:
             self._grad_buf = self._grad_src = None
             return None
+        if g.is_complex():
+            return _wrap(_conj(g))
         c = self._grad_buf
         src = self._grad_src
         if c is not None and src is not None and src() is g \
@@ -223,10 +232,14 @@ class Tensor:
         tc = _state.trace_ctx
         if tc is not None and tc.on_grad_write(self, value):
             return
-        self._buf.grad = None if value is None else (
+        g = None if value is None else (
             value._buf if isinstance(value, Tensor) else torch.as_tensor(
                 np.asarray(value), dtype=self._buf.dtype,
                 device=self._buf.device))
+        if g is not None and g.is_complex():
+            # stored in torch's convention, read back in the reference's
+            g, value = _conj(g), None
+        self._buf.grad = g
         self._grad_buf = value if isinstance(value, Tensor) else None
 
     # ---- metadata ------------------------------------------------------------

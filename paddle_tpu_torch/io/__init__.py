@@ -362,6 +362,10 @@ def _worker_loop(dataset, index_queue, data_queue, collate_fn, worker_id, seed):
     host arrays."""
     from ..core import device as core_device
     core_device._current_device = torch.device("cpu")
+    # the parent's OpenMP pool does not survive the fork: a torch op on
+    # more than one thread would wait on it forever (torch's own
+    # DataLoader workers run on one thread too)
+    torch.set_num_threads(1)
     np.random.seed(seed + worker_id)
     while True:
         task = index_queue.get()

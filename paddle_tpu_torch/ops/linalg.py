@@ -73,7 +73,8 @@ def cross(x, y, axis=9, name=None):
 
 def cholesky(x, upper=False, name=None):
     def f(a):
-        L = torch.linalg.cholesky(a)
+        # jnp.linalg.cholesky symmetrizes its input first
+        L = torch.linalg.cholesky((a + a.mH) / 2)
         return L.mH if upper else L
     return apply_op("cholesky", f, x)
 

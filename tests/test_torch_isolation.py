@@ -30,6 +30,14 @@ PORT_FILES = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("*.py")) + [
     REPO / "tests" / "torch_preempt_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
+M13_PART1_MODULES = (
+    "fft.py", "signal.py", "audio/__init__.py",
+    "audio/functional/__init__.py", "audio/features/__init__.py",
+    "audio/backends/__init__.py", "audio/datasets/__init__.py",
+    "vision/__init__.py", "vision/ops.py", "vision/transforms/__init__.py",
+    "vision/datasets/__init__.py", "vision/models/__init__.py",
+    "vision/models/extra.py", "vision/models/extra2.py", "text/__init__.py",
+    "text/datasets/__init__.py")
 
 
 def _imported_roots(path):
@@ -94,7 +102,10 @@ def test_port_files_import_no_jax_and_nothing_of_the_jax_package():
         REPO / "tests" / "torch_preempt_worker.py"} | {
         port / "parallel" / f"{m}.py" for m in (
             "__init__", "_compat", "mp_layers", "tensor_parallel", "moe",
-            "sharding")
+            "sharding")} | {
+        # M13 part 1
+        port / m for m in M13_PART1_MODULES} | {
+        REPO / "tools" / "vision_audio_phase.py",
     } <= set(PORT_FILES)
     bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p)
                                             & set(FORBIDDEN))
@@ -128,6 +139,9 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.core.native.build\n"
             "import paddle_tpu_torch.autograd.functional\n"
             "import paddle_tpu_torch.device\n"
+            "import paddle_tpu_torch.fft, paddle_tpu_torch.signal\n"
+            "import paddle_tpu_torch.audio, paddle_tpu_torch.vision\n"
+            "import paddle_tpu_torch.vision.models, paddle_tpu_torch.text\n"
             "import paddle_tpu_torch.nn.functional.attention\n"
             "import paddle_tpu_torch.ops.search\n"
             "import paddle_tpu_torch.ops.stat\n"
